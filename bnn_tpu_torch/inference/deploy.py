@@ -1,0 +1,347 @@
+"""Deployment pass: QAT binary model -> packed / int8 inference model
+(counterpart of ``bnn_tpu/inference/deploy.py``).
+
+Eligible binary layers (a deterministic sign on the input, an
+``XNORWeightBinarizer`` on the weight, a ``BasicScaleBinarizer`` /
+``XNORScaleBinarizer`` / ``Identity`` post-process) become deployed layers
+that store the weight signs (bit-packed or int8) and fold the XNOR alpha, the
+output scale and the bias into a per-out-channel ``(scale, add)`` epilogue.
+
+Execution:
+
+- ``DeployedLinear`` and ``DeployedConv`` in modes ``gemm`` / ``im2col`` run
+  :func:`~bnn_tpu_torch.kernels.gemm.binary_gemm`;
+- ``DeployedConv`` in mode ``conv`` is an exact int8 x int8 -> int32 product
+  over unfolded patches (``torch._int_mm``), as the JAX package leaves the
+  int8 conv to XLA. A float conv is no substitute: Winograd or FFT
+  algorithms do not return exact integers, and an accumulator of exactly 0
+  turned into +-eps flips the next layer's ternary sign.
+
+Numerics follow the JAX package exactly, including each layer's sign(0)
+convention (``zero_to_one``) and the epilogue dtype order: conv mode
+computes ``acc.to(scale.dtype) * scale + add`` in the scale's dtype, the
+GEMM modes compute in f32 inside the kernel and cast to the scale's dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import layers as blayers
+from ..binarize import set_module_by_name
+from ..kernels.gemm import binary_gemm
+from ..kernels.packing import pack_bits, unpack_bits
+from ..ops.binarizers import (
+    AdvancedInputBinarizer,
+    BasicInputBinarizer,
+    BasicScaleBinarizer,
+    Identity,
+    XNORScaleBinarizer,
+    XNORWeightBinarizer,
+)
+
+__all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl"]
+
+_MODES = ("auto", "gemm", "im2col", "conv")
+_WEIGHT_FORMATS = ("packed", "int8")
+
+
+def _fold_scale(layer, w_eff: torch.Tensor):
+    """``(scale, add)`` of the epilogue: ``scale = alpha_w * alpha_post`` and
+    ``add = bias * alpha_post`` (zeros without a bias), both f32 ``(O,)``."""
+    out_ch = w_eff.shape[0]
+    if layer.weight_pre_process.compute_alpha:
+        alpha_w = w_eff.abs().mean(dim=tuple(range(1, w_eff.ndim)))
+    else:
+        alpha_w = torch.ones(out_ch, device=w_eff.device)
+    post = layer.activation_post_process
+    if isinstance(post, BasicScaleBinarizer):
+        alpha_post = post.alpha.detach().reshape(-1)
+        if alpha_post.shape != (out_ch,):
+            raise ValueError("custom-shaped BasicScaleBinarizer alpha cannot "
+                             f"be folded; got {tuple(post.alpha.shape)}")
+    else:
+        alpha_post = torch.ones(out_ch, device=w_eff.device)
+    scale = (alpha_w * alpha_post).to(torch.float32)
+    bias = layer.bias.detach() if layer.bias is not None else None
+    add = ((bias * alpha_post).to(torch.float32) if bias is not None
+           else torch.zeros_like(scale))
+    return scale, add
+
+
+def _effective_weight(layer) -> torch.Tensor:
+    """The layer's weight, centred over the in-channel axis (dim 1) when its
+    binarizer centres."""
+    w = layer.weight.detach().to(torch.float32)
+    if layer.weight_pre_process.center_weights:
+        w = w - w.mean(dim=1, keepdim=True)
+    return w
+
+
+def _spatial_post(post):
+    return post if isinstance(post, XNORScaleBinarizer) else None
+
+
+def _zero_to_one(layer) -> bool:
+    """The QAT input binarizer's sign(0) convention (False = torch parity)."""
+    return bool(getattr(layer.activation_pre_process, "zero_to_one", False))
+
+
+def _sign(x: torch.Tensor, thr, zero_to_one: bool, dtype) -> torch.Tensor:
+    """``sign(x - thr)`` with the layer's sign(0) convention, as ``dtype``:
+    {-1, +1} with ``zero_to_one``, else ternary {-1, 0, +1}."""
+    if zero_to_one:
+        return torch.where(x >= thr, 1, -1).to(dtype)
+    return (x > thr).to(dtype) - (x < thr).to(dtype)
+
+
+def _per_channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A ``(C,)`` vector shaped to broadcast over an ``(N, C, ...)`` tensor."""
+    return v.reshape((1, -1) + (1,) * (ndim - 2))
+
+
+def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact ``a @ w.T`` for int8 ``a`` (M, K) and ``w`` (N, K), int32 out.
+    Zero rows and columns pad the operands to what ``torch._int_mm`` takes
+    on CUDA (M > 16, K and N multiples of 8); zeros add nothing."""
+    m, k = a.shape
+    n = w.shape[0]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (np_, kp) != (n, k):
+        w = F.pad(w, (0, kp - k, 0, np_ - n))
+    return torch._int_mm(a.contiguous(), w.contiguous().t())[:m, :n]
+
+
+def _as_2d(x: torch.Tensor, kernel_size, stride, padding, dilation):
+    """View a 1-D conv as a 2-D one with unit height."""
+    if len(kernel_size) == 2:
+        return x, kernel_size, stride, padding, dilation
+    return (x.unsqueeze(2), (1,) + tuple(kernel_size), (1,) + tuple(stride),
+            (0,) + tuple(padding), (1,) + tuple(dilation))
+
+
+class DeployedLinear(nn.Module):
+    """Bit-packed dense layer executing through :func:`binary_gemm`."""
+
+    def __init__(self, layer: blayers.Linear):
+        super().__init__()
+        self.in_features = layer.in_features
+        self.out_features = layer.out_features
+        with torch.no_grad():
+            w = _effective_weight(layer)
+            scale, add = _fold_scale(layer, w)
+            self.register_buffer("w_packed", pack_bits(w.t(), axis=-2))
+        self.register_buffer("scale", scale)
+        self.register_buffer("add", add)
+        self.k = self.in_features
+        self.spatial_post = _spatial_post(layer.activation_post_process)
+        self.zero_to_one = _zero_to_one(layer)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, x.shape[-1])
+        # zero_to_one signs inside the kernel; the torch-parity sign(0) = 0
+        # pre-signs to ternary values the kernel takes as they are
+        if not self.zero_to_one:
+            x2d = _sign(x2d, 0.0, False, x2d.dtype)
+        y = binary_gemm(x2d.contiguous(), self.w_packed, self.k, self.scale,
+                        self.add, sign_inputs=self.zero_to_one)
+        y = y.to(self.scale.dtype).reshape(lead + (-1,))
+        if self.spatial_post is not None:
+            y = self.spatial_post(y, x)
+        return y
+
+
+class DeployedConv(nn.Module):
+    """Bit-packed / int8 convolution.
+
+    Modes: ``gemm`` (pointwise convs with K >= 256, chosen by ``auto``) and
+    ``im2col`` run patches through :func:`binary_gemm`; ``conv`` runs the
+    exact int8 patch product. Storage, in torch's layout:
+
+    - ``conv`` + ``int8``: +/-1 int8 weights, ``(O, I, *k)``;
+    - ``conv`` + ``packed``: words packed over the in-channel axis,
+      ``(O, ceil(I/32), *k)``;
+    - ``gemm`` / ``im2col``: ``(ceil(K/32), O)`` words, K in the
+      channel-major ``(I, *k)`` order of ``F.unfold``.
+    """
+
+    def __init__(self, layer, *, mode: str = "auto",
+                 weight_format: str = "packed"):
+        super().__init__()
+        if mode == "pallas-conv":
+            raise NotImplementedError(
+                "mode='pallas-conv' needs binary_conv2d_s1 "
+                "(bnn_tpu/kernels/conv.py), which is not ported yet")
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}; expected one of {_MODES}")
+        if weight_format not in _WEIGHT_FORMATS:
+            raise ValueError(f"unknown weight_format {weight_format!r}; "
+                             f"expected one of {_WEIGHT_FORMATS}")
+        self.in_channels = layer.in_channels
+        self.out_channels = layer.out_channels
+        self.kernel_size = tuple(layer.kernel_size)
+        self.stride = tuple(layer.stride)
+        self.padding = layer.padding
+        self.dilation = tuple(layer.dilation)
+        self.groups = layer.groups
+        if isinstance(self.padding, str):
+            if self.padding != "valid" and any(k != 1 for k in self.kernel_size):
+                raise NotImplementedError(
+                    f"padding={self.padding!r} on a deployed conv")
+            self.padding = (0,) * len(self.kernel_size)
+        self.padding = tuple(self.padding)
+
+        with torch.no_grad():
+            w_eff = _effective_weight(layer)
+            scale, add = _fold_scale(layer, w_eff)
+            if mode == "auto":
+                k_flat = w_eff.numel() // self.out_channels
+                mode = ("gemm" if (self.groups == 1 and self._is_pointwise()
+                                   and k_flat >= 256) else "conv")
+            if self.groups != 1 and mode != "conv":
+                raise NotImplementedError(
+                    f"grouped deployed convs support mode='conv' only, got {mode}")
+            if mode == "conv" and weight_format == "int8":
+                w_store = torch.where(w_eff >= 0, 1, -1).to(torch.int8)
+                self.k = w_eff.shape[1]
+            elif mode == "conv":
+                w_store = pack_bits(w_eff, axis=1)
+                self.k = w_eff.shape[1]  # in-channels
+            else:
+                w2d = w_eff.reshape(self.out_channels, -1).t()
+                w_store = pack_bits(w2d, axis=-2)
+                self.k = w2d.shape[0]
+        self.mode = mode
+        self.weight_format = weight_format
+        self.register_buffer("w_packed", w_store)
+        self.register_buffer("scale", scale)
+        self.register_buffer("add", add)
+        # per-in-channel sign threshold, set by the BN-before fold
+        # (inference.optimize): the sign becomes sign(x - threshold)
+        self.register_buffer("threshold", None)
+        self.spatial_post = _spatial_post(layer.activation_post_process)
+        self.zero_to_one = _zero_to_one(layer)
+
+    def _is_pointwise(self) -> bool:
+        return (all(k == 1 for k in self.kernel_size)
+                and all(s == 1 for s in self.stride)
+                and all(d == 1 for d in self.dilation)
+                and all(p == 0 for p in self.padding))
+
+    def _sign_in(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        thr = (0.0 if self.threshold is None
+               else _per_channel(self.threshold, x.ndim))
+        return _sign(x, thr, self.zero_to_one, dtype)
+
+    def _patches(self, xs: torch.Tensor):
+        """``(N * L, K)`` patches in channel-major K order, plus the output
+        spatial shape."""
+        x4, ks, st, pd, dl = _as_2d(xs, self.kernel_size, self.stride,
+                                    self.padding, self.dilation)
+        n, _, h, w = x4.shape
+        oh = (h + 2 * pd[0] - dl[0] * (ks[0] - 1) - 1) // st[0] + 1
+        ow = (w + 2 * pd[1] - dl[1] * (ks[1] - 1) - 1) // st[1] + 1
+        cols = F.unfold(x4, ks, dilation=dl, padding=pd, stride=st)
+        out_sp = (oh, ow) if len(self.kernel_size) == 2 else (ow,)
+        return cols.transpose(1, 2).reshape(n * oh * ow, -1), out_sp
+
+    def _to_nc(self, y2d: torch.Tensor, n: int, out_sp) -> torch.Tensor:
+        y = y2d.reshape((n,) + tuple(out_sp) + (-1,))
+        return y.permute((0, y.ndim - 1) + tuple(range(1, y.ndim - 1)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "conv":
+            y = self._call_conv(x)
+        else:
+            y = self._call_im2col(x)
+        if self.spatial_post is not None:
+            y = self.spatial_post(y, x)
+        return y
+
+    def _int8_weight(self) -> torch.Tensor:
+        if self.weight_format == "int8":
+            return self.w_packed
+        return unpack_bits(self.w_packed, self.k, axis=1,
+                           dtype=torch.int8)[:, : self.k]
+
+    def _call_conv(self, x: torch.Tensor) -> torch.Tensor:
+        # signed before patch extraction so the conv's zero padding adds 0;
+        # bf16 holds {-1, 0, +1} exactly and F.unfold takes no int8
+        patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
+        a = patches.to(torch.int8)
+        w = self._int8_weight().reshape(self.out_channels, -1)
+        g = self.groups
+        kg, og = a.shape[1] // g, self.out_channels // g
+        acc = torch.cat([_int_mm(a[:, i * kg:(i + 1) * kg],
+                                 w[i * og:(i + 1) * og]) for i in range(g)],
+                        dim=1) if g > 1 else _int_mm(a, w)
+        acc = self._to_nc(acc, x.shape[0], out_sp)
+        # epilogue in the scale's dtype (f32, or bf16 after cast_floats)
+        return (acc.to(self.scale.dtype) * _per_channel(self.scale, x.ndim)
+                + _per_channel(self.add, x.ndim))
+
+    def _call_im2col(self, x: torch.Tensor) -> torch.Tensor:
+        patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
+        y = binary_gemm(patches.contiguous(), self.w_packed, self.k,
+                        self.scale, self.add, sign_inputs=False)
+        return self._to_nc(y.to(self.scale.dtype), x.shape[0], out_sp)
+
+
+_SIGN_PRE = (BasicInputBinarizer, AdvancedInputBinarizer)
+
+
+def _eligible(m) -> bool:
+    if not isinstance(m, (blayers.Linear, blayers.Conv1d, blayers.Conv2d)):
+        return False
+    if not isinstance(m.activation_pre_process, _SIGN_PRE):
+        return False
+    if not isinstance(m.weight_pre_process, XNORWeightBinarizer):
+        return False
+    post = m.activation_post_process
+    if not isinstance(post, (BasicScaleBinarizer, XNORScaleBinarizer, Identity)):
+        return False
+    if isinstance(post, BasicScaleBinarizer):
+        # only the default per-out-channel shape folds into the epilogue
+        channel_shape = (1, post.alpha.numel()) + (1,) * (post.alpha.ndim - 2)
+        if tuple(post.alpha.shape) != channel_shape:
+            return False
+    return True
+
+
+def deploy(model: nn.Module, *, weight_format: str = "packed") -> nn.Module:
+    """Replace eligible binary layers with deployed layers, in place.
+
+    ``weight_format``: ``'packed'`` (1-bit words) or ``'int8'`` (+/-1 int8,
+    no unpack work in the conv path). Returns the model, or the replacement
+    if the model itself is one eligible layer.
+    """
+    replacements = {}
+    for name, m in model.named_modules():
+        if _eligible(m):
+            replacements[name] = (
+                DeployedLinear(m) if isinstance(m, blayers.Linear)
+                else DeployedConv(m, weight_format=weight_format))
+    if "" in replacements:
+        return replacements[""]
+    for name, new in replacements.items():
+        set_module_by_name(model, name, new)
+    return model
+
+
+def set_gemm_impl(model: nn.Module, impl: str = "popcount"):
+    """Select the binary GEMM implementation of the deployed layers.
+
+    Only ``'mxu'`` (:func:`binary_gemm`, the default every layer already
+    uses) is ported; ``'popcount'`` needs ``popcount_gemm``."""
+    if impl not in ("mxu", "popcount"):
+        raise ValueError(f"unknown gemm impl {impl!r}; "
+                         "expected 'mxu' or 'popcount'")
+    if impl == "popcount":
+        raise NotImplementedError(
+            "set_gemm_impl('popcount') needs popcount_gemm "
+            "(bnn_tpu/kernels/gemm.py), which is not ported yet")
+    return []

@@ -1,0 +1,99 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``bnn_tpu_torch/csrc/<name>.cu`` compiles on its own with ``nvcc`` for
+``sm_90a`` into ``bnn_tpu_torch/_build/lib<name>-<hash>.so``; the hash covers
+the source, the shared headers and the flags, so an edited source never
+loads a stale library. :func:`build` starts one ``nvcc`` per missing library,
+all at once. Nothing here runs at import: the CPU tests import every module
+of the package on a machine with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["SOURCES", "build", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("binary_gemm", "fused_stem")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's CUDA "
+        "kernels build from bnn_tpu_torch/csrc at first use")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha1()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> float:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` per source, all started together. Returns the wall seconds.
+    The compiler's report (registers, shared memory, spills) is kept beside
+    each library as ``<library>.log``."""
+    start = time.perf_counter()
+    pending = [(n, _target(n)) for n in names if not _target(n).exists()]
+    if not pending:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for name, target in pending:
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, target, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failures = []
+        for name, target, tmp, proc in procs:
+            log, _ = proc.communicate()
+            target.with_name(target.name + ".log").write_text(log)
+            if proc.returncode != 0:
+                failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            else:
+                os.replace(tmp, target)
+        if failures:
+            raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+    finally:
+        for _, _, tmp, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return time.perf_counter() - start
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        if name not in _libs:
+            build([name])
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]

@@ -1,0 +1,111 @@
+"""The port's kernel modules against the JAX kernels.
+
+The JAX Pallas kernels run in interpret mode, as tests/test_kernels.py and
+tests/test_stem.py run them; the port takes its plain versions, as its
+wrappers do for CPU tensors. The CUDA kernels themselves are held against
+the plain versions on the card by chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bnn_tpu.kernels import gemm as jgemm
+from bnn_tpu.kernels import stem as jstem
+from bnn_tpu.kernels.packing import pack_bits as jpack_bits
+from bnn_tpu_torch.kernels import (binary_gemm, binary_gemm_reference,
+                                   fused_stem, fused_stem_reference, pack_bits)
+
+
+def _gemm_inputs(m, k, n, sign_inputs, seed):
+    rng = np.random.RandomState(seed)
+    if sign_inputs:
+        x = rng.randn(m, k).astype(np.float32)
+        x[rng.rand(m, k) < 0.15] = 0.0  # exact zeros sign to +1
+    else:
+        x = rng.randint(-1, 2, (m, k)).astype(np.float32)  # ternary
+    w = rng.randn(k, n).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    add = rng.randn(n).astype(np.float32)
+    return x, w, scale, add
+
+
+@pytest.mark.parametrize("sign_inputs", [True, False])
+@pytest.mark.parametrize("m,k,n", [(37, 77, 65), (8, 256, 130), (5, 33, 7)])
+def test_binary_gemm_matches_jax_kernel(m, k, n, sign_inputs):
+    x, w, scale, add = _gemm_inputs(m, k, n, sign_inputs, seed=m + k + n)
+    wp_j = jpack_bits(jnp.asarray(w), axis=-2)
+    wp_t = pack_bits(torch.from_numpy(w), axis=-2)
+    np.testing.assert_array_equal(wp_t.numpy().view(np.uint32), np.asarray(wp_j))
+
+    # the integer part (scale 1, add 0) is exact
+    acc_j = np.asarray(jgemm.binary_gemm(
+        jnp.asarray(x), wp_j, k, jnp.ones(n), jnp.zeros(n),
+        sign_inputs=sign_inputs, interpret=True))
+    acc_t = binary_gemm_reference(torch.from_numpy(x), wp_t, k,
+                                  sign_inputs=sign_inputs).numpy()
+    np.testing.assert_array_equal(acc_t, acc_j)
+    xs = np.where(x >= 0, 1.0, -1.0) if sign_inputs else x
+    np.testing.assert_array_equal(acc_t, xs @ np.where(w >= 0, 1.0, -1.0))
+
+    got = binary_gemm_reference(torch.from_numpy(x), wp_t, k,
+                                torch.from_numpy(scale), torch.from_numpy(add),
+                                sign_inputs=sign_inputs).numpy()
+    want = np.asarray(jgemm.binary_gemm(
+        jnp.asarray(x), wp_j, k, jnp.asarray(scale), jnp.asarray(add),
+        sign_inputs=sign_inputs, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_binary_gemm_wrapper_takes_plain_version_on_cpu():
+    x, w, scale, add = _gemm_inputs(9, 40, 12, True, seed=3)
+    args = (torch.from_numpy(x), pack_bits(torch.from_numpy(w), axis=-2), 40,
+            torch.from_numpy(scale), torch.from_numpy(add))
+    before = binary_gemm.launches
+    np.testing.assert_array_equal(binary_gemm(*args).numpy(),
+                                  binary_gemm_reference(*args).numpy())
+    assert binary_gemm.launches == before  # no kernel launched on the CPU
+
+
+def test_binary_gemm_rejects_bad_shapes():
+    wp = pack_bits(torch.randn(40, 12), axis=-2)
+    with pytest.raises(ValueError):
+        binary_gemm(torch.randn(9, 70), wp, 70)  # 3 words, not 2
+    with pytest.raises(ValueError):
+        binary_gemm(torch.randn(9, 40), wp, 40, torch.ones(11))
+
+
+_STEM_CASES = {
+    # entry point -> the small geometry its own branch takes
+    "v3": (jstem.fused_stem_v3, (2, 32, 32, 3)),
+    "v2": (jstem.fused_stem_v2, (1, 32, 28, 3)),
+    "v1": (jstem.fused_stem, (2, 24, 20, 3)),
+}
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("entry", sorted(_STEM_CASES))
+def test_fused_stem_matches_jax_kernel(entry, bias):
+    jfn, shape = _STEM_CASES[entry]
+    rng = np.random.RandomState(len(entry) + shape[2])
+    x = rng.randn(*shape).astype(np.float32)
+    w = (rng.randn(7, 7, shape[3], 64) * 0.1).astype(np.float32)
+    b = (rng.randn(64) * 0.1).astype(np.float32) if bias else None
+    want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(w),
+                          None if b is None else jnp.asarray(b), interpret=True))
+    bt = None if b is None else torch.from_numpy(b)
+    got = fused_stem_reference(torch.from_numpy(x), torch.from_numpy(w), bt)
+    assert got.shape == (shape[0], shape[1] // 4, shape[2] // 4, 64)
+    # summation order differs: the tolerance tests/test_stem.py uses
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    before = fused_stem.launches
+    np.testing.assert_array_equal(
+        fused_stem(torch.from_numpy(x), torch.from_numpy(w), bt).numpy(),
+        got.numpy())
+    assert fused_stem.launches == before
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 16, 3), (1, 16, 18, 3), (1, 16, 16, 5)])
+def test_fused_stem_rejects_unsupported_geometry(shape):
+    with pytest.raises(ValueError):
+        fused_stem(torch.zeros(shape), torch.zeros(7, 7, shape[3], 64))

@@ -1,0 +1,30 @@
+"""The port stands alone: neither bnn_tpu_torch nor chip_smoke.py imports
+JAX, flax or the JAX package (only the tests import both)."""
+import pathlib
+import re
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|bnn_tpu)(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    files = sorted((ROOT / "bnn_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_no_jax():
+    files = _port_sources()
+    assert len(files) > 20
+    offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
+                 for f in files}
+    assert not {f: hits for f, hits in offenders.items() if hits}
+
+
+def test_pattern_catches_what_it_must():
+    for line in ("import jax", "from flax import nnx", "import bnn_tpu.ops",
+                 "from bnn_tpu import nn", "  import jax.numpy as jnp"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import bnn_tpu_torch", "from bnn_tpu_torch import ops",
+                 "from . import jaxlike"):
+        assert not _FORBIDDEN.search(line), line

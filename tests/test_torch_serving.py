@@ -1,0 +1,201 @@
+"""The whole slice: the port's Predictor against the JAX Predictor on the
+flagship binary ResNet-18 (32x32, 10 classes), with the QAT weights, BN
+statistics and alphas carried across by load_jax_state."""
+import copy
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+import bnn_tpu
+import bnn_tpu_torch as bt
+from bnn_tpu.inference import Predictor as JPredictor
+from bnn_tpu.ops import binarizers as jops
+from bnn_tpu_torch.inference import Predictor, batched_call
+from bnn_tpu_torch.ops import binarizers as tops
+from bnn_tpu_torch.utils import load_jax_state
+
+
+def _flat(module):
+    out = {}
+
+    def walk(prefix, d):
+        for k, v in d.items():
+            key = f"{prefix}.{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(key, v)
+            else:
+                out[key] = np.asarray(v)
+
+    walk("", nnx.to_pure_dict(nnx.state(module)))
+    return out
+
+
+def _randomized(flat, rng):
+    """BN statistics and alphas away from their initial values, so that
+    every folded ``add`` is non-zero."""
+    out = dict(flat)
+    for key, v in flat.items():
+        leaf = key.rsplit(".", 1)[-1]
+        if key.startswith("fc.") or leaf in ("kernel",):
+            continue
+        if leaf == "mean":
+            out[key] = rng.randn(*v.shape) * 0.3
+        elif leaf == "var":
+            out[key] = rng.uniform(0.5, 2.0, v.shape)
+        elif leaf == "scale":
+            out[key] = 1.0 + rng.randn(*v.shape) * 0.3
+        elif leaf == "bias":
+            out[key] = rng.randn(*v.shape) * 0.3
+        elif leaf == "alpha":
+            out[key] = rng.uniform(0.5, 1.5, v.shape)
+        out[key] = np.asarray(out[key], np.float32)
+    return out
+
+
+def _write_flat(module, flat):
+    pure = nnx.to_pure_dict(nnx.state(module))
+    for key, v in flat.items():
+        d = pure
+        *head, last = key.split(".")
+        for p in head:
+            d = d[p] if p in d else d[int(p)]
+        d[last if last in d else int(last)] = jnp.asarray(v)
+    state = nnx.state(module)
+    nnx.replace_by_pure_dict(state, pure)
+    nnx.update(module, state)
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """(JAX QAT model, port QAT model, carried flat state, images NHWC)."""
+    jm = bnn_tpu.models.resnet18(num_classes=10, rngs=nnx.Rngs(0))
+    jm = bnn_tpu.prepare_binary_model(
+        jm, bnn_tpu.BConfig(jops.BasicInputBinarizer, jops.BasicScaleBinarizer,
+                            jops.XNORWeightBinarizer),
+        ignore_layers_name=["_first_", "_last_"])
+    rng = np.random.RandomState(0)
+    flat = _randomized(_flat(jm), rng)
+    _write_flat(jm, flat)
+    tm = bt.models.resnet18(num_classes=10)
+    tm = bt.prepare_binary_model(
+        tm, bt.BConfig(tops.BasicInputBinarizer, tops.BasicScaleBinarizer,
+                       tops.XNORWeightBinarizer),
+        ignore_layers_name=["_first_", "_last_"])
+    load_jax_state(tm, flat)
+    images = rng.randn(10, 32, 32, 3).astype(np.float32)
+    return jm, tm, flat, images
+
+
+@pytest.fixture(scope="module")
+def jax_logits(flagship):
+    jm, _, _, images = flagship
+    pred = JPredictor(jm, use_pallas=False, fuse=False, dtype=None, batch_size=8)
+    return {n: np.asarray(pred(jnp.asarray(images[:n]))) for n in (3, 10)}
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+@pytest.mark.parametrize("fuse", [None, False])
+def test_predictor_matches_jax(flagship, jax_logits, fuse):
+    _, tm, _, images = flagship
+    pred = Predictor(copy.deepcopy(tm), batch_size=8, device="cpu", dtype=None,
+                     fuse=fuse)
+    stem = type(pred.model.conv1).__name__
+    assert stem == ("FusedStem" if fuse is None else "SpaceToDepthConv")
+    assert pred.model.layer4[0].downsample[1].mode == "gemm"
+    for n in (3, 10):  # padding one batch, and splitting into two
+        got = pred(_nchw(images[:n])).numpy()
+        want = jax_logits[n]
+        assert got.shape == (n, 10)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+
+
+def test_qat_forward_matches_jax(flagship):
+    jm, tm, _, images = flagship
+    jm.eval()
+    want = np.asarray(jm(jnp.asarray(images[:4])))
+    got = copy.deepcopy(tm).eval()(_nchw(images[:4])).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_predictor_runs_on_cpu(flagship):
+    _, tm, _, images = flagship
+    pred = Predictor(copy.deepcopy(tm), batch_size=8, device="cpu")
+    out = pred(_nchw(images[:3]))
+    assert out.dtype == torch.bfloat16 and out.shape == (3, 10)
+    assert torch.isfinite(out.float()).all()
+    # integer state is untouched by the cast
+    assert pred.model.layer1[0].conv1.w_packed.dtype == torch.int8
+
+
+def test_load_jax_state_rejects_mismatches(flagship):
+    _, tm, flat, _ = flagship
+    model = copy.deepcopy(tm)
+    missing = {k: v for k, v in flat.items() if k != "layer2.0.bn1.var"}
+    with pytest.raises(ValueError, match="missing=.*layer2.0.bn1.running_var"):
+        load_jax_state(model, missing)
+    with pytest.raises(ValueError, match="unexpected=.*layer9.kernel"):
+        load_jax_state(model, {**flat, "layer9.kernel": np.zeros(3)})
+    bad = dict(flat)
+    bad["fc.kernel"] = np.zeros((512, 11), np.float32)
+    with pytest.raises(ValueError, match="shape mismatch=.*fc.kernel"):
+        load_jax_state(model, bad)
+    # nothing was written by the failed calls
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, tm.state_dict()[k])
+
+
+def test_batched_call_contract():
+    calls = []
+
+    def one(xb):
+        calls.append(xb.shape[0])
+        return xb * 2
+
+    x = torch.arange(5.0).reshape(5, 1)
+    torch.testing.assert_close(batched_call(one, x, 4), x * 2)
+    assert calls == [4, 4]
+    with pytest.raises(ValueError, match="empty request batch"):
+        batched_call(one, x[:0], 4)
+
+
+def _tiny():
+    return torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3))
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(tensor_parallel=True), ValueError, "needs a mesh"),
+    (dict(tensor_parallel=True, mesh=object(), fuse=True), ValueError,
+     "incompatible with fuse=True"),
+    (dict(binary_gemm_impl="popcount", fuse=True), ValueError,
+     "incompatible with fuse=True"),
+    (dict(mesh=object(), fuse=False), NotImplementedError, "multi-device"),
+    (dict(binary_gemm_impl="popcount"), NotImplementedError, "popcount_gemm"),
+    (dict(quantize_float_bits=8), NotImplementedError, "quantize_float_bits"),
+    (dict(batch_size=4), NotImplementedError, "fused_chain"),
+    (dict(batch_size=8, max_fused_batch=8), NotImplementedError,
+     "fused_basic_block"),
+])
+def test_predictor_loud_errors(kwargs, error, match):
+    kwargs = {"batch_size": 8, "device": "cpu", **kwargs}
+    with pytest.raises(error, match=match):
+        Predictor(_tiny(), **kwargs)
+
+
+def test_predictor_small_batch_unfused_is_allowed():
+    pred = Predictor(_tiny(), batch_size=2, fuse=False, device="cpu", dtype=None)
+    assert pred(torch.zeros(3, 3, 8, 8)).shape == (3, 4, 6, 6)
+
+
+def test_predictor_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert Predictor(_tiny(), batch_size=8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Predictor(_tiny(), batch_size=8)
