@@ -1,7 +1,10 @@
 from .deploy import DeployedConv, DeployedLinear, deploy, set_gemm_impl
 from .export import batched_call
+from .megablock import (FusedBlock, FusedBottleneck, FusedDownBlock,
+                        default_fuse_predicate, fuse_blocks)
 from .optimize import fold_bn_after, fold_bn_before, optimize_deployed
 from .serving import Predictor
+from .stages import FusedStage, fuse_entry, fuse_head, fuse_stages
 from .stem import FusedStem, SpaceToDepthConv, fuse_stem, space_to_depth_stem
 
 __all__ = [
@@ -10,10 +13,19 @@ __all__ = [
     "deploy",
     "set_gemm_impl",
     "batched_call",
+    "FusedBlock",
+    "FusedBottleneck",
+    "FusedDownBlock",
+    "default_fuse_predicate",
+    "fuse_blocks",
     "fold_bn_after",
     "fold_bn_before",
     "optimize_deployed",
     "Predictor",
+    "FusedStage",
+    "fuse_entry",
+    "fuse_head",
+    "fuse_stages",
     "FusedStem",
     "SpaceToDepthConv",
     "fuse_stem",

@@ -1,18 +1,22 @@
 """One-call serving wrapper (counterpart of ``bnn_tpu/inference/serving.py``).
 
-    predictor = Predictor(model, batch_size=8)          # device="cuda"
+    predictor = Predictor(model, batch_size=1)          # device="cuda"
     logits = predictor(images)                          # NCHW
 
 Pipeline, in the JAX package's order: deploy (int8 / packed weights, folded
-epilogues) -> BN folds -> space-to-depth stem -> fused stem -> float path
-cast to ``dtype``; requests are padded and split into ``batch_size``
-chunks.
+epilogues) -> BN folds -> space-to-depth stem -> with ``fuse``: fused stem,
+whole-stage kernels (:func:`~bnn_tpu_torch.inference.stages.fuse_stages`),
+per-block kernels under ``max_fused_batch``
+(:func:`~bnn_tpu_torch.inference.megablock.fuse_blocks`), the classifier
+head folded into the last stage -> float state cast to ``dtype``. Requests
+are padded and split into ``batch_size`` chunks. Every fused module decides
+per forward whether its kernel runs: at batch 1 to 4 a binary ResNet-18 is
+five launches (stem, four stages); at batch 8 the stages fall back to the
+deployed blocks, as in the JAX package.
 
-What is ported so far: the serving path above batch size 4. The stage and
-block megakernels that the JAX package runs at smaller batches
-(``fused_chain``, ``fused_basic_block``, ``fused_downsample_block``),
-multi-device serving, the popcount GEMM and the quantized float head are
-not, and asking for them raises ``NotImplementedError``.
+Not ported yet, and raising ``NotImplementedError``: multi-device serving,
+the popcount GEMM, the quantized float head, and ``fused_bottleneck`` (a
+Bottleneck model with ``fuse`` at ``batch_size <= max_fused_batch``).
 """
 from __future__ import annotations
 
@@ -24,14 +28,12 @@ from torch import nn
 from ..utils.precision import cast_floats
 from .deploy import deploy
 from .export import batched_call
+from .megablock import FusedBottleneck, fuse_blocks
 from .optimize import optimize_deployed
+from .stages import fuse_head, fuse_stages
 from .stem import fuse_stem, space_to_depth_stem
 
 __all__ = ["Predictor"]
-
-# the JAX package's stage megakernels run at batches up to 4 whatever
-# max_fused_batch says (Predictor builds them with fuse_stages' default)
-_STAGE_FUSED_BATCH = 4
 
 
 class Predictor:
@@ -79,13 +81,6 @@ class Predictor:
                 "available; pass device='cpu' for the plain PyTorch versions")
         if fuse is None:
             fuse = True
-        if fuse and batch_size <= max(max_fused_batch, _STAGE_FUSED_BATCH):
-            raise NotImplementedError(
-                f"fuse=True at batch_size={batch_size} needs the stage and "
-                "block megakernels (bnn_tpu/kernels/model.py fused_chain, "
-                "block.py fused_basic_block, strided_block.py "
-                "fused_downsample_block), which are not ported yet; use a "
-                "larger batch_size or fuse=False")
         model.eval()
         model = deploy(model.to(device), weight_format=weight_format)
         if fold_bn:
@@ -94,6 +89,20 @@ class Predictor:
             space_to_depth_stem(model)
         if fuse:
             fuse_stem(model)
+            # stages with the stage cap's default (batch <= 4), as the JAX
+            # Predictor builds them; blocks under max_fused_batch, also
+            # inside a stage's fallback
+            fuse_stages(model)
+            fuse_blocks(model, max_fused_batch=max_fused_batch, strided=True)
+            fuse_head(model)
+            if batch_size <= max_fused_batch and any(
+                    isinstance(m, FusedBottleneck) for m in model.modules()):
+                raise NotImplementedError(
+                    f"fuse=True at batch_size={batch_size} runs Bottleneck "
+                    "blocks through fused_bottleneck "
+                    "(bnn_tpu/kernels/bottleneck.py), which is not ported "
+                    "yet; use fuse=False or a batch_size above "
+                    "max_fused_batch")
         if dtype is not None:
             cast_floats(model, dtype)
         self.model = model

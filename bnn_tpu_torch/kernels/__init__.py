@@ -1,7 +1,17 @@
+from .block import fused_basic_block, fused_basic_block_reference
 from .gemm import binary_gemm, binary_gemm_reference
+from .model import (BlockParams, fused_chain, fused_chain_reference,
+                    fused_down_stage, fused_down_stage_reference, fused_pair,
+                    fused_pair_reference)
 from .packing import pack_bits, packed_words, unpack_bits
 from .stem import fused_stem, fused_stem_reference
+from .strided_block import (fused_downsample_block,
+                            fused_downsample_block_reference)
 
 __all__ = ["binary_gemm", "binary_gemm_reference", "pack_bits",
            "packed_words", "unpack_bits", "fused_stem",
-           "fused_stem_reference"]
+           "fused_stem_reference", "fused_basic_block",
+           "fused_basic_block_reference", "fused_downsample_block",
+           "fused_downsample_block_reference", "BlockParams", "fused_chain",
+           "fused_chain_reference", "fused_pair", "fused_pair_reference",
+           "fused_down_stage", "fused_down_stage_reference"]

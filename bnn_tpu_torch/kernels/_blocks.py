@@ -1,0 +1,291 @@
+"""What the three residual-block kernels share: the plain arithmetic their
+plain versions are built from, and the launcher that hands a chain of block
+descriptors to a kernel of ``bnn_tpu_torch/csrc`` (fused_basic_block,
+fused_downsample_block, fused_chain; all built on ``bnn_common.cuh``).
+
+The plain helpers take NHWC f32 tensors and repeat the kernels' arithmetic:
+exact integer convolutions (computed in float64, where sums of at most a few
+thousand ternary products are exact, and rounded in case a device algorithm
+is not), then f32 epilogues whose multiply and add round separately.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ._build import load
+
+ACTS = ("relu", "prelu", "identity")
+# epilogue rows of a block descriptor, in csrc/bnn_common.cuh's order (the
+# kernel gives a missing row its default: scales 1, slopes 0.25, others 0)
+ROWS = ("scale1", "add1", "prelu1", "scale2", "add2", "prelu2", "scaled",
+        "addd", "threshold2", "threshold1", "thresholdd")
+_IN_ROWS = ("threshold1", "thresholdd")  # per input channel; the rest per output
+MAX_BLOCKS = 8
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def split_act(act):
+    """``(act1, act2)`` from one kind or a pair, checked."""
+    act1, act2 = (act, act) if isinstance(act, str) else act
+    if act1 not in ACTS or act2 not in ACTS:
+        raise ValueError(f"act must be one of {ACTS} or a pair of them, got {act!r}")
+    return act1, act2
+
+
+def apply_act(y: torch.Tensor, kind: str, slope) -> torch.Tensor:
+    if kind == "relu":
+        return torch.where(y > 0, y, torch.zeros_like(y))
+    if kind == "prelu":
+        return torch.where(y >= 0, y, y * slope)
+    return y
+
+
+def sign(v: torch.Tensor, t, zero_to_one: bool) -> torch.Tensor:
+    """``sign(v - t)`` as f32 {-1, +1} with ``zero_to_one``, else {-1, 0, +1}."""
+    if zero_to_one:
+        return torch.where(v >= t, 1.0, -1.0)
+    return (v > t).to(torch.float32) - (v < t).to(torch.float32)
+
+
+def row(v, default: float, width: int, device) -> torch.Tensor:
+    """A per-channel f32 row of ``width``: ``v`` broadcast, or the default."""
+    if v is None:
+        return torch.full((width,), default, dtype=torch.float32, device=device)
+    v = torch.as_tensor(v).to(device=device, dtype=torch.float32).reshape(-1)
+    return v.expand(width) if v.numel() == 1 else v
+
+
+def conv3x3(s: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """Exact ``conv3x3(s, w)`` with pad 1: NHWC ternary ``s``, HWIO ``w``."""
+    y = F.conv2d(s.permute(0, 3, 1, 2).to(torch.float64),
+                 w.permute(3, 2, 0, 1).to(torch.float64), stride=stride,
+                 padding=1)
+    return y.round().to(torch.float32).permute(0, 2, 3, 1)
+
+
+def pointwise(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact ``s @ w`` over the channels of an NHWC map, ``w`` (Ci, Co)."""
+    y = s.to(torch.float64) @ w.to(torch.float64)
+    return y.round().to(torch.float32)
+
+
+def epilogue(acc: torch.Tensor, scale, add) -> torch.Tensor:
+    return acc * scale + add
+
+
+def avgpool2x2(x: torch.Tensor) -> torch.Tensor:
+    """The shortcut's 2x2/s2 mean in the kernels' order:
+    ``0.25 * (((p00 + p01) + p10) + p11)``. Another order can round to a
+    value on the other side of the next sign's threshold."""
+    return 0.25 * (((x[:, 0::2, 0::2] + x[:, 0::2, 1::2]) + x[:, 1::2, 0::2])
+                   + x[:, 1::2, 1::2])
+
+
+def head(a: torch.Tensor, wfc: torch.Tensor,
+         bfc: Optional[torch.Tensor]) -> torch.Tensor:
+    """Global mean over H, W then ``pooled @ wfc + bfc`` in f32, summed in
+    the kernel's order: the mean one term at a time; each logit's dot as 32
+    sequential partial sums over consecutive channel slices, joined by a
+    butterfly of offsets 16, 8, 4, 2, 1."""
+    n, h, w, c = a.shape
+    flat = a.reshape(n, h * w, c)
+    s = torch.zeros((n, c), dtype=torch.float32, device=a.device)
+    for q in range(h * w):
+        s = s + flat[:, q]
+    pooled = s / float(h * w)
+    per = -(-c // 32)
+    prod = pooled[:, :, None] * wfc.to(torch.float32)[None]  # (n, c, classes)
+    prod = torch.cat([prod, prod.new_zeros(n, 32 * per - c, prod.shape[2])], 1)
+    prod = prod.reshape(n, 32, per, -1)
+    part = torch.zeros_like(prod[:, :, 0])
+    for i in range(per):
+        part = part + prod[:, :, i]
+    for off in (16, 8, 4, 2, 1):
+        part = part[:, :off] + part[:, off:2 * off]
+    logits = part[:, 0]
+    if bfc is not None:
+        logits = logits + bfc.to(torch.float32).reshape(1, -1)
+    return logits
+
+
+class Desc:
+    """One block as a kernel takes it: int8 weights in the JAX kernels'
+    layouts (basic w1/w2 ``(9C, C)``; down w1 ``(16Ci, Co)`` s2d, w2
+    ``(9Co, Co)``, wd ``(Ci, Co)``) and the epilogue rows of :data:`ROWS`
+    (None, numbers, tensors, or ``(matrix, row index)`` pairs)."""
+
+    def __init__(self, down: bool, ci: int, co: int, w1, w2, wd, rows):
+        self.down, self.ci, self.co = bool(down), ci, co
+        self.w1, self.w2, self.wd = w1, w2, wd
+        self.rows = list(rows)
+        floats = [v[0] if isinstance(v, tuple) else v for v in self.rows]
+        self.float_dtypes = {t.dtype for t in floats if isinstance(t, torch.Tensor)}
+        self._flat = {}
+
+    def flat(self, name: str, dtype, device):
+        """This block's ``(pointers, ints, converted copies)`` for the
+        kernel's flat arrays, the rows in ``dtype``; the copies must live
+        until the launch. Checked and built once per dtype and device,
+        unless a tensor had to be converted (a copy would miss later
+        in-place updates of its source); the tensors must not be replaced
+        while the descriptor is in use."""
+        key = (dtype, device)
+        if key in self._flat:
+            return self._flat[key]
+        tensors = [self.w1, self.w2, self.wd] + [
+            v[0] if isinstance(v, tuple) else v for v in self.rows]
+        _check_device(name, device, tensors)
+        if device.type != "cuda":
+            raise ValueError(f"{name} launches on CUDA tensors, got {device}")
+        if self.ci % 4 or self.co % 4:
+            raise ValueError(f"{name} needs channel counts divisible by 4, "
+                             f"got {self.ci} -> {self.co}")
+        keep, ptrs = [], []
+        for w, shape in ((self.w1, ((16 if self.down else 9) * self.ci, self.co)),
+                         (self.w2, (9 * self.co, self.co)),
+                         (self.wd, (self.ci, self.co) if self.down else None)):
+            if shape is None:
+                ptrs.append(0)
+                continue
+            if tuple(w.shape) != shape:
+                raise ValueError(f"{name}: weights {tuple(w.shape)}, "
+                                 f"expected {shape}")
+            if w.dtype != torch.int8 or not w.is_contiguous():
+                w = w.to(torch.int8).contiguous()
+                keep.append(w)
+            ptrs.append(w.data_ptr())
+        lens = []
+        for r, v in zip(ROWS, self.rows):
+            p, length = _row(name, r, v, self.ci if r in _IN_ROWS else self.co,
+                             dtype, device, keep)
+            ptrs.append(p)
+            lens.append(length)
+        flat = (ptrs, [int(self.down), self.ci, self.co] + lens, keep)
+        if not keep:  # converted copies serve one launch only
+            self._flat[key] = flat
+        return flat
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The C entry point ``bnn_<name>`` of ``csrc/<name>.cu``."""
+    fn = getattr(load(name), f"bnn_{name}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _carve(device, sizes: Sequence[int]) -> List[int]:
+    """Pointers to ``sizes`` bytes each, 256-byte aligned, in one allocation
+    (the tensor is returned first and must outlive the launch)."""
+    offs, total = [], 0
+    for s in sizes:
+        offs.append(total)
+        total += -(-max(s, 1) // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    return [buf] + [buf.data_ptr() + o for o in offs]
+
+
+def _check_device(name: str, device, tensors) -> None:
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device != device:
+            raise ValueError(f"{name} needs every tensor on {device}, got one "
+                             f"on {t.device}")
+
+
+def _row(name, r, v, width, dtype, device, keep):
+    """``(pointer, length)`` of an epilogue row in ``dtype``: None, a number,
+    a tensor of 1 or ``width`` values, or ``(matrix, i)``, the first
+    ``width`` values of row i of a 2-D tensor. A converted copy goes into
+    ``keep``."""
+    if v is None:
+        return 0, 0
+    if isinstance(v, tuple):
+        mat, i = v
+        if mat.dtype != dtype or not mat.is_contiguous():
+            mat = mat.to(dtype).contiguous()
+            keep.append(mat)
+        if mat.ndim != 2 or mat.shape[1] < width:
+            raise ValueError(f"{name}: {r} needs {width} values per row, got "
+                             f"{tuple(mat.shape)}")
+        return mat.data_ptr() + i * mat.shape[1] * mat.element_size(), width
+    if not isinstance(v, torch.Tensor) or v.dtype != dtype or not v.is_contiguous():
+        v = torch.as_tensor(v, device=device).to(dtype).contiguous()
+        keep.append(v)
+    if v.numel() not in (1, width):
+        raise ValueError(f"{name}: {r} has {v.numel()} values, expected 1 or "
+                         f"{width}")
+    return v.data_ptr(), v.numel()
+
+
+def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
+           out: torch.Tensor, *, acts, pre: bool, zero_to_one: bool,
+           wfc: Optional[torch.Tensor] = None,
+           bfc: Optional[torch.Tensor] = None) -> None:
+    """One launch of kernel ``name`` on CUDA tensors; raises on what the
+    kernel does not take and on a failed launch."""
+    dev = x.device
+    _check_device(name, dev, [out, wfc, bfc])
+    if x.dtype not in _FLOATS or out.dtype not in _FLOATS:
+        raise TypeError(f"{name} takes f32/bf16 x and output, got {x.dtype} "
+                        f"and {out.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous NHWC x")
+    if not 1 <= len(descs) <= MAX_BLOCKS:
+        raise ValueError(f"{name} runs 1 to {MAX_BLOCKS} blocks, got {len(descs)}")
+    dtypes = set().union(*(d.float_dtypes for d in descs))
+    dtypes |= {t.dtype for t in (wfc, bfc) if t is not None}
+    prm_dtype = torch.bfloat16 if dtypes == {torch.bfloat16} else torch.float32
+    keep, ptrs, ints = [], [], []
+
+    def ptr(t):
+        keep.append(t)
+        return t.data_ptr()
+
+    n, h, w, _ = x.shape
+    xs_n = out_n = ds_n = 0  # largest block input, block output, shortcut
+    for d in descs:
+        p, i, copies = d.flat(name, prm_dtype, dev)
+        ptrs += p
+        ints += i
+        keep += copies
+        xs_n = max(xs_n, n * h * w * d.ci)
+        if d.down:
+            if h % 2 or w % 2:
+                raise ValueError(f"{name}: a stride-2 block needs even H and W, "
+                                 f"got {h}x{w}")
+            h, w = h // 2, w // 2
+            ds_n = n * h * w * d.ci
+        out_n = max(out_n, n * h * w * d.co)
+    classes = 0
+    if wfc is not None:
+        classes = wfc.shape[1]
+        if tuple(wfc.shape) != (descs[-1].co, classes):
+            raise ValueError(f"{name}: wfc {tuple(wfc.shape)}, expected "
+                             f"({descs[-1].co}, classes)")
+        if bfc is not None and bfc.numel() != classes:
+            raise ValueError(f"{name}: bfc has {bfc.numel()} values, expected {classes}")
+    buf, act0, act1, xs, hs, ds, acc, accd, pooled = _carve(
+        dev, [4 * out_n, 4 * out_n, xs_n, out_n, ds_n, 4 * out_n, 4 * out_n,
+              4 * n * descs[-1].co])
+    keep.append(buf)
+    ptrs += [x.data_ptr(), out.data_ptr(), act0, act1, xs, hs, ds, acc, accd,
+             ptr(wfc.to(prm_dtype).contiguous()) if wfc is not None else 0,
+             ptr(bfc.to(prm_dtype).reshape(-1).contiguous()) if bfc is not None else 0,
+             pooled]
+    act1_kind, act2_kind = split_act(acts)
+    ints += [n, x.shape[1], x.shape[2], ACTS.index(act1_kind),
+             ACTS.index(act2_kind), int(pre), int(zero_to_one),
+             int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
+             int(prm_dtype == torch.bfloat16), classes]
+    err = _entry(name)(len(descs), (ctypes.c_void_p * len(ptrs))(*ptrs),
+                       (ctypes.c_int * len(ints))(*ints),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

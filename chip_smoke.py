@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``bnn_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --quick    # phases 1 and 2 only, no result lines
 
 Phases, each reported on its own lines:
 
-1. device and build: the card's name and power limit, then both CUDA
-   kernels built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in
-   parallel);
+1. device and build: the card's name and power limit, then every CUDA
+   kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes and at the other geometries its entry points take;
-3. the serving path: the flagship binary ResNet-18 (1000 classes, weights
-   and BN statistics random from a seed) through ``Predictor(batch_size=8)``
-   in bf16 at 224x224, for requests of 8, 3 and 13 images (4 forwards),
-   with every kernel's launch count read around that run; then the same
-   weights in f32 on the card against the plain versions on the CPU;
-4. times: each kernel's device time (torch.profiler) and time per call
-   (CUDA events), beside its plain version's, its bound and the one-call
-   PyTorch yardstick where there is one; the forward latency, images/s,
-   device busy share and the kernels that take the time, at batch 8;
+   serving paths' shapes and at the other geometries and options its entry
+   points take;
+3. the serving paths, with every kernel's launch count set to 0 just
+   before each and read just after: the flagship binary ResNet-18 (1000
+   classes, weights and BN statistics random from a seed) through
+   ``Predictor(batch_size=8)`` in bf16 at 224x224 for requests of 8, 3 and 13
+   images (4 forwards; the stages fall back to the deployed convs), through ``Predictor(batch_size=1)`` and
+   ``batch_size=4`` (stem and stage kernels), and ResNet-34 through
+   ``Predictor(batch_size=1)`` (stage kernels for layers 1-3, block kernels
+   for layer4); then the same weights in f32 on the card against the plain
+   versions on the CPU;
+4. every residual-block kernel call of the batch 1 and 4 serving paths
+   (ResNet-18 and ResNet-34), captured with its own bf16 inputs and held
+   against its plain version as in phase 2; then times: each kernel's
+   device time (torch.profiler) and time per call (CUDA events) at the
+   shapes the serving paths gave it, beside its plain
+   version's, its bound and the one-call PyTorch yardstick where there is
+   one; the forward latency, images/s, device busy share and the kernels
+   that take the time, at batch 8, 4 and 1;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -77,29 +86,32 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int = 20):
+def device_profile(fn, iters: int = 20, attempts: int = 3):
     """``({kernel name: device ms per call}, wall ms per call)`` of ``fn``
-    over ``iters`` calls under ``torch.profiler``, after a warm-up."""
+    over ``iters`` calls under ``torch.profiler``, after a warm-up. A trace
+    that comes back without device events (CUPTI now and then delivers
+    none) is taken again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / iters)
-    if not by_name:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return by_name, wall / iters * 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / iters)
+        if by_name:
+            return by_name, wall / iters * 1e3
+    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} traces")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -157,15 +169,113 @@ def check_gemm(kernels, m, k, n, dtype, sign_inputs, gen, dev) -> float:
     return err.max().item()
 
 
-def flagship(gen: torch.Generator):
-    """The flagship QAT ResNet-18: binary body, float first and last layers,
-    torch-parity ternary sign; BN statistics and output scales random so
-    that every folded ``add`` is non-zero."""
+def rand_block(kernels, kind, ci, co, gen, dev, dtype, *, options: bool):
+    """BlockParams with random +/-1 weights and epilogue rows of the size a
+    folded BN gives, its float rows cast to ``dtype`` as cast_floats casts a
+    stage's; ``options`` adds PReLU slopes and non-zero thresholds."""
+    def pm1(*shape):
+        return torch.where(torch.randn(shape, generator=gen) >= 0, 1, -1).to(torch.int8)
+
+    def vec(c, loc, scale):
+        return loc + scale * torch.randn(c, generator=gen)
+
+    k1 = 9 * ci
+    kw = dict(scale1=vec(co, 1.0, 0.2).abs() / k1 ** 0.5, add1=vec(co, 0.0, 0.3),
+              scale2=vec(co, 1.0, 0.2).abs() / (9 * co) ** 0.5,
+              add2=vec(co, 0.0, 0.3))
+    if kind == "down":
+        kw.update(wd=pm1(ci, co), scaled=vec(co, 1.0, 0.2).abs() / ci ** 0.5,
+                  addd=vec(co, 0.0, 0.3))
+    if options:
+        kw.update(prelu1=vec(co, 0.25, 0.1), prelu2=vec(co, 0.25, 0.1),
+                  threshold=vec(ci, 0.0, 0.1), threshold2=vec(co, 0.0, 0.1))
+        if kind == "down":
+            kw["thresholdd"] = vec(ci, 0.0, 0.1)
+    bp = kernels.BlockParams(kind, pm1(3, 3, ci, co), pm1(3, 3, co, co), **kw)
+    arrays = [a.to(dev) if a.dtype == torch.int8 else a.to(dev, dtype)
+              for a in bp.arrays()]
+    return kernels.BlockParams.from_arrays((bp.kind, bp.ci, bp.co), arrays)
+
+
+def check_exact(name, got, ref, head: bool, phase: int = 2) -> float:
+    """The kernel against its plain version: logits within 1e-5; other
+    outputs bit-identical in f32 and within one bf16 ulp in bf16."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} against "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    err = (got.float() - ref.float()).abs()
+    if head:
+        ok = bool((err <= 1e-5).all())
+    elif got.dtype == torch.float32:
+        ok = torch.equal(got, ref)
+    else:
+        ok = bool((err <= bf16_ulp(ref.float())).all())
+    mismatched = int((err > 0).sum())
+    if not ok or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: max |err| {err.max().item()}, "
+                             f"{mismatched} of {err.numel()} values differ")
+    print(f"phase {phase}: {name}: max |err| {err.max().item():.3g}, {mismatched} of "
+          f"{err.numel()} values differ")
+    return err.max().item()
+
+
+def check_blocks(kernels, gen, dev) -> dict:
+    """Each residual-block kernel against its plain version on the card."""
+    errs = {"fused_chain": 0.0, "fused_basic_block": 0.0,
+            "fused_downsample_block": 0.0}
+
+    def run(kernel, name, args, kw, head=False):
+        got = getattr(kernels, kernel)(*args, **kw)
+        ref = getattr(kernels, kernel + "_reference")(*args, **kw)
+        errs[kernel] = max(errs[kernel], check_exact(name, got, ref, head))
+
+    bf = torch.bfloat16
+    torch_opts = dict(act="relu", pre=False, zero_to_one=False)
+    other_opts = dict(act="prelu", pre=True, zero_to_one=True)
+    for dtype, opts, options in ((bf, torch_opts, False), (torch.float32, other_opts, True)):
+        tag = f"{str(dtype)[6:]} act={opts['act']} pre={opts['pre']} " \
+              f"zero_to_one={opts['zero_to_one']}"
+        pair = [rand_block(kernels, "basic", 64, 64, gen, dev, dtype, options=options)
+                for _ in range(2)]
+        x = torch.randn((1, 56, 56, 64), generator=gen).to(dev, dtype)
+        run("fused_chain", f"fused_chain pair (1,56,56,64) {tag}", (x, pair), opts)
+        down = [rand_block(kernels, "down", 256, 512, gen, dev, dtype, options=options),
+                rand_block(kernels, "basic", 512, 512, gen, dev, dtype, options=options)]
+        wfc = (torch.randn((512, 1000), generator=gen) / 512 ** 0.5).to(dev, dtype)
+        bfc = (0.1 * torch.randn(1000, generator=gen)).to(dev, dtype)
+        x = torch.randn((4, 14, 14, 256), generator=gen).to(dev, dtype)
+        run("fused_chain", f"fused_chain down+basic+head (4,14,14,256)->(4,1000) {tag}",
+            (x, down, wfc, bfc), opts, head=True)
+        run("fused_chain", f"fused_chain down+basic (4,14,14,256) {tag}", (x, down), opts)
+
+        b = rand_block(kernels, "basic", 512, 512, gen, dev, dtype, options=options)
+        c = 512
+        x = torch.randn((1, 7, 7, c), generator=gen).to(dev, dtype)
+        p = b.prm
+        run("fused_basic_block", f"fused_basic_block (1,7,7,512) {tag}",
+            (x, b.w1.reshape(3, 3, c, c), b.w2.reshape(3, 3, c, c), p[0], p[1], p[3], p[4]),
+            dict(opts, prelu1=p[2], prelu2=p[5], threshold=p[6], threshold2=p[7]))
+        d = down[0]
+        x = torch.randn((4, 14, 14, 256), generator=gen).to(dev, dtype)
+        p, q = d.po, d.pi
+        run("fused_downsample_block", f"fused_downsample_block (4,14,14,256) {tag}",
+            (x, d.w1, d.w2.reshape(3, 3, 512, 512), d.wd,
+             p[0], p[1], p[3], p[4], p[6], p[7]),
+            dict(opts, prelu1=p[2], prelu2=p[5], threshold1=q[0, :256],
+                 threshold2=p[8], thresholdd=q[1, :256]))
+    return errs
+
+
+def flagship(gen: torch.Generator, depth: int = 18):
+    """The flagship QAT ResNet-18 (or the ResNet of ``depth``): binary body,
+    float first and last layers, torch-parity ternary sign; BN statistics
+    and output scales random so that every folded ``add`` is non-zero."""
     import bnn_tpu_torch as bt
     from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer,
                                    XNORWeightBinarizer)
 
-    model = bt.models.resnet18(num_classes=1000, generator=gen)
+    model = getattr(bt.models, f"resnet{depth}")(num_classes=1000, generator=gen)
     model = bt.prepare_binary_model(
         model,
         bt.BConfig(activation_pre_process=BasicInputBinarizer,
@@ -185,7 +295,121 @@ def flagship(gen: torch.Generator):
     return model.eval()
 
 
+KERNELS = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
+           "fused_downsample_block")
+
+
+def serve_counted(kernels, pred, requests, name: str, want_per_forward: dict,
+                  classes: int = 1000):
+    """Serve ``requests`` with every launch count set to 0 just before and
+    read just after; check the counts, shapes and finiteness."""
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
+    outs = [pred(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = {k: getattr(kernels, k).launches for k in KERNELS}
+    forwards = sum(-(-r.shape[0] // pred.batch_size) for r in requests)
+    want = {k: want_per_forward.get(k, 0) * forwards for k in KERNELS}
+    for r, o in zip(requests, outs):
+        if o.shape != (r.shape[0], classes) or not bool(torch.isfinite(o.float()).all()):
+            raise AssertionError(f"{name}: bad output {tuple(o.shape)} for a "
+                                 f"request of {r.shape[0]}")
+    if launches != want:
+        raise AssertionError(f"{name}: expected launches {want} in {forwards} "
+                             f"forwards, got {launches}")
+    print(f"phase 3: {name}: requests of {[r.shape[0] for r in requests]} in "
+          f"{forwards} forwards, logits {outs[0].dtype}, launches {launches}")
+    return outs, launches
+
+
+def check_f32(pred_gpu, ref_cpu, images, name):
+    got = pred_gpu(images).cpu()
+    torch.testing.assert_close(got, ref_cpu, rtol=1e-3, atol=1e-3)
+    if not bool((got.argmax(1) == ref_cpu.argmax(1)).all()):
+        raise AssertionError(f"{name}: argmax differs from the CPU plain path")
+    print(f"phase 3: {name}: f32 on the card vs plain versions on the CPU: max "
+          f"|diff| {(got - ref_cpu).abs().max().item():.3g} (limit 1e-3), "
+          f"argmax equal")
+
+
+def capture_calls(module, name: str, run):
+    """``[(args, kwargs)]`` of every call that ``module`` makes to its kernel
+    wrapper ``name`` during ``run()``: the serving path's own inputs."""
+    real = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, real)
+    return seen
+
+
+def block_bytes(b) -> int:
+    """Bytes of a block's parameters that the function needs: a down
+    block's conv1 as its 9*Ci*Co int8 taps (its s2d form, 16*Ci*Co, pads
+    zeros) and its two input-channel thresholds once (``pi`` tiles them
+    four times)."""
+    if b.kind == "basic":
+        return nbytes(*b.arrays())
+    return (9 * b.ci * b.co + nbytes(b.w2, b.wd, b.po)
+            + 2 * b.ci * b.pi.element_size())
+
+
+def chain_bound(x, blocks, wfc, bfc, out_numel, out_size):
+    """Least time of a chain: each input, weight and row read once and the
+    output written once, against its int8 operations."""
+    moved = nbytes(x) + out_numel * out_size
+    moved += sum(block_bytes(b) for b in blocks)
+    moved += nbytes(*[t for t in (wfc, bfc) if t is not None])
+    n, h, w, _ = x.shape
+    ops = 0
+    for b in blocks:
+        if b.kind == "down":
+            h, w = h // 2, w // 2
+            ops += 2 * n * h * w * b.co * (9 * b.ci + 9 * b.co + b.ci)
+        else:
+            ops += 2 * n * h * w * b.co * (9 * b.ci + 9 * b.co)
+    if wfc is not None:
+        ops += 2 * n * wfc.shape[0] * wfc.shape[1]
+    return bound_ms(moved, ops, torch.int8)
+
+
+def time_kernel(fn, plain):
+    """(device ms, ms per call) of the kernel and of its plain version."""
+    return ((device_ms(fn), cuda_ms(fn)),
+            (device_ms(plain, iters=3), cuda_ms(plain, iters=3, warmup=1)))
+
+
+def forward_times(pred, xb, card, name):
+    for _ in range(3):
+        pred(xb)
+    torch.cuda.synchronize()
+    iters = 20
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred(xb)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / iters * 1e3
+    by_kernel, _ = device_profile(lambda: pred(xb), iters=10)
+    busy = sum(by_kernel.values())
+    n = xb.shape[0]
+    print(f"phase 4: {name}: {fwd_ms:.3f} ms per forward, "
+          f"{n / fwd_ms * 1e3:.1f} images/s; device busy {busy:.3f} ms per "
+          f"forward ({100 * busy / fwd_ms:.1f}% of the latency) | {card}")
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"phase 4:   {ms * 1e3:9.2f} us  {kname[:100]}")
+    return fwd_ms, busy
+
+
 def main() -> int:
+    quick = "--quick" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "measures the port on a GPU and has nothing to run here",
@@ -219,38 +443,59 @@ def main() -> int:
     stem_err = check_stem(kernels, (BATCH, SIZE, SIZE, 3), gen, dev)  # v3
     check_stem(kernels, (1, SIZE, SIZE - 4, 3), gen, dev)     # v2: B=1, W%8
     check_stem(kernels, (2, 200, 196, 3), gen, dev)           # v1: H%16
+    block_errs = check_blocks(kernels, gen, dev)
+    if quick:
+        print("chip_smoke: --quick: phases 1 and 2 passed", file=sys.stderr)
+        return 0
 
     qat = flagship(torch.Generator().manual_seed(SEED))
-    pred = Predictor(copy.deepcopy(qat), batch_size=BATCH)
     images = torch.randn((24, 3, SIZE, SIZE), generator=gen)
-    requests = (images[:8], images[8:11], images[11:24])
-    kernels.binary_gemm.launches = 0
-    kernels.fused_stem.launches = 0
-    outs = [pred(r) for r in requests]
-    torch.cuda.synchronize()
-    launches = {"binary_gemm": kernels.binary_gemm.launches,
-                "fused_stem": kernels.fused_stem.launches}
-    for r, o in zip(requests, outs):
-        if o.shape != (r.shape[0], 1000) or not bool(torch.isfinite(o).all()):
-            raise AssertionError(f"bad output {tuple(o.shape)} for a request "
-                                 f"of {r.shape[0]}")
-    if launches != {"binary_gemm": 4, "fused_stem": 4}:
-        raise AssertionError(f"expected 4 launches of each kernel in 4 "
-                             f"forwards, got {launches}")
-    print(f"phase 3: served 24 images as requests of 8, 3, 13 in bf16: "
-          f"logits {[tuple(o.shape) for o in outs]}, launches {launches}")
+    totals = dict.fromkeys(KERNELS, 0)
 
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    pred = Predictor(copy.deepcopy(qat), batch_size=BATCH)
+    outs, launches = serve_counted(
+        kernels, pred, (images[:8], images[8:11], images[11:24]),
+        "ResNet-18 Predictor(batch_size=8) bf16",
+        {"binary_gemm": 1, "fused_stem": 1})
+    add(launches)
     gpu32 = Predictor(copy.deepcopy(qat), batch_size=BATCH, dtype=None)
     cpu32 = Predictor(copy.deepcopy(qat), batch_size=BATCH, dtype=None,
                       device="cpu")
-    got = gpu32(images[:BATCH]).cpu()
-    ref = cpu32(images[:BATCH])
-    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
-    bf16_gap = (outs[0].float().cpu() - ref).abs().max().item()
-    print(f"phase 3: f32 on the card vs plain versions on the CPU, batch 8: "
-          f"max |diff| {(got - ref).abs().max().item():.3g} (limit 1e-3), "
-          f"argmax equal {bool((got.argmax(1) == ref.argmax(1)).all())}; "
-          f"bf16 serving vs f32 CPU max |diff| {bf16_gap:.3g}")
+    ref8 = cpu32(images[:BATCH])
+    check_f32(gpu32, ref8, images[:BATCH], "ResNet-18 batch 8")
+    bf16_gap = (outs[0].float().cpu() - ref8).abs().max().item()
+    print(f"phase 3: bf16 serving vs f32 CPU at batch 8: max |diff| {bf16_gap:.3g}")
+
+    small = {}
+    for b, requests in ((1, (images[:1], images[1:3])), (4, (images[:4], images[4:7]))):
+        small[b] = Predictor(copy.deepcopy(qat), batch_size=b)
+        _, launches = serve_counted(
+            kernels, small[b], requests, f"ResNet-18 Predictor(batch_size={b}) bf16",
+            {"fused_stem": 1, "fused_chain": 4})
+        add(launches)
+    cpu4 = Predictor(copy.deepcopy(qat), batch_size=4, dtype=None, device="cpu")
+    ref4 = cpu4(images[:4])
+    for b in (1, 4):
+        check_f32(Predictor(copy.deepcopy(qat), batch_size=b, dtype=None), ref4,
+                  images[:4], f"ResNet-18 batch {b}")
+
+    qat34 = flagship(torch.Generator().manual_seed(SEED), depth=34)
+    pred34 = Predictor(copy.deepcopy(qat34), batch_size=1)
+    _, launches = serve_counted(
+        kernels, pred34, (images[:1], images[1:2]),
+        "ResNet-34 Predictor(batch_size=1) bf16",
+        {"fused_stem": 1, "fused_chain": 3, "fused_downsample_block": 1,
+         "fused_basic_block": 2})
+    add(launches)
+    ref34 = Predictor(copy.deepcopy(qat34), batch_size=2, dtype=None,
+                      device="cpu")(images[:2])
+    check_f32(Predictor(copy.deepcopy(qat34), batch_size=1, dtype=None), ref34,
+              images[:2], "ResNet-34 batch 1")
+    print(f"phase 3: launches over every serving run above: {totals}")
 
     # times at the serving path's shapes
     m, k, n = BATCH * 7 * 7, 256, 512
@@ -313,39 +558,135 @@ def main() -> int:
                           for f, (d, c) in times.items())
         print(f"phase 4: {name}: {parts}; bound {bound * 1e3:.3f} us ({by}) | {card}")
 
-    xb = images[:BATCH].to(dev)
-    for _ in range(3):
-        pred(xb)
-    torch.cuda.synchronize()
-    iters = 20
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        pred(xb)
-    torch.cuda.synchronize()
-    fwd_ms = (time.perf_counter() - t0) / iters * 1e3
-    by_kernel, _ = device_profile(lambda: pred(xb), iters=10)
-    busy = sum(by_kernel.values())
-    print(f"phase 4: Predictor forward at batch {BATCH}, bf16, {SIZE}x{SIZE}: "
-          f"{fwd_ms:.3f} ms, {BATCH / fwd_ms * 1e3:.1f} images/s; device busy "
-          f"{busy:.3f} ms per forward ({100 * busy / fwd_ms:.1f}% of the "
-          f"latency) | {card}")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"phase 4:   {ms * 1e3:9.2f} us  {name[:100]}")
+    # the residual-block kernels at the shapes the serving paths gave them:
+    # every call is held against its plain version (bf16, as served), and
+    # the R18 chains and R34's block kernels are timed
+    block_t = {}   # kernel -> [(label, (dev, call), (plain dev, plain call), bound, by)]
 
+    def check_call(kname, label, fn, plain, head=False):
+        err = check_exact(label, fn(), plain(), head, phase=4)
+        block_errs[kname] = max(block_errs[kname], err)
+
+    def record(kname, label, fn, plain, bound, head=False):
+        check_call(kname.split("@")[0], label, fn, plain, head)
+        k_t, p_t = time_kernel(fn, plain)
+        block_t.setdefault(kname, []).append((label, k_t, p_t) + bound)
+
+    def chain_calls(pred, xb):
+        """(label, kernel call, plain call, bound, head) of each fused_chain
+        call that ``pred`` makes on ``xb``."""
+        calls = []
+        for args, kw in capture_calls(stages, "fused_chain", lambda: pred(xb)):
+            xh, blocks = args[0], args[1]
+            wfc, bfc = (args[2], args[3]) if len(args) > 2 else (None, None)
+            n, h, w, _ = xh.shape
+            if blocks[0].kind == "down":
+                h, w = h // 2, w // 2
+            out_numel, out_size = ((n * wfc.shape[1], 4) if wfc is not None else
+                                   (n * h * w * blocks[-1].co, xh.element_size()))
+            label = (f"fused_chain {'+'.join(x.kind for x in blocks)}"
+                     f"{'+head' if wfc is not None else ''} {tuple(xh.shape)} bf16")
+            calls.append((label, lambda a=args, k=kw: kernels.fused_chain(*a, **k),
+                          lambda a=args, k=kw: kernels.fused_chain_reference(*a, **k),
+                          chain_bound(xh, blocks, wfc, bfc, out_numel, out_size),
+                          wfc is not None))
+        return calls
+
+    from bnn_tpu_torch.inference import megablock, stages
+    for b in (1, 4):
+        for label, fn, plain, bound, head in chain_calls(small[b], images[:b].to(dev)):
+            record(f"fused_chain@{b}", label, fn, plain, bound, head)
+    x1 = images[:1].to(dev)
+    for label, fn, plain, _, head in chain_calls(pred34, x1):
+        check_call("fused_chain", "ResNet-34 " + label, fn, plain, head)
+    for kname in ("fused_downsample_block", "fused_basic_block"):
+        for args, kw in capture_calls(megablock, kname, lambda: pred34(x1)):
+            xh = args[0]
+            n, h, w, ci = xh.shape
+            co = args[2].shape[-1]
+            if kname == "fused_downsample_block":
+                out_numel = n * (h // 2) * (w // 2) * co
+                ops = 2 * out_numel * (9 * ci + 9 * co + ci)
+            else:
+                out_numel = n * h * w * co
+                ops = 2 * 2 * out_numel * 9 * ci
+            # conv1's weights as their 9*Ci*Co int8 taps (a down block's
+            # come in the s2d form, which pads 7*Ci*Co zeros); the rest once
+            params = [a for a in args[2:] if isinstance(a, torch.Tensor)]
+            params += [v for v in kw.values() if isinstance(v, torch.Tensor)]
+            moved = (nbytes(xh, *params) + 9 * ci * co
+                     + out_numel * xh.element_size())
+            fn = getattr(kernels, kname)
+            plain = getattr(kernels, kname + "_reference")
+            record(kname, f"{kname} {tuple(xh.shape)} bf16",
+                   lambda a=args, k=kw: fn(*a, **k),
+                   lambda a=args, k=kw: plain(*a, **k),
+                   bound_ms(moved, ops, torch.int8))
+    for kname, rows in block_t.items():
+        for label, (d, c), (pd, pc), bound, by in rows:
+            print(f"phase 4: {label}: kernel {d * 1e3:.2f} us device / "
+                  f"{c * 1e3:.2f} us per call; plain {pd * 1e3:.1f} us device / "
+                  f"{pc * 1e3:.1f} us per call; bound {bound * 1e3:.3f} us "
+                  f"({by}); library: none (no single call) | {card}")
+
+    def summed(kname):
+        rows = block_t[kname]
+        by = "bytes" if sum(r[3] for r in rows if r[4] == "bytes") >= \
+            sum(r[3] for r in rows if r[4] == "operations") else "operations"
+        return (sum(r[1][0] for r in rows), sum(r[2][0] for r in rows),
+                sum(r[3] for r in rows), by)
+
+    forward_times(pred, images[:BATCH].to(dev), card,
+                  f"ResNet-18 Predictor(batch_size={BATCH}) bf16 {SIZE}x{SIZE}")
+    for b in (1, 4):
+        forward_times(small[b], images[:b].to(dev), card,
+                      f"ResNet-18 Predictor(batch_size={b}) bf16 {SIZE}x{SIZE}")
+    unfused = Predictor(copy.deepcopy(qat), batch_size=1, fuse=False)
+    forward_times(unfused, images[:1].to(dev), card,
+                  "context: ResNet-18 Predictor(batch_size=1, fuse=False) bf16, "
+                  "the deployed convs without stage or block kernels")
+    forward_times(pred34, x1, card, f"ResNet-34 Predictor(batch_size=1) bf16 {SIZE}x{SIZE}")
+
+    chain = summed("fused_chain@1")
+    basic = summed("fused_basic_block")
+    down = summed("fused_downsample_block")
+    print("phase 5: fused_chain's numbers are the sums over the four stages of "
+          "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
+          "layer4's two; launches are totals over phase 3's serving runs")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",
          "replaces": "bnn_tpu/kernels/gemm.py:96",
-         "launches": launches["binary_gemm"], "max_abs_err": gemm_err,
+         "launches": totals["binary_gemm"], "max_abs_err": gemm_err,
          "ms": gemm_t["gemm"][0], "plain_ms": gemm_t["gemm_plain"][0],
          "bound_ms": gemm_bound, "bound_by": gemm_by,
          "library_ms": gemm_t["gemm_lib"][0]},
         {"name": "fused_stem", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/fused_stem.cu",
          "replaces": "bnn_tpu/kernels/stem.py:510",
-         "launches": launches["fused_stem"], "max_abs_err": stem_err,
+         "launches": totals["fused_stem"], "max_abs_err": stem_err,
          "ms": stem_t["stem"][0], "plain_ms": stem_t["stem_plain"][0],
          "bound_ms": stem_bound, "bound_by": stem_by, "library_ms": None},
+        {"name": "fused_chain", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/fused_chain.cu",
+         "replaces": "bnn_tpu/kernels/model.py:265",
+         "launches": totals["fused_chain"], "max_abs_err": block_errs["fused_chain"],
+         "ms": chain[0], "plain_ms": chain[1], "bound_ms": chain[2],
+         "bound_by": chain[3], "library_ms": None},
+        {"name": "fused_basic_block", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/fused_basic_block.cu",
+         "replaces": "bnn_tpu/kernels/block.py:173",
+         "launches": totals["fused_basic_block"],
+         "max_abs_err": block_errs["fused_basic_block"],
+         "ms": basic[0], "plain_ms": basic[1], "bound_ms": basic[2],
+         "bound_by": basic[3], "library_ms": None},
+        {"name": "fused_downsample_block", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/fused_downsample_block.cu",
+         "replaces": "bnn_tpu/kernels/strided_block.py:168",
+         "launches": totals["fused_downsample_block"],
+         "max_abs_err": block_errs["fused_downsample_block"],
+         "ms": down[0], "plain_ms": down[1], "bound_ms": down[2],
+         "bound_by": down[3], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -107,7 +107,10 @@ def test_predictor_matches_jax(flagship, jax_logits, fuse):
                      fuse=fuse)
     stem = type(pred.model.conv1).__name__
     assert stem == ("FusedStem" if fuse is None else "SpaceToDepthConv")
-    assert pred.model.layer4[0].downsample[1].mode == "gemm"
+    # fused: layer4 is a stage kernel whose batch-8 fallback holds the block
+    layer4 = pred.model.layer4
+    block = layer4.stage[0].block if fuse is None else layer4[0]
+    assert block.downsample[1].mode == "gemm"
     for n in (3, 10):  # padding one batch, and splitting into two
         got = pred(_nchw(images[:n])).numpy()
         want = jax_logits[n]
@@ -131,7 +134,7 @@ def test_bf16_predictor_runs_on_cpu(flagship):
     assert out.dtype == torch.bfloat16 and out.shape == (3, 10)
     assert torch.isfinite(out.float()).all()
     # integer state is untouched by the cast
-    assert pred.model.layer1[0].conv1.w_packed.dtype == torch.int8
+    assert pred.model.layer1.stage[0].block.conv1.w_packed.dtype == torch.int8
 
 
 def test_load_jax_state_rejects_mismatches(flagship):
@@ -178,14 +181,18 @@ def _tiny():
     (dict(mesh=object(), fuse=False), NotImplementedError, "multi-device"),
     (dict(binary_gemm_impl="popcount"), NotImplementedError, "popcount_gemm"),
     (dict(quantize_float_bits=8), NotImplementedError, "quantize_float_bits"),
-    (dict(batch_size=4), NotImplementedError, "fused_chain"),
-    (dict(batch_size=8, max_fused_batch=8), NotImplementedError,
-     "fused_basic_block"),
 ])
 def test_predictor_loud_errors(kwargs, error, match):
     kwargs = {"batch_size": 8, "device": "cpu", **kwargs}
     with pytest.raises(error, match=match):
         Predictor(_tiny(), **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(batch_size=4),
+                                    dict(batch_size=8, max_fused_batch=8)])
+def test_predictor_small_batch_fused_is_allowed(kwargs):
+    pred = Predictor(_tiny(), device="cpu", dtype=None, **kwargs)
+    assert pred(torch.zeros(3, 3, 8, 8)).shape == (3, 4, 6, 6)
 
 
 def test_predictor_small_batch_unfused_is_allowed():
