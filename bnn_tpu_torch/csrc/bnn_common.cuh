@@ -1,5 +1,6 @@
 // Device code shared by the residual-block megakernels (fused_basic_block,
-// fused_downsample_block, fused_chain), hand-written for Hopper (sm_90a).
+// fused_downsample_block, fused_chain, fused_bottleneck), hand-written for
+// Hopper (sm_90a).
 //
 // A binary BasicBlock runs as phases of one cooperative launch, separated
 // by grid-wide barriers:
@@ -490,8 +491,10 @@ inline int setup(ChainParams& p, int nblocks, const void* const* ptrs,
 
 // One cooperative launch of `kernel(p)` over as many thread blocks as can
 // be resident; a plain launch of a kernel with grid barriers could
-// deadlock, so there is none. Returns the CUDA error code.
-inline int launch(const void* kernel, int* capacity_cache, ChainParams& p,
+// deadlock, so there is none. `Params` is the kernel's one argument (a
+// ChainParams, or a kernel's own struct). Returns the CUDA error code.
+template <class Params>
+inline int launch(const void* kernel, int* capacity_cache, Params& p,
                   void* stream) {
   const int cap = grid_capacity(kernel, capacity_cache);
   if (cap <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);

@@ -9,9 +9,9 @@
 - a stride-2 block with the BNN AvgPool -> 1x1 conv -> BN shortcut with
   :class:`FusedDownBlock` (:func:`~bnn_tpu_torch.kernels.strided_block.
   fused_downsample_block`);
-- a stride-1 ``Bottleneck`` with :class:`FusedBottleneck`, whose kernel
-  (``fused_bottleneck``) is not ported yet: it raises where the kernel would
-  run.
+- a stride-1 ``Bottleneck`` (identity or 1x1 projection shortcut) with
+  :class:`FusedBottleneck` (:func:`~bnn_tpu_torch.kernels.bottleneck.
+  fused_bottleneck`).
 
 Each wrapper holds the original block and decides per call: the kernel runs
 iff the batch is at most ``max_fused_batch`` (and, for FusedBlock,
@@ -21,7 +21,7 @@ convs' epilogues (post-activation) or sign thresholds (pre-activation) by
 the eligibility checks, as in the JAX package.
 
 Modules take NCHW; the kernels take NHWC, so the wrappers permute around
-them. The int8 HWIO weights are made once, when a block is wrapped.
+them. The int8 weights are made once, when a block is wrapped.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from torch import nn
 
 from ..binarize import set_module_by_name
 from ..kernels.block import fused_basic_block
+from ..kernels.bottleneck import BottleneckDesc
 from ..kernels.packing import unpack_bits
 from ..kernels.strided_block import _transform_w1, fused_downsample_block
 from ..models.layers import BasicBlock, Bottleneck, PreBasicBlock
@@ -302,22 +303,54 @@ class FusedDownBlock(nn.Module):
 
 
 class FusedBottleneck(nn.Module):
-    """A deployed stride-1 Bottleneck marked for ``fused_bottleneck``
-    (bnn_tpu/kernels/bottleneck.py), which is not ported yet: batches up to
-    ``max_fused_batch`` raise ``NotImplementedError``; larger ones run the
-    original block, as the JAX wrapper does."""
+    """Kernel execution of a deployed stride-1 Bottleneck, with an identity
+    or a stride-1 1x1 projection shortcut. Holds the original block for
+    larger batches. Its :class:`~bnn_tpu_torch.kernels.bottleneck.
+    BottleneckDesc` is made at the first fused forward and runs every later
+    one, until ``.to()`` or a cast replaces the tensors."""
 
     def __init__(self, block, *, max_fused_batch: int = 4):
         super().__init__()
         self.block = block
         self.max_fused_batch = max_fused_batch
+        c = block.conv1.in_channels
+        self.register_buffer("w1", _conv_weight_int8(block.conv1).reshape(c, -1))
+        self.register_buffer("w2", _conv_weight_int8(block.conv2))
+        self.register_buffer("w3", _conv_weight_int8(block.conv3)
+                             .reshape(block.conv3.in_channels, -1))
+        self.register_buffer("wd", None if block.downsample is None else
+                             _conv_weight_int8(block.downsample[1]).reshape(c, -1))
+        self._acts = tuple(_act_kind(a)[0] for a in (block.act1, block.act2,
+                                                     block.act3))
+        self._desc = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._desc = None  # .to() and casts replace the tensors
+        return super()._apply(fn, *args, **kwargs)
+
+    def _rows(self) -> dict:
+        b = self.block
+        rows = dict(scale1=b.conv1.scale, add1=b.conv1.add,
+                    prelu1=_act_kind(b.act1)[1], threshold1=b.conv1.threshold,
+                    scale2=b.conv2.scale, add2=b.conv2.add,
+                    prelu2=_act_kind(b.act2)[1], threshold2=b.conv2.threshold,
+                    scale3=b.conv3.scale, add3=b.conv3.add,
+                    prelu3=_act_kind(b.act3)[1], threshold3=b.conv3.threshold)
+        if self.wd is not None:
+            dconv = b.downsample[1]
+            rows.update(scaled=dconv.scale, addd=dconv.add,
+                        thresholdd=dconv.threshold)
+        return rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.block
         if x.shape[0] > self.max_fused_batch:
-            return self.block(x)
-        raise NotImplementedError(
-            "a Bottleneck at batch <= max_fused_batch needs fused_bottleneck "
-            "(bnn_tpu/kernels/bottleneck.py), which is not ported yet")
+            return b(x)
+        if self._desc is None:
+            self._desc = BottleneckDesc(self.w1.shape[0], self.w1, self.w2,
+                                        self.w3, self.wd, self._rows())
+        y = self._desc(_nhwc(x), self._acts, _z21(b.conv1), x.dtype)
+        return y.permute(0, 3, 1, 2)
 
 
 _WRAPPERS = (FusedBlock, FusedDownBlock, FusedBottleneck)

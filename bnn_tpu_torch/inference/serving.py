@@ -11,12 +11,13 @@ per-block kernels under ``max_fused_batch``
 head folded into the last stage -> float state cast to ``dtype``. Requests
 are padded and split into ``batch_size`` chunks. Every fused module decides
 per forward whether its kernel runs: at batch 1 to 4 a binary ResNet-18 is
-five launches (stem, four stages); at batch 8 the stages fall back to the
-deployed blocks, as in the JAX package.
+five launches (stem, four stages), a binary ResNet-50 the stem and one
+``fused_bottleneck`` per stride-1 Bottleneck (13), its three strided blocks
+on the deployed convs; at batch 8 the stages and blocks fall back to the
+deployed convs, as in the JAX package.
 
 Not ported yet, and raising ``NotImplementedError``: multi-device serving,
-the popcount GEMM, the quantized float head, and ``fused_bottleneck`` (a
-Bottleneck model with ``fuse`` at ``batch_size <= max_fused_batch``).
+the popcount GEMM and the quantized float head.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from torch import nn
 from ..utils.precision import cast_floats
 from .deploy import deploy
 from .export import batched_call
-from .megablock import FusedBottleneck, fuse_blocks
+from .megablock import fuse_blocks
 from .optimize import optimize_deployed
 from .stages import fuse_head, fuse_stages
 from .stem import fuse_stem, space_to_depth_stem
@@ -95,14 +96,6 @@ class Predictor:
             fuse_stages(model)
             fuse_blocks(model, max_fused_batch=max_fused_batch, strided=True)
             fuse_head(model)
-            if batch_size <= max_fused_batch and any(
-                    isinstance(m, FusedBottleneck) for m in model.modules()):
-                raise NotImplementedError(
-                    f"fuse=True at batch_size={batch_size} runs Bottleneck "
-                    "blocks through fused_bottleneck "
-                    "(bnn_tpu/kernels/bottleneck.py), which is not ported "
-                    "yet; use fuse=False or a batch_size above "
-                    "max_fused_batch")
         if dtype is not None:
             cast_floats(model, dtype)
         self.model = model

@@ -1,4 +1,6 @@
 from .block import fused_basic_block, fused_basic_block_reference
+from .bottleneck import (BottleneckDesc, fused_bottleneck,
+                         fused_bottleneck_reference)
 from .gemm import binary_gemm, binary_gemm_reference
 from .model import (BlockParams, fused_chain, fused_chain_reference,
                     fused_down_stage, fused_down_stage_reference, fused_pair,
@@ -14,4 +16,5 @@ __all__ = ["binary_gemm", "binary_gemm_reference", "pack_bits",
            "fused_basic_block_reference", "fused_downsample_block",
            "fused_downsample_block_reference", "BlockParams", "fused_chain",
            "fused_chain_reference", "fused_pair", "fused_pair_reference",
-           "fused_down_stage", "fused_down_stage_reference"]
+           "fused_down_stage", "fused_down_stage_reference", "BottleneckDesc",
+           "fused_bottleneck", "fused_bottleneck_reference"]

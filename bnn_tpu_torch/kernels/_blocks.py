@@ -145,26 +145,15 @@ class Desc:
         if self.ci % 4 or self.co % 4:
             raise ValueError(f"{name} needs channel counts divisible by 4, "
                              f"got {self.ci} -> {self.co}")
-        keep, ptrs = [], []
-        for w, shape in ((self.w1, ((16 if self.down else 9) * self.ci, self.co)),
-                         (self.w2, (9 * self.co, self.co)),
-                         (self.wd, (self.ci, self.co) if self.down else None)):
-            if shape is None:
-                ptrs.append(0)
-                continue
-            if tuple(w.shape) != shape:
+        weights = [self.w1, self.w2, self.wd if self.down else None]
+        for w, shape in zip(weights, (((16 if self.down else 9) * self.ci, self.co),
+                                      (9 * self.co, self.co), (self.ci, self.co))):
+            if w is not None and tuple(w.shape) != shape:
                 raise ValueError(f"{name}: weights {tuple(w.shape)}, "
                                  f"expected {shape}")
-            if w.dtype != torch.int8 or not w.is_contiguous():
-                w = w.to(torch.int8).contiguous()
-                keep.append(w)
-            ptrs.append(w.data_ptr())
-        lens = []
-        for r, v in zip(ROWS, self.rows):
-            p, length = _row(name, r, v, self.ci if r in _IN_ROWS else self.co,
-                             dtype, device, keep)
-            ptrs.append(p)
-            lens.append(length)
+        ptrs, lens, keep = flat_args(
+            name, weights, zip(ROWS, self.rows),
+            [self.ci if r in _IN_ROWS else self.co for r in ROWS], dtype, device)
         flat = (ptrs, [int(self.down), self.ci, self.co] + lens, keep)
         if not keep:  # converted copies serve one launch only
             self._flat[key] = flat
@@ -197,6 +186,24 @@ def _check_device(name: str, device, tensors) -> None:
         if isinstance(t, torch.Tensor) and t.device != device:
             raise ValueError(f"{name} needs every tensor on {device}, got one "
                              f"on {t.device}")
+
+
+def flat_args(name: str, weights, rows, widths, dtype, device):
+    """``(pointers, row lengths, converted copies)`` of int8 weights (None:
+    a null pointer) and of ``(row name, value)`` epilogue rows, each row
+    ``widths[i]`` wide in ``dtype`` (see :func:`_row`); the copies must live
+    until the launch."""
+    keep, ptrs, lens = [], [], []
+    for w in weights:
+        if w is not None and (w.dtype != torch.int8 or not w.is_contiguous()):
+            w = w.to(torch.int8).contiguous()
+            keep.append(w)
+        ptrs.append(0 if w is None else w.data_ptr())
+    for (r, v), width in zip(rows, widths):
+        p, length = _row(name, r, v, width, dtype, device, keep)
+        ptrs.append(p)
+        lens.append(length)
+    return ptrs, lens, keep
 
 
 def _row(name, r, v, width, dtype, device, keep):

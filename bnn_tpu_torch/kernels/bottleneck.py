@@ -1,0 +1,269 @@
+"""Stride-1 binary Bottleneck in one kernel (counterpart of
+``bnn_tpu/kernels/bottleneck.py``), ResNet-50's block:
+
+    y1  = act1(conv1x1(sign(x - threshold1), w1) * scale1 + add1)
+    y2  = act2(conv3x3(sign(y1 - threshold2), w2) * scale2 + add2)
+    y3  = conv1x1(sign(y2 - threshold3), w3) * scale3 + add3
+    r   = x, or conv1x1(sign(x - thresholdd), wd) * scaled + addd
+    out = act3(y3 + r)
+
+:func:`fused_bottleneck` launches the hand-written Hopper kernel
+``bnn_tpu_torch/csrc/fused_bottleneck.cu`` for CUDA tensors and takes
+:func:`fused_bottleneck_reference`, its plain version, only for CPU tensors.
+Both compute the same f32 values bit for bit: the convolutions are exact
+integer sums, the 3x3's zero padding is added after the sign, and every f32
+multiply and add rounds on its own.
+
+Bound on an H100 at batch 1: 69.6 KB of int8 weights per layer1 block and
+4.46 MB per layer4 block; with the bf16 activations, bytes bound each call
+to 0.6-1.5 us. The kernel is one cooperative launch whose phases are
+split by grid barriers, over ``bnn_common.cuh``'s gathers and exact int32
+partial sums.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from . import _blocks as B
+from ._build import load
+
+__all__ = ["BottleneckDesc", "fused_bottleneck", "fused_bottleneck_reference"]
+
+_NAME = "fused_bottleneck"
+# epilogue rows in csrc/fused_bottleneck.cu's order; the kernel gives a
+# missing row its default (scales 1, slopes 0.25, others 0)
+ROWS = ("scale1", "add1", "prelu1", "threshold2", "scale2", "add2", "prelu2",
+        "threshold3", "scale3", "add3", "prelu3", "scaled", "addd",
+        "threshold1", "thresholdd")
+_MID_ROWS = ROWS[:8]                      # per conv1 / conv2 output channel
+_IN_ROWS = ("threshold1", "thresholdd")   # per input channel; the rest per C_out
+
+
+def split_act3(act):
+    """``(act1, act2, act3)`` from one kind or a triple, checked."""
+    acts = (act,) * 3 if isinstance(act, str) else tuple(act)
+    if len(acts) != 3 or any(a not in B.ACTS for a in acts):
+        raise ValueError(f"act must be one of {B.ACTS} or a triple of them, "
+                         f"got {act!r}")
+    return acts
+
+
+def _weights(c: int, w1, w2, w3, wd):
+    """``(width, C_out, w1 (C, width), w2 (3, 3, width, width),
+    w3 (width, C_out), wd (C, C_out) or None)``, checked."""
+    w1 = w1.reshape(c, -1)
+    width = w1.shape[1]
+    if tuple(w2.shape) != (3, 3, width, width):
+        raise ValueError(f"{_NAME} needs a (3, 3, {width}, {width}) w2, got "
+                         f"{tuple(w2.shape)}")
+    w3 = w3.reshape(width, -1)
+    cout = w3.shape[1]
+    if wd is not None:
+        wd = wd.reshape(c, cout)
+    elif cout != c:
+        raise ValueError(f"an identity shortcut needs C_out == C, got {c} -> "
+                         f"{cout}; pass wd for a projection")
+    return width, cout, w1, w2, w3, wd
+
+
+class BottleneckDesc:
+    """One Bottleneck as the kernel takes it: int8 weights ``w1 (C, width)``,
+    ``w2 (9 * width, width)``, ``w3 (width, C_out)``, ``wd (C, C_out)`` or
+    None, and the epilogue rows ``{name: None, a number or a tensor}`` (see
+    :data:`ROWS`). Calling it runs the block: the kernel on CUDA tensors,
+    the plain version on CPU tensors. Its kernel arguments are built at the
+    first launch for each dtype and device, unless a tensor had to be
+    converted, so a caller that keeps it (``FusedBottleneck``) does not
+    rebuild them per call; the tensors must not be replaced meanwhile."""
+
+    def __init__(self, c: int, w1, w2, w3, wd=None, rows=None):
+        rows = dict(rows or {})
+        unknown = set(rows) - set(ROWS)
+        if unknown:
+            raise ValueError(f"{_NAME} takes the rows {ROWS}, got {sorted(unknown)}")
+        self.rows = [rows.get(r) for r in ROWS]
+        self.c = c
+        self.width, self.cout, w1, w2, w3, wd = _weights(c, w1, w2, w3, wd)
+        self.w1, self.w3, self.wd = w1, w3, wd
+        self.w2 = w2.reshape(9 * self.width, self.width)
+        self.float_dtypes = {v.dtype for v in self.rows if isinstance(v, torch.Tensor)}
+        self._flat = {}
+
+    def __call__(self, x: torch.Tensor, act="relu", zero_to_one: bool = True,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if x.ndim != 4:
+            raise ValueError(f"expected NHWC x, got {tuple(x.shape)}")
+        acts = split_act3(act)
+        out_dtype = x.dtype if out_dtype is None else out_dtype
+        if x.device.type == "cpu":
+            return self.reference(x, acts, zero_to_one, out_dtype)
+        out = torch.empty(x.shape[:3] + (self.cout,), dtype=out_dtype, device=x.device)
+        self._launch(x, out, acts, zero_to_one)
+        fused_bottleneck.launches += 1
+        return out
+
+    def reference(self, x: torch.Tensor, act="relu", zero_to_one: bool = True,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """:func:`fused_bottleneck_reference` on these weights and rows."""
+        return fused_bottleneck_reference(
+            x, self.w1, self.w2.reshape(3, 3, self.width, self.width), self.w3,
+            wd=self.wd, act=act, zero_to_one=zero_to_one, out_dtype=out_dtype,
+            **dict(zip(ROWS, self.rows)))
+
+    def _row_width(self, r: str) -> int:
+        if r in _IN_ROWS:
+            return self.c
+        return self.width if r in _MID_ROWS else self.cout
+
+    def _flat_args(self, dtype, device):
+        """``(pointers, row lengths, converted copies)`` of the weights and
+        rows, the rows in ``dtype``; the copies must live until the launch."""
+        key = (dtype, device)
+        if key in self._flat:
+            return self._flat[key]
+        weights = [self.w1, self.w2, self.w3, self.wd]
+        B._check_device(_NAME, device, weights + self.rows)
+        if self.c % 4 or self.width % 4 or self.cout % 4:
+            raise ValueError(f"{_NAME} needs channel counts divisible by 4, got "
+                             f"{self.c} -> {self.width} -> {self.cout}")
+        if device.type != "cuda":
+            raise ValueError(f"{_NAME} launches on CUDA tensors, got {device}")
+        flat = B.flat_args(_NAME, weights, zip(ROWS, self.rows),
+                           [self._row_width(r) for r in ROWS], dtype, device)
+        if not flat[2]:  # converted copies serve one launch only
+            self._flat[key] = flat
+        return flat
+
+    def _launch(self, x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool):
+        """One launch on CUDA tensors; raises on what the kernel does not
+        take and on a failed launch."""
+        dev = x.device
+        B._check_device(_NAME, dev, [out])
+        if x.dtype not in B._FLOATS or out.dtype not in B._FLOATS:
+            raise TypeError(f"{_NAME} takes f32/bf16 x and output, got {x.dtype} "
+                            f"and {out.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{_NAME} needs a contiguous NHWC x")
+        prm = torch.bfloat16 if self.float_dtypes == {torch.bfloat16} else torch.float32
+        wptrs, lens, keep = self._flat_args(prm, dev)
+        n, h, w, c = x.shape
+        if c != self.c:
+            raise ValueError(f"{_NAME}: x has {c} channels, the weights take {self.c}")
+        m, proj = n * h * w, self.wd is not None
+        # xs, ds, hs1, hs2 (int8), then the int32 sums of conv1/conv2, conv3
+        # and the projection
+        scratch = B._carve(dev, [
+            m * c, m * c if proj else 0, m * self.width, m * self.width,
+            4 * m * self.width, 4 * m * self.cout, 4 * m * self.cout if proj else 0])
+        ptrs = [x.data_ptr(), out.data_ptr()] + wptrs + scratch[1:]
+        ints = [n, h, w, c, self.width, self.cout, int(proj)]
+        ints += [B.ACTS.index(a) for a in acts]
+        ints += [int(zero_to_one), int(x.dtype == torch.bfloat16),
+                 int(out.dtype == torch.bfloat16), int(prm == torch.bfloat16)] + lens
+        err = _entry()((ctypes.c_void_p * len(ptrs))(*ptrs),
+                       (ctypes.c_int * len(ints))(*ints),
+                       torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{_NAME} kernel launch failed: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = load(_NAME).bnn_fused_bottleneck
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def fused_bottleneck(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    w3: torch.Tensor,
+    scale1, add1, scale2, add2, scale3, add3,
+    *,
+    wd: Optional[torch.Tensor] = None,
+    scaled=None,
+    addd=None,
+    act="relu",
+    prelu1=None,
+    prelu2=None,
+    prelu3=None,
+    threshold1=None,
+    threshold2=None,
+    threshold3=None,
+    thresholdd=None,
+    zero_to_one: bool = True,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """One stride-1 binary Bottleneck (see the module docstring).
+
+    Args:
+        x: ``(N, H, W, C)`` raw block input, f32 or bf16 (the identity
+            shortcut adds these values).
+        w1: ``(C, width)`` or ``(1, 1, C, width)`` +/-1 int8.
+        w2: ``(3, 3, width, width)`` +/-1 int8 (HWIO).
+        w3: ``(width, C_out)`` or ``(1, 1, width, C_out)`` +/-1 int8.
+        scale*/add*: folded per-channel epilogues (None: 1 and 0).
+        wd: optional ``(C, C_out)`` 1x1 projection shortcut, with its
+            ``scaled``/``addd`` epilogue and ``thresholdd`` sign threshold;
+            without it the shortcut is the identity and ``C_out == C``.
+        act: ``'relu' | 'prelu' | 'identity'`` or an ``(act1, act2, act3)``
+            triple; prelu1..3 are the slopes (default 0.25).
+        threshold1..3: optional per-channel thresholds of the three convs'
+            input signs.
+        zero_to_one: sign(0) convention of every sign (False: sign(0) = 0).
+        out_dtype: default x's dtype.
+    """
+    named = dict(scale1=scale1, add1=add1, prelu1=prelu1, scale2=scale2,
+                 add2=add2, prelu2=prelu2, scale3=scale3, add3=add3,
+                 prelu3=prelu3, scaled=scaled, addd=addd,
+                 threshold1=threshold1, threshold2=threshold2,
+                 threshold3=threshold3, thresholdd=thresholdd)
+    if x.ndim != 4:
+        raise ValueError(f"expected NHWC x, got {tuple(x.shape)}")
+    return BottleneckDesc(x.shape[-1], w1, w2, w3, wd, named)(
+        x, act, zero_to_one, out_dtype)
+
+
+fused_bottleneck.launches = 0
+
+
+def fused_bottleneck_reference(
+    x, w1, w2, w3, scale1, add1, scale2, add2, scale3, add3, *, wd=None,
+    scaled=None, addd=None, act="relu", prelu1=None, prelu2=None,
+    prelu3=None, threshold1=None, threshold2=None, threshold3=None,
+    thresholdd=None, zero_to_one=True, out_dtype=None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_bottleneck` (f32 arithmetic,
+    cast to ``out_dtype`` at the end)."""
+    c = x.shape[-1]
+    width, cout, w1, w2, w3, wd = _weights(c, w1, w2, w3, wd)
+    act1, act2, act3 = split_act3(act)
+    dev = x.device
+
+    def r(v, default, wide):
+        return B.row(v, default, wide, dev)
+
+    def unit(s, w, scale, add, wide):
+        return B.epilogue(B.pointwise(s, w) if w.ndim == 2 else B.conv3x3(s, w, 1),
+                          r(scale, 1.0, wide), r(add, 0.0, wide))
+
+    xf = x.to(torch.float32)
+    y1 = B.apply_act(unit(B.sign(xf, r(threshold1, 0.0, c), zero_to_one), w1,
+                          scale1, add1, width), act1, r(prelu1, 0.25, width))
+    y2 = B.apply_act(unit(B.sign(y1, r(threshold2, 0.0, width), zero_to_one), w2,
+                          scale2, add2, width), act2, r(prelu2, 0.25, width))
+    y3 = unit(B.sign(y2, r(threshold3, 0.0, width), zero_to_one), w3, scale3,
+              add3, cout)
+    if wd is None:
+        identity = xf
+    else:
+        identity = unit(B.sign(xf, r(thresholdd, 0.0, c), zero_to_one), wd,
+                        scaled, addd, cout)
+    out = B.apply_act(y3 + identity, act3, r(prelu3, 0.25, cout))
+    return out.to(x.dtype if out_dtype is None else out_dtype)

@@ -16,15 +16,17 @@ Phases, each reported on its own lines:
    classes, weights and BN statistics random from a seed) through
    ``Predictor(batch_size=8)`` in bf16 at 224x224 for requests of 8, 3 and 13
    images (4 forwards; the stages fall back to the deployed convs), through ``Predictor(batch_size=1)`` and
-   ``batch_size=4`` (stem and stage kernels), and ResNet-34 through
+   ``batch_size=4`` (stem and stage kernels), ResNet-34 through
    ``Predictor(batch_size=1)`` (stage kernels for layers 1-3, block kernels
-   for layer4); then the same weights in f32 on the card against the plain
-   versions on the CPU;
+   for layer4), and ResNet-50 through ``Predictor(batch_size=1)``, ``4``
+   (stem, 13 ``fused_bottleneck``, the strided blocks on deployed convs) and
+   ``8`` (deployed convs); then the same weights in f32 on the card against
+   the plain versions on the CPU;
 4. every residual-block kernel call of the batch 1 and 4 serving paths
-   (ResNet-18 and ResNet-34), captured with its own bf16 inputs and held
-   against its plain version as in phase 2; then times: each kernel's
-   device time (torch.profiler) and time per call (CUDA events) at the
-   shapes the serving paths gave it, beside its plain
+   (ResNet-18, ResNet-34 and ResNet-50), captured with its own bf16 inputs
+   and held against its plain version as in phase 2; then times: each
+   kernel's device time (torch.profiler) and time per call (CUDA events) at
+   the shapes the serving paths gave it, beside its plain
    version's, its bound and the one-call PyTorch yardstick where there is
    one; the forward latency, images/s, device busy share and the kernels
    that take the time, at batch 8, 4 and 1;
@@ -37,6 +39,7 @@ fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import importlib
 import json
 import subprocess
 import sys
@@ -145,8 +148,22 @@ def check_stem(kernels, shape, gen, dev) -> float:
     return err.max().item()
 
 
+def hold_gemm(kernels, label, args, kw, phase: int = 2) -> float:
+    """binary_gemm on ``args``/``kw`` against its plain version: within 1e-6
+    relative. Returns the largest absolute difference."""
+    got = kernels.binary_gemm(*args, **kw)
+    ref = kernels.binary_gemm_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if got.shape != ref.shape or not bool((err <= 1e-6 * ref.abs() + 1e-6).all()):
+        raise AssertionError(f"binary_gemm {label}: max |err| {err.max().item()}")
+    if phase == 2:
+        print(f"phase 2: binary_gemm {label}: max |err| {err.max().item():.3g}")
+    return err.max().item()
+
+
 def check_gemm(kernels, m, k, n, dtype, sign_inputs, gen, dev) -> float:
-    """binary_gemm against its plain version: within 1e-6 relative."""
+    """binary_gemm against its plain version on random inputs of the shape."""
     if sign_inputs:
         x = torch.randn((m, k), generator=gen)
         x[torch.rand((m, k), generator=gen) < 0.1] = 0.0  # exact zeros
@@ -156,17 +173,8 @@ def check_gemm(kernels, m, k, n, dtype, sign_inputs, gen, dev) -> float:
     wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
     scale = torch.rand(n, generator=gen).to(dev) + 0.5
     add = torch.randn(n, generator=gen).to(dev)
-    got = kernels.binary_gemm(x, wp, k, scale, add, sign_inputs=sign_inputs)
-    ref = kernels.binary_gemm_reference(x, wp, k, scale, add,
-                                        sign_inputs=sign_inputs)
-    torch.cuda.synchronize()
-    err = (got - ref).abs()
-    if not bool((err <= 1e-6 * ref.abs() + 1e-6).all()):
-        raise AssertionError(f"binary_gemm ({m},{k},{n}): max |err| "
-                             f"{err.max().item()}")
-    print(f"phase 2: binary_gemm M={m} K={k} N={n} {dtype} "
-          f"sign_inputs={sign_inputs}: max |err| {err.max().item():.3g}")
-    return err.max().item()
+    return hold_gemm(kernels, f"M={m} K={k} N={n} {dtype} sign_inputs={sign_inputs}",
+                     (x, wp, k, scale, add), dict(sign_inputs=sign_inputs))
 
 
 def rand_block(kernels, kind, ci, co, gen, dev, dtype, *, options: bool):
@@ -267,6 +275,83 @@ def check_blocks(kernels, gen, dev) -> dict:
     return errs
 
 
+# fused_bottleneck's phase-2 cases: (x shape, width, C_out, act, zero_to_one,
+# thresholds, exact zeros in x); a projection wherever C_out != C
+BOTTLENECKS = [
+    ((1, 56, 56, 64), 64, 256, "relu", False, False, True),          # layer1.0
+    ((1, 56, 56, 256), 64, 256, "prelu", True, True, False),         # layer1.1
+    ((4, 14, 14, 1024), 256, 1024, "identity", False, True, True),   # layer3, B=4
+    ((1, 7, 7, 2048), 512, 2048, ("prelu", "identity", "relu"), True, True, True),
+    ((2, 9, 11, 64), 32, 128, "prelu", False, True, False),          # odd H, W
+]
+
+
+def rand_bottleneck(c, width, cout, gen, dev, dtype, *, prelu: bool,
+                    thresholds: bool):
+    """(w1, w2, w3, keyword arguments) of a Bottleneck: random +/-1 int8
+    weights and epilogue rows of the size a folded BN gives, the float rows
+    in ``dtype``; a projection where ``cout != c``."""
+    def pm1(*shape):
+        return torch.where(torch.randn(shape, generator=gen) >= 0, 1, -1).to(
+            dev, torch.int8)
+
+    def vec(n, loc, scale, k=None):
+        v = loc + scale * torch.randn(n, generator=gen)
+        return (v.abs() / k ** 0.5 if k else v).to(dev, dtype)
+
+    kw = dict(scale1=vec(width, 1.0, 0.2, c), add1=vec(width, 0.0, 0.3),
+              scale2=vec(width, 1.0, 0.2, 9 * width), add2=vec(width, 0.0, 0.3),
+              scale3=vec(cout, 1.0, 0.2, width), add3=vec(cout, 0.0, 0.3))
+    if cout != c:
+        kw.update(wd=pm1(c, cout), scaled=vec(cout, 1.0, 0.2, c),
+                  addd=vec(cout, 0.0, 0.3))
+    if prelu:
+        kw.update(prelu1=vec(width, 0.25, 0.1), prelu2=vec(width, 0.25, 0.1),
+                  prelu3=vec(cout, 0.25, 0.1))
+    if thresholds:
+        kw.update(threshold1=vec(c, 0.0, 0.1), threshold2=vec(width, 0.0, 0.1),
+                  threshold3=vec(width, 0.0, 0.1))
+        if cout != c:
+            kw["thresholdd"] = vec(c, 0.0, 0.1)
+    return pm1(c, width), pm1(3, 3, width, width), pm1(width, cout), kw
+
+
+def check_bottlenecks(kernels, gen, dev) -> float:
+    """fused_bottleneck against its plain version on the card at
+    :data:`BOTTLENECKS`, in f32 and bf16."""
+    err = 0.0
+    for shape, width, cout, act, z21, thresholds, zeros in BOTTLENECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen)
+            x = x.clamp_min(0.0) if zeros else x
+            x = x.to(dev, dtype)
+            w1, w2, w3, kw = rand_bottleneck(shape[-1], width, cout, gen, dev,
+                                             dtype, prelu="prelu" in act,
+                                             thresholds=thresholds)
+            kw.update(act=act, zero_to_one=z21)
+            got = kernels.fused_bottleneck(x, w1, w2, w3, **kw)
+            ref = kernels.fused_bottleneck_reference(x, w1, w2, w3, **kw)
+            err = max(err, check_exact(
+                f"fused_bottleneck {shape} width {width} -> {cout} "
+                f"{str(dtype)[6:]} act={act} zero_to_one={z21} "
+                f"thresholds={thresholds} zeros={zeros}", got, ref, False))
+    return err
+
+
+def bottleneck_bound(xh, desc):
+    """Least time of a fused_bottleneck call on the BottleneckDesc ``desc``:
+    x, the output, the four int8 weights and the rows, each once, against
+    its int8 operations."""
+    n, h, w, c = xh.shape
+    width, cout, proj = desc.width, desc.cout, desc.wd is not None
+    params = [t for t in [desc.w1, desc.w2, desc.w3, desc.wd] + desc.rows
+              if isinstance(t, torch.Tensor)]
+    moved = nbytes(xh, *params) + n * h * w * cout * xh.element_size()
+    ops = 2 * n * h * w * (c * width + 9 * width * width + width * cout
+                           + (c * cout if proj else 0))
+    return bound_ms(moved, ops, torch.int8)
+
+
 def flagship(gen: torch.Generator, depth: int = 18):
     """The flagship QAT ResNet-18 (or the ResNet of ``depth``): binary body,
     float first and last layers, torch-parity ternary sign; BN statistics
@@ -296,7 +381,7 @@ def flagship(gen: torch.Generator, depth: int = 18):
 
 
 KERNELS = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
-           "fused_downsample_block")
+           "fused_downsample_block", "fused_bottleneck")
 
 
 def serve_counted(kernels, pred, requests, name: str, want_per_forward: dict,
@@ -387,25 +472,43 @@ def time_kernel(fn, plain):
             (device_ms(plain, iters=3), cuda_ms(plain, iters=3, warmup=1)))
 
 
-def forward_times(pred, xb, card, name):
+def fwd_ms(pred, xb, iters: int = 20) -> float:
+    """Host-clock ms per synchronised forward of ``pred`` on ``xb``."""
     for _ in range(3):
         pred(xb)
     torch.cuda.synchronize()
-    iters = 20
     t0 = time.perf_counter()
     for _ in range(iters):
         pred(xb)
     torch.cuda.synchronize()
-    fwd_ms = (time.perf_counter() - t0) / iters * 1e3
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time per call of ``fn``: the calls are issued back to back and
+    the card is synchronised only after the clock stops."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
+
+
+def forward_times(pred, xb, card, name):
+    fwd = fwd_ms(pred, xb)
     by_kernel, _ = device_profile(lambda: pred(xb), iters=10)
     busy = sum(by_kernel.values())
     n = xb.shape[0]
-    print(f"phase 4: {name}: {fwd_ms:.3f} ms per forward, "
-          f"{n / fwd_ms * 1e3:.1f} images/s; device busy {busy:.3f} ms per "
-          f"forward ({100 * busy / fwd_ms:.1f}% of the latency) | {card}")
+    print(f"phase 4: {name}: {fwd:.3f} ms per forward, "
+          f"{n / fwd * 1e3:.1f} images/s; device busy {busy:.3f} ms per "
+          f"forward ({100 * busy / fwd:.1f}% of the latency) | {card}")
     for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"phase 4:   {ms * 1e3:9.2f} us  {kname[:100]}")
-    return fwd_ms, busy
+    return fwd, busy
 
 
 def main() -> int:
@@ -444,6 +547,7 @@ def main() -> int:
     check_stem(kernels, (1, SIZE, SIZE - 4, 3), gen, dev)     # v2: B=1, W%8
     check_stem(kernels, (2, 200, 196, 3), gen, dev)           # v1: H%16
     block_errs = check_blocks(kernels, gen, dev)
+    block_errs["fused_bottleneck"] = check_bottlenecks(kernels, gen, dev)
     if quick:
         print("chip_smoke: --quick: phases 1 and 2 passed", file=sys.stderr)
         return 0
@@ -495,29 +599,59 @@ def main() -> int:
                       device="cpu")(images[:2])
     check_f32(Predictor(copy.deepcopy(qat34), batch_size=1, dtype=None), ref34,
               images[:2], "ResNet-34 batch 1")
+
+    # ResNet-50: 13 stride-1 Bottlenecks on fused_bottleneck at B <= 4; the
+    # three strided ones on deployed convs, whose pointwise convs with
+    # K >= 256 run binary_gemm (8 at B <= 4, all 27 at B = 8)
+    qat50 = flagship(torch.Generator().manual_seed(SEED), depth=50)
+    pred50 = {}
+    for b, requests, want in (
+            (1, (images[:1], images[1:3]),
+             {"fused_stem": 1, "fused_bottleneck": 13, "binary_gemm": 8}),
+            (4, (images[:4], images[4:7]),
+             {"fused_stem": 1, "fused_bottleneck": 13, "binary_gemm": 8}),
+            (8, (images[:8], images[8:11]), {"fused_stem": 1, "binary_gemm": 27})):
+        pred50[b] = Predictor(copy.deepcopy(qat50), batch_size=b)
+        _, launches = serve_counted(
+            kernels, pred50[b], requests, f"ResNet-50 Predictor(batch_size={b}) bf16",
+            want)
+        add(launches)
+    ref50 = Predictor(copy.deepcopy(qat50), batch_size=2, dtype=None,
+                      device="cpu")(images[:2])
+    for b in (1, 4, 8):
+        check_f32(Predictor(copy.deepcopy(qat50), batch_size=b, dtype=None), ref50,
+                  images[:2], f"ResNet-50 batch {b}")
     print(f"phase 3: launches over every serving run above: {totals}")
 
-    # times at the serving path's shapes
-    m, k, n = BATCH * 7 * 7, 256, 512
-    xg = torch.randint(-1, 2, (m, k), generator=gen).to(dev, torch.bfloat16)
-    wg = torch.randn((k, n), generator=gen).to(dev)
-    wp = kernels.pack_bits(wg, axis=-2)
-    sc = torch.rand(n, generator=gen).to(dev) + 0.5
-    ad = torch.randn(n, generator=gen).to(dev)
-    x8 = xg.to(torch.int8)
-    w8 = torch.where(wg >= 0, 1, -1).to(torch.int8).t().contiguous()  # (N, K)
-    def gemm():
-        return kernels.binary_gemm(xg, wp, k, sc, ad, sign_inputs=False)
+    # times at the serving paths' shapes
+    def time_gemm(m, k, n):
+        """binary_gemm on ternary bf16 rows, its plain version and
+        torch._int_mm on the same product: (times, bound, bound_by)."""
+        xg = torch.randint(-1, 2, (m, k), generator=gen).to(dev, torch.bfloat16)
+        wg = torch.randn((k, n), generator=gen).to(dev)
+        wp = kernels.pack_bits(wg, axis=-2)
+        sc = torch.rand(n, generator=gen).to(dev) + 0.5
+        ad = torch.randn(n, generator=gen).to(dev)
+        x8 = xg.to(torch.int8)
+        w8 = torch.where(wg >= 0, 1, -1).to(torch.int8).t().contiguous()  # (N, K)
 
-    def gemm_plain():
-        return kernels.binary_gemm_reference(xg, wp, k, sc, ad, sign_inputs=False)
+        def gemm():
+            return kernels.binary_gemm(xg, wp, k, sc, ad, sign_inputs=False)
 
-    def gemm_lib():
-        return torch._int_mm(x8, w8.t())
+        def gemm_plain():
+            return kernels.binary_gemm_reference(xg, wp, k, sc, ad, sign_inputs=False)
 
-    gemm_t = {f.__name__: (device_ms(f), cuda_ms(f)) for f in (gemm, gemm_plain, gemm_lib)}
-    gemm_bound, gemm_by = bound_ms(nbytes(xg, wp, sc, ad) + m * n * 4,
-                                   2 * m * k * n, torch.int8)
+        def gemm_lib():
+            return torch._int_mm(x8, w8.t())
+
+        hold_gemm(kernels, f"timed M={m} K={k} N={n}", (xg, wp, k, sc, ad),
+                  dict(sign_inputs=False), phase=4)
+        return ({f.__name__: (device_ms(f), cuda_ms(f)) for f in (gemm, gemm_plain, gemm_lib)},
+                *bound_ms(nbytes(xg, wp, sc, ad) + m * n * 4, 2 * m * k * n, torch.int8))
+
+    m, k, n = BATCH * 7 * 7, 256, 512  # ResNet-18 layer4.0's shortcut at B=8
+    gemm_t, gemm_bound, gemm_by = time_gemm(m, k, n)
+    m50 = (196, 1024, 512)  # ResNet-50 layer4.0's conv1 at B=1
 
     xs = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen).to(dev, torch.bfloat16)
     ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, torch.bfloat16)
@@ -541,6 +675,7 @@ def main() -> int:
         nbytes(xs, ws, bs) + stem_out,
         2 * BATCH * (SIZE // 2) * (SIZE // 2) * 64 * 7 * 7 * 3, torch.bfloat16)
     timed = [(f"binary_gemm M={m} K={k} N={n} bf16", gemm_t, gemm_bound, gemm_by),
+             ("ResNet-50 binary_gemm M={} K={} N={} bf16".format(*m50), *time_gemm(*m50)),
              (f"fused_stem ({BATCH},{SIZE},{SIZE},3) bf16", stem_t, stem_bound, stem_by)]
     # the geometries of the v2 and v1 entry points, which the same kernel serves
     for shape in ((1, SIZE, SIZE - 4, 3), (2, 200, 196, 3)):
@@ -593,12 +728,66 @@ def main() -> int:
         return calls
 
     from bnn_tpu_torch.inference import megablock, stages
+    deploy = importlib.import_module("bnn_tpu_torch.inference.deploy")
     for b in (1, 4):
         for label, fn, plain, bound, head in chain_calls(small[b], images[:b].to(dev)):
             record(f"fused_chain@{b}", label, fn, plain, bound, head)
     x1 = images[:1].to(dev)
     for label, fn, plain, _, head in chain_calls(pred34, x1):
         check_call("fused_chain", "ResNet-34 " + label, fn, plain, head)
+    # FusedBottleneck runs its kept BottleneckDesc: capture its calls
+    for b in (1, 4):
+        xb = images[:b].to(dev)
+        for args, _ in capture_calls(kernels.BottleneckDesc, "__call__",
+                                     lambda: pred50[b](xb)):
+            desc, xh = args[0], args[1]
+            record(f"fused_bottleneck@{b}",
+                   f"ResNet-50 fused_bottleneck {tuple(xh.shape)} -> {desc.cout} bf16",
+                   lambda a=args: a[0](*a[1:]),
+                   lambda a=args: a[0].reference(*a[1:]),
+                   bottleneck_bound(xh, desc))
+    # the kept descriptor against one made per call (the public wrapper's
+    # way): host time of R50's 13 B=1 calls, and the B=1 forward, alternated
+    kept_us = fresh_us = 0.0
+    for args, _ in capture_calls(kernels.BottleneckDesc, "__call__",
+                                 lambda: pred50[1](x1)):
+        desc, rest = args[0], args[1:]
+        w2 = desc.w2.reshape(3, 3, desc.width, desc.width)
+        rows = dict(zip(kernels.bottleneck.ROWS, desc.rows))
+        kept_us += 1e3 * host_ms(lambda: desc(*rest))
+        fresh_us += 1e3 * host_ms(lambda: kernels.fused_bottleneck(
+            rest[0], desc.w1, w2, desc.w3, wd=desc.wd, act=rest[1],
+            zero_to_one=rest[2], out_dtype=rest[3], **rows))
+    fused50 = [m for m in pred50[1].model.modules()
+               if isinstance(m, megablock.FusedBottleneck)]
+
+    def desc_per_call(xb):
+        for m in fused50:
+            m._desc = None
+        return pred50[1](xb)
+
+    ab_fwd = {"kept": [], "per call": []}
+    for _ in range(3):
+        ab_fwd["kept"].append(fwd_ms(pred50[1], x1))
+        ab_fwd["per call"].append(fwd_ms(desc_per_call, x1))
+    print(f"phase 4: ResNet-50 B=1 fused_bottleneck host time per call, summed "
+          f"over its {len(fused50)} calls: kept descriptor {kept_us:.2f} us, "
+          f"descriptor made per call {fresh_us:.2f} us | {card}")
+    print(f"phase 4: ResNet-50 Predictor(batch_size=1) bf16 forward, alternated: "
+          f"kept descriptor {[round(v, 3) for v in ab_fwd['kept']]} ms, made per "
+          f"call {[round(v, 3) for v in ab_fwd['per call']]} ms | {card}")
+    # every binary_gemm call of the ResNet-50 paths (the strided blocks'
+    # pointwise convs; all of them at B=8) on its own inputs
+    for b in (1, 4, 8):
+        xb = images[:b].to(dev)
+        calls = capture_calls(deploy, "binary_gemm", lambda: pred50[b](xb))
+        errs = [hold_gemm(kernels, f"ResNet-50 B={b} call {i}", a, k, phase=4)
+                for i, (a, k) in enumerate(calls)]
+        gemm_err = max([gemm_err] + errs)
+        shapes = sorted({(a[0].shape[0], a[2], a[1].shape[1]) for a, _ in calls})
+        print(f"phase 4: ResNet-50 Predictor(batch_size={b}): {len(calls)} "
+              f"binary_gemm calls held against the plain version (1e-6 "
+              f"relative), max |err| {max(errs):.3g}; (M, K, N) {shapes}")
     for kname in ("fused_downsample_block", "fused_basic_block"):
         for args, kw in capture_calls(megablock, kname, lambda: pred34(x1)):
             xh = args[0]
@@ -646,13 +835,18 @@ def main() -> int:
                   "context: ResNet-18 Predictor(batch_size=1, fuse=False) bf16, "
                   "the deployed convs without stage or block kernels")
     forward_times(pred34, x1, card, f"ResNet-34 Predictor(batch_size=1) bf16 {SIZE}x{SIZE}")
+    for b in (1, 4, 8):
+        forward_times(pred50[b], images[:b].to(dev), card,
+                      f"ResNet-50 Predictor(batch_size={b}) bf16 {SIZE}x{SIZE}")
 
     chain = summed("fused_chain@1")
     basic = summed("fused_basic_block")
     down = summed("fused_downsample_block")
+    bneck = summed("fused_bottleneck@1")
     print("phase 5: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
-          "layer4's two; launches are totals over phase 3's serving runs")
+          "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
+          "forward at batch 1; launches are totals over phase 3's serving runs")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",
@@ -687,6 +881,13 @@ def main() -> int:
          "max_abs_err": block_errs["fused_downsample_block"],
          "ms": down[0], "plain_ms": down[1], "bound_ms": down[2],
          "bound_by": down[3], "library_ms": None},
+        {"name": "fused_bottleneck", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/fused_bottleneck.cu",
+         "replaces": "bnn_tpu/kernels/bottleneck.py:127",
+         "launches": totals["fused_bottleneck"],
+         "max_abs_err": block_errs["fused_bottleneck"],
+         "ms": bneck[0], "plain_ms": bneck[1], "bound_ms": bneck[2],
+         "bound_by": bneck[3], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -33,6 +33,7 @@ _CONFIGS = {
     "flagship": (18, False, False),
     "prelu": (18, False, True),
     "pre": (18, True, True),
+    "resnet50": (50, False, False),  # tests/test_torch_bottleneck.py
 }
 
 
@@ -228,17 +229,19 @@ def _tiny_bottleneck_resnet():
         ignore_layers_name=["_first_", "_last_"]).eval()
 
 
-def test_bottleneck_small_batch_raises_naming_the_kernel():
-    with pytest.raises(NotImplementedError, match="fused_bottleneck"):
-        Predictor(_tiny_bottleneck_resnet(), batch_size=4, device="cpu")
-    # above the cap the wrapper runs the block, as the JAX one does
-    pred = Predictor(_tiny_bottleneck_resnet(), batch_size=8, device="cpu",
-                     dtype=None)
-    wrapper = pred.model.layer1[0]
-    assert isinstance(wrapper, FusedBottleneck)
-    assert pred(torch.zeros(2, 3, 32, 32)).shape == (2, 10)
-    with pytest.raises(NotImplementedError, match="fused_bottleneck"):
-        wrapper(torch.zeros(1, 64, 8, 8))
+def test_bottleneck_small_batch_serves_and_matches_unfused():
+    """A Bottleneck model at batch <= max_fused_batch runs its stride-1
+    blocks through fused_bottleneck (the plain version on the CPU) and equals
+    its unfused output; above the cap the wrapper runs the block, as the JAX
+    one does. Nothing raises."""
+    x = torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(3))
+    plain = Predictor(_tiny_bottleneck_resnet(), batch_size=4, device="cpu",
+                      dtype=None, fuse=False)(x)
+    for batch in (4, 8):
+        pred = Predictor(_tiny_bottleneck_resnet(), batch_size=batch,
+                         device="cpu", dtype=None)
+        assert isinstance(pred.model.layer1[0], FusedBottleneck)
+        torch.testing.assert_close(pred(x), plain, rtol=1e-5, atol=1e-5)
 
 
 def test_fuse_entry_raises_naming_the_kernel():
