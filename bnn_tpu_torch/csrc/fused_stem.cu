@@ -23,15 +23,18 @@
 // 4 FMAs and an input load 8), keeps relu(conv + bias) in shared memory and
 // pools from there. The 112x112x64 conv map never reaches device memory:
 // device traffic is one read of the input and one write of the output, plus
-// the 15/14 overlap of neighbouring tiles' input windows.
+// the 15/14 overlap of neighbouring tiles' input windows. The per-output
+// arithmetic is stem_common.cuh's, which fused_stem_chain.cu shares.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "stem_common.cuh"
+
 namespace {
 
-constexpr int KS = 7;             // conv kernel extent
+using stem::KS;                   // conv kernel extent
 constexpr int TP = 7;             // pooled rows / cols per block
 constexpr int CT = 2 * TP + 1;    // conv rows / cols per block
 constexpr int NPOS = CT * CT;     // conv positions per block
@@ -49,10 +52,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float lane(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 template <int C>
@@ -119,23 +118,15 @@ fused_stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
       for (int q = 0; q < PPT; ++q)
         xin[q] = s_in[(2 * lr[q] + ky) * IT + 2 * lc[q] + kx];
       const float* wt = s_w + (ky * KS + kx) * C * OCB + g * 8;
+      float wr[C][8];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const float4 wa = *reinterpret_cast<const float4*>(wt + c * OCB);
         const float4 wb = *reinterpret_cast<const float4*>(wt + c * OCB + 4);
-#pragma unroll
-        for (int q = 0; q < PPT; ++q) {
-          const float xv = lane(xin[q], c);
-          acc[q][0] = fmaf(xv, wa.x, acc[q][0]);
-          acc[q][1] = fmaf(xv, wa.y, acc[q][1]);
-          acc[q][2] = fmaf(xv, wa.z, acc[q][2]);
-          acc[q][3] = fmaf(xv, wa.w, acc[q][3]);
-          acc[q][4] = fmaf(xv, wb.x, acc[q][4]);
-          acc[q][5] = fmaf(xv, wb.y, acc[q][5]);
-          acc[q][6] = fmaf(xv, wb.z, acc[q][6]);
-          acc[q][7] = fmaf(xv, wb.w, acc[q][7]);
-        }
+        wr[c][0] = wa.x; wr[c][1] = wa.y; wr[c][2] = wa.z; wr[c][3] = wa.w;
+        wr[c][4] = wb.x; wr[c][5] = wb.y; wr[c][6] = wb.z; wr[c][7] = wb.w;
       }
+      stem::tap<C, PPT, 8>(acc, xin, wr);
     }
   }
   // relu(conv + bias); conv positions outside the map are the pool's -inf pad
@@ -150,7 +141,7 @@ fused_stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
       const int oc = oc0 + g * 8 + j;
       const float b = oc < O ? bias[oc] : 0.f;
       s_conv[pos * OCB + g * 8 + j] =
-          inside ? fmaxf(acc[q][j] + b, 0.f) : -CUDART_INF_F;
+          inside ? stem::relu_bias(acc[q][j], b) : -CUDART_INF_F;
     }
   }
   __syncthreads();

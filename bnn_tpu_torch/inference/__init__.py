@@ -4,7 +4,8 @@ from .megablock import (FusedBlock, FusedBottleneck, FusedDownBlock,
                         default_fuse_predicate, fuse_blocks)
 from .optimize import fold_bn_after, fold_bn_before, optimize_deployed
 from .serving import Predictor
-from .stages import FusedStage, fuse_entry, fuse_head, fuse_stages
+from .stages import (FusedEntry, FusedStage, fuse_entry, fuse_head,
+                     fuse_stages)
 from .stem import FusedStem, SpaceToDepthConv, fuse_stem, space_to_depth_stem
 
 __all__ = [
@@ -22,6 +23,7 @@ __all__ = [
     "fold_bn_before",
     "optimize_deployed",
     "Predictor",
+    "FusedEntry",
     "FusedStage",
     "fuse_entry",
     "fuse_head",

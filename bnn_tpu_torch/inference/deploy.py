@@ -15,7 +15,14 @@ Execution:
   over unfolded patches (``torch._int_mm``), as the JAX package leaves the
   int8 conv to XLA. A float conv is no substitute: Winograd or FFT
   algorithms do not return exact integers, and an accumulator of exactly 0
-  turned into +-eps flips the next layer's ternary sign.
+  turned into +-eps flips the next layer's ternary sign;
+- ``DeployedConv`` in mode ``pallas-conv`` (stride 1, odd square kernels,
+  opt-in: ``deploy`` never chooses it) runs
+  :func:`~bnn_tpu_torch.kernels.conv.binary_conv2d_s1`, which signs with
+  ``x >= 0`` whatever the layer's ``zero_to_one`` and returns f32;
+- after :func:`set_gemm_impl` ``('popcount')``, ``zero_to_one`` dense layers
+  and pointwise convs run :func:`~bnn_tpu_torch.kernels.gemm.popcount_gemm`
+  over bit-packed activations.
 
 Numerics follow the JAX package exactly, including each layer's sign(0)
 convention (``zero_to_one``) and the epilogue dtype order: conv mode
@@ -30,7 +37,9 @@ from torch import nn
 
 from .. import layers as blayers
 from ..binarize import set_module_by_name
-from ..kernels.gemm import binary_gemm
+from ..kernels.conv import binary_conv2d_s1
+from ..kernels.conv import supports as _pallas_conv_supports
+from ..kernels.gemm import binary_gemm, popcount_gemm
 from ..kernels.packing import pack_bits, unpack_bits
 from ..ops.binarizers import (
     AdvancedInputBinarizer,
@@ -43,7 +52,7 @@ from ..ops.binarizers import (
 
 __all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl"]
 
-_MODES = ("auto", "gemm", "im2col", "conv")
+_MODES = ("auto", "gemm", "im2col", "conv", "pallas-conv")
 _WEIGHT_FORMATS = ("packed", "int8")
 
 
@@ -139,10 +148,18 @@ class DeployedLinear(nn.Module):
         self.k = self.in_features
         self.spatial_post = _spatial_post(layer.activation_post_process)
         self.zero_to_one = _zero_to_one(layer)
+        # 'mxu' (binary_gemm) or 'popcount' (popcount_gemm; set_gemm_impl)
+        self.gemm_impl = "mxu"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         x2d = x.reshape(-1, x.shape[-1])
+        if self.gemm_impl == "popcount":
+            y = _call_popcount(self, x2d)
+            y = y.reshape(lead + (-1,))
+            if self.spatial_post is not None:
+                y = self.spatial_post(y, x)
+            return y
         # zero_to_one signs inside the kernel; the torch-parity sign(0) = 0
         # pre-signs to ternary values the kernel takes as they are
         if not self.zero_to_one:
@@ -160,11 +177,12 @@ class DeployedConv(nn.Module):
 
     Modes: ``gemm`` (pointwise convs with K >= 256, chosen by ``auto``) and
     ``im2col`` run patches through :func:`binary_gemm`; ``conv`` runs the
-    exact int8 patch product. Storage, in torch's layout:
+    exact int8 patch product; ``pallas-conv`` (stride-1 odd square kernels)
+    runs :func:`binary_conv2d_s1`. Storage, in torch's layout:
 
-    - ``conv`` + ``int8``: +/-1 int8 weights, ``(O, I, *k)``;
-    - ``conv`` + ``packed``: words packed over the in-channel axis,
-      ``(O, ceil(I/32), *k)``;
+    - ``conv`` / ``pallas-conv`` + ``int8``: +/-1 int8 weights, ``(O, I, *k)``;
+    - ``conv`` / ``pallas-conv`` + ``packed``: words packed over the
+      in-channel axis, ``(O, ceil(I/32), *k)``;
     - ``gemm`` / ``im2col``: ``(ceil(K/32), O)`` words, K in the
       channel-major ``(I, *k)`` order of ``F.unfold``.
     """
@@ -172,10 +190,6 @@ class DeployedConv(nn.Module):
     def __init__(self, layer, *, mode: str = "auto",
                  weight_format: str = "packed"):
         super().__init__()
-        if mode == "pallas-conv":
-            raise NotImplementedError(
-                "mode='pallas-conv' needs binary_conv2d_s1 "
-                "(bnn_tpu/kernels/conv.py), which is not ported yet")
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of {_MODES}")
         if weight_format not in _WEIGHT_FORMATS:
@@ -205,10 +219,19 @@ class DeployedConv(nn.Module):
             if self.groups != 1 and mode != "conv":
                 raise NotImplementedError(
                     f"grouped deployed convs support mode='conv' only, got {mode}")
-            if mode == "conv" and weight_format == "int8":
+            if mode == "pallas-conv" and not _pallas_conv_supports(
+                    self.kernel_size, self.stride, self.padding,
+                    self.dilation, self.groups):
+                raise ValueError(
+                    "pallas-conv mode supports stride-1 odd square kernels "
+                    f"only; got kernel_size={self.kernel_size} "
+                    f"stride={self.stride} padding={self.padding} "
+                    f"dilation={self.dilation}")
+            conv_layout = mode in ("conv", "pallas-conv")
+            if conv_layout and weight_format == "int8":
                 w_store = torch.where(w_eff >= 0, 1, -1).to(torch.int8)
                 self.k = w_eff.shape[1]
-            elif mode == "conv":
+            elif conv_layout:
                 w_store = pack_bits(w_eff, axis=1)
                 self.k = w_eff.shape[1]  # in-channels
             else:
@@ -225,6 +248,8 @@ class DeployedConv(nn.Module):
         self.register_buffer("threshold", None)
         self.spatial_post = _spatial_post(layer.activation_post_process)
         self.zero_to_one = _zero_to_one(layer)
+        # 'mxu' | 'popcount' (pointwise convs only; set_gemm_impl)
+        self.gemm_impl = "mxu"
 
     def _is_pointwise(self) -> bool:
         return (all(k == 1 for k in self.kernel_size)
@@ -254,8 +279,12 @@ class DeployedConv(nn.Module):
         return y.permute((0, y.ndim - 1) + tuple(range(1, y.ndim - 1)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mode == "conv":
+        if self.gemm_impl == "popcount":
+            y = self._call_popcount(x)
+        elif self.mode == "conv":
             y = self._call_conv(x)
+        elif self.mode == "pallas-conv":
+            y = self._call_pallas_conv(x)
         else:
             y = self._call_im2col(x)
         if self.spatial_post is not None:
@@ -284,11 +313,41 @@ class DeployedConv(nn.Module):
         return (acc.to(self.scale.dtype) * _per_channel(self.scale, x.ndim)
                 + _per_channel(self.add, x.ndim))
 
+    def _call_pallas_conv(self, x: torch.Tensor) -> torch.Tensor:
+        # the kernel signs x - threshold with sign(0) = +1 and returns f32,
+        # not the scale's dtype, as the JAX package's mode does
+        w = self._int8_weight().permute(2, 3, 1, 0).contiguous()  # (k, k, I, O)
+        xin = x if self.threshold is None else x - _per_channel(self.threshold, x.ndim)
+        y = binary_conv2d_s1(xin.permute(0, 2, 3, 1).contiguous(), w,
+                             self.scale, self.add)
+        return y.permute(0, 3, 1, 2)
+
+    def _call_popcount(self, x: torch.Tensor) -> torch.Tensor:
+        """A pointwise conv as a popcount GEMM over ``(N * spatial, C)``:
+        every patch element is a real activation (no zero padding, which
+        packed bits cannot hold), so the packed dot is exact."""
+        xt = x.movedim(1, -1)
+        y = _call_popcount(self, xt.reshape(-1, xt.shape[-1]))
+        return y.reshape(xt.shape[:-1] + (-1,)).movedim(-1, 1)
+
     def _call_im2col(self, x: torch.Tensor) -> torch.Tensor:
         patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
         y = binary_gemm(patches.contiguous(), self.w_packed, self.k,
                         self.scale, self.add, sign_inputs=False)
         return self._to_nc(y.to(self.scale.dtype), x.shape[0], out_sp)
+
+
+def _call_popcount(layer, x2d: torch.Tensor) -> torch.Tensor:
+    """``layer``'s popcount product on ``(M, K)`` activations: the threshold
+    subtracted in the activations' dtype, ``pack_bits`` signs with
+    sign(0) = +1 (the ``zero_to_one`` convention this mode requires), and
+    the f32 result cast to the scale's dtype."""
+    thr = getattr(layer, "threshold", None)
+    if thr is not None:
+        x2d = x2d - thr
+    y = popcount_gemm(pack_bits(x2d, axis=-1), layer.w_packed, layer.k,
+                      layer.scale, layer.add)
+    return y.to(layer.scale.dtype)
 
 
 _SIGN_PRE = (BasicInputBinarizer, AdvancedInputBinarizer)
@@ -333,15 +392,42 @@ def deploy(model: nn.Module, *, weight_format: str = "packed") -> nn.Module:
 
 
 def set_gemm_impl(model: nn.Module, impl: str = "popcount"):
-    """Select the binary GEMM implementation of the deployed layers.
+    """Switch eligible deployed layers between binary GEMM implementations;
+    returns the names switched.
 
-    Only ``'mxu'`` (:func:`binary_gemm`, the default every layer already
-    uses) is ported; ``'popcount'`` needs ``popcount_gemm``."""
+    ``'mxu'`` (the default every layer starts with) runs
+    :func:`binary_gemm` or the int8 conv; ``'popcount'`` runs
+    :func:`popcount_gemm` over bit-packed activations. Eligible for popcount:
+    layers trained with ``zero_to_one=True`` (packed bits cannot hold the
+    torch-parity sign(0) = 0), dense layers and ungrouped pointwise convs
+    (no zero padding enters a patch). A pointwise conv stored in the conv
+    layout is normalised to the ``(ceil(K/32), O)`` GEMM words first.
+    """
     if impl not in ("mxu", "popcount"):
+        # must raise: a typo would otherwise keep serving 'mxu' while
+        # reporting layers as switched
         raise ValueError(f"unknown gemm impl {impl!r}; "
                          "expected 'mxu' or 'popcount'")
-    if impl == "popcount":
-        raise NotImplementedError(
-            "set_gemm_impl('popcount') needs popcount_gemm "
-            "(bnn_tpu/kernels/gemm.py), which is not ported yet")
-    return []
+    changed = []
+    for name, m in model.named_modules():
+        if impl == "mxu":
+            if getattr(m, "gemm_impl", "mxu") != "mxu":
+                m.gemm_impl = "mxu"
+                changed.append(name)
+        elif isinstance(m, DeployedLinear) and m.zero_to_one:
+            m.gemm_impl = impl
+            changed.append(name)
+        elif (isinstance(m, DeployedConv) and m.zero_to_one
+              and m.groups == 1 and m._is_pointwise()):
+            if m.mode not in ("gemm", "im2col"):
+                w = m.w_packed.reshape(m.out_channels, -1)   # (O, I) or (O, Iw)
+                if m.weight_format == "int8":
+                    words = pack_bits(w.t().to(torch.float32), axis=-2)
+                    m.weight_format = "packed"
+                else:
+                    words = w.t().contiguous()
+                m.w_packed = words
+                m.mode = "gemm"
+            m.gemm_impl = impl
+            changed.append(name)
+    return changed

@@ -90,10 +90,12 @@ def fold_bn_before(bn: nn.BatchNorm2d, conv: DeployedConv) -> bool:
         return False  # the BN does not feed the conv's whole input
     tau = -b / torch.where(a == 0, torch.full_like(a, 1e-12), a)
     flip = torch.where(a >= 0, 1, -1).to(torch.int8)
-    if conv.mode == "conv" and conv.weight_format == "int8":
+    # the conv and pallas-conv modes share the (O, I, *k) storage
+    conv_layout = conv.mode in ("conv", "pallas-conv")
+    if conv_layout and conv.weight_format == "int8":
         w = conv.w_packed
         conv.w_packed = w * _in_channel_flip(flip, conv, w.ndim)
-    elif conv.mode == "conv":
+    elif conv_layout:
         w = unpack_bits(conv.w_packed, conv.k, axis=1)[:, : conv.k]
         w = w * _in_channel_flip(flip, conv, w.ndim).to(w.dtype)
         conv.w_packed = pack_bits(w, axis=1)

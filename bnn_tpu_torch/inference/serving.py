@@ -16,8 +16,12 @@ five launches (stem, four stages), a binary ResNet-50 the stem and one
 on the deployed convs; at batch 8 the stages and blocks fall back to the
 deployed convs, as in the JAX package.
 
-Not ported yet, and raising ``NotImplementedError``: multi-device serving,
-the popcount GEMM and the quantized float head.
+``binary_gemm_impl='popcount'`` serves unfused and switches every
+``zero_to_one`` dense layer and pointwise conv to the popcount GEMM after the
+BN folds (``popcount_layers`` names them), as the JAX ``Predictor`` does.
+
+Not ported yet, and raising ``NotImplementedError``: multi-device serving
+and the quantized float head.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 from torch import nn
 
 from ..utils.precision import cast_floats
-from .deploy import deploy
+from .deploy import deploy, set_gemm_impl
 from .export import batched_call
 from .megablock import fuse_blocks
 from .optimize import optimize_deployed
@@ -68,9 +72,9 @@ class Predictor:
                 "multi-device serving (mesh=, tensor_parallel=) is not "
                 "ported yet")
         if binary_gemm_impl != "mxu":
-            raise NotImplementedError(
-                f"binary_gemm_impl={binary_gemm_impl!r} needs popcount_gemm "
-                "(bnn_tpu/kernels/gemm.py), which is not ported yet")
+            # the block and stage kernels run the int8 product: serve
+            # unfused so that every eligible layer takes the requested form
+            fuse = False
         if quantize_float_bits is not None:
             raise NotImplementedError(
                 "quantize_float_bits (bnn_tpu/inference/compress.py) is not "
@@ -86,6 +90,9 @@ class Predictor:
         model = deploy(model.to(device), weight_format=weight_format)
         if fold_bn:
             optimize_deployed(model)
+        self.popcount_layers = []
+        if binary_gemm_impl != "mxu":
+            self.popcount_layers = set_gemm_impl(model, binary_gemm_impl)
         if space_to_depth:
             space_to_depth_stem(model)
         if fuse:

@@ -15,6 +15,12 @@ its int8 weights are at most 10 MB, the JAX package's gate
 (``_MAX_STAGE_WEIGHT_BYTES``): ResNet-18's layer4 (9.4 MB) fuses, ResNet-34's
 (14 MB) stays per block.
 
+:func:`fuse_entry`, an opt-in applied after the others (the ``Predictor``
+never applies it, as in the JAX package), merges the fused stem and the fused
+stride-1 layer1 into :class:`FusedEntry`, one
+:func:`~bnn_tpu_torch.kernels.model.fused_stem_chain` launch, bit-identical
+to the two launches it replaces.
+
 Each :class:`FusedStage` keeps the original Sequential for batches above its
 cap and odd H or W; :func:`~bnn_tpu_torch.inference.megablock.fuse_blocks`,
 applied afterwards, still wraps the blocks inside it. Its kernel-layout
@@ -30,12 +36,14 @@ import torch
 from torch import nn
 
 from ..binarize import set_module_by_name
-from ..kernels.model import BlockParams, fused_chain
+from ..kernels.model import BlockParams, fused_chain, fused_stem_chain
 from ..models.layers import BasicBlock, PreBasicBlock
 from .megablock import (_act_kind, _conv_weight_int8, _eligible,
                         _eligible_down, _eligible_pre, _z21)
+from .stem import FusedStem, _inner
 
-__all__ = ["FusedStage", "fuse_stages", "fuse_head", "fuse_entry"]
+__all__ = ["FusedStage", "fuse_stages", "fuse_head", "FusedEntry",
+           "fuse_entry"]
 
 # the JAX package's gate: a stage's weights had to stay resident in VMEM
 _MAX_STAGE_WEIGHT_BYTES = 10 << 20
@@ -244,10 +252,55 @@ def fuse_head(model: nn.Module) -> int:
     return fused
 
 
+class FusedEntry(nn.Module):
+    """The network entry, the fused stem and the stride-1 layer1 stage, as
+    one :func:`~bnn_tpu_torch.kernels.model.fused_stem_chain` launch.
+
+    The kernel runs iff the batch is at most the stage's cap, H % 16 == 0
+    and W % 8 == 0; otherwise ``stage(stem(x))``, the held
+    :class:`~bnn_tpu_torch.inference.stem.FusedStem` and :class:`FusedStage`
+    (same arrays), runs. The kernel rounds the stem's output to the IO dtype
+    where the split pipeline's kernel boundary rounds it, so both give the
+    same bits.
+    """
+
+    def __init__(self, stem, stage: FusedStage):
+        super().__init__()
+        self.stem = stem
+        self.stage = stage
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, h, w = x.shape
+        if n > self.stage.max_fused_batch or h % 16 or w % 8:
+            return self.stage(self.stem(x))
+        inner = _inner(self.stem.conv)
+        y = fused_stem_chain(
+            x.permute(0, 2, 3, 1).contiguous(), inner.weight.permute(2, 3, 1, 0),
+            inner.bias, self.stage._params(), act=self.stage._acts,
+            pre=self.stage.pre, zero_to_one=self.stage._z21, out_dtype=x.dtype)
+        return y.permute(0, 3, 1, 2)
+
+
 def fuse_entry(model: nn.Module) -> int:
-    """The JAX package's opt-in merge of the fused stem and layer1 into one
-    launch needs ``fused_stem_chain`` (bnn_tpu/kernels/model.py), which is
-    not ported yet."""
-    raise NotImplementedError(
-        "fuse_entry needs fused_stem_chain (bnn_tpu/kernels/model.py), which "
-        "is not ported yet")
+    """Merge a fused stem with the fused stride-1 layer1 that follows it (in
+    place); apply after :func:`~bnn_tpu_torch.inference.stem.fuse_stem` and
+    :func:`fuse_stages`. ``conv1`` becomes :class:`FusedEntry` and ``layer1``
+    an identity. Returns the number of entries merged (0 on a second call)."""
+    from ..models.resnet import ResNet
+
+    fused = 0
+    for m in list(model.modules()):
+        if not isinstance(m, ResNet):
+            continue
+        stem, stage = m.conv1, m.layer1
+        # a merged entry is a FusedEntry, not a FusedStem: idempotent
+        if not (isinstance(stem, FusedStem) and isinstance(stage, FusedStage)):
+            continue
+        if stage.kind != "pair" or stage.head_fc is not None:
+            continue
+        if stage._metas[0][1] != _inner(stem.conv).out_channels:
+            continue
+        m.conv1 = FusedEntry(stem, stage)
+        m.layer1 = nn.Identity()
+        fused += 1
+    return fused

@@ -1,7 +1,8 @@
 """What the three residual-block kernels share: the plain arithmetic their
 plain versions are built from, and the launcher that hands a chain of block
 descriptors to a kernel of ``bnn_tpu_torch/csrc`` (fused_basic_block,
-fused_downsample_block, fused_chain; all built on ``bnn_common.cuh``).
+fused_downsample_block, fused_chain, fused_stem_chain; all built on
+``bnn_common.cuh``).
 
 The plain helpers take NHWC f32 tensors and repeat the kernels' arithmetic:
 exact integer convolutions (computed in float64, where sums of at most a few
@@ -234,11 +235,13 @@ def _row(name, r, v, width, dtype, device, keep):
 def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
            out: torch.Tensor, *, acts, pre: bool, zero_to_one: bool,
            wfc: Optional[torch.Tensor] = None,
-           bfc: Optional[torch.Tensor] = None) -> None:
+           bfc: Optional[torch.Tensor] = None, stem=None) -> None:
     """One launch of kernel ``name`` on CUDA tensors; raises on what the
-    kernel does not take and on a failed launch."""
+    kernel does not take and on a failed launch. ``stem``, for
+    fused_stem_chain: ``(raw NHWC input, f32 (7, 7, C, O) weights, f32 (O,)
+    bias)``, whose pooled output the kernel writes into ``x``."""
     dev = x.device
-    _check_device(name, dev, [out, wfc, bfc])
+    _check_device(name, dev, [out, wfc, bfc] + list(stem or []))
     if x.dtype not in _FLOATS or out.dtype not in _FLOATS:
         raise TypeError(f"{name} takes f32/bf16 x and output, got {x.dtype} "
                         f"and {out.dtype}")
@@ -291,6 +294,11 @@ def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
              ACTS.index(act2_kind), int(pre), int(zero_to_one),
              int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
              int(prm_dtype == torch.bfloat16), classes]
+    if stem is not None:
+        sx, sw, sb = stem
+        ptrs += [sx.data_ptr(), sw.data_ptr(), sb.data_ptr()]
+        ints += [sx.shape[1], sx.shape[2], sx.shape[3],
+                 int(sx.dtype == torch.bfloat16)]
     err = _entry(name)(len(descs), (ctypes.c_void_p * len(ptrs))(*ptrs),
                        (ctypes.c_int * len(ints))(*ints),
                        torch.cuda.current_stream(dev).cuda_stream)

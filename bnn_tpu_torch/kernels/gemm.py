@@ -14,6 +14,12 @@ Bound on an H100 at the main-path shape (M=392, K=256, N=512, bf16 x): about
 1.0 MB moved, 0.3 us at 3.35 TB/s, against 0.05 us of int8 work, so the
 layer is bound by bytes and in practice by its launch. The kernel reads the
 weights packed (1 bit each) and expands them only in shared memory.
+
+:func:`popcount_gemm` is the XNOR / popcount form over packed activations
+AND packed weights, ``(K - 2 * sum popcount(xp ^ wp)) * scale + add``: the
+kernel ``bnn_tpu_torch/csrc/popcount_gemm.cu`` for CUDA tensors, the plain
+version :func:`popcount_gemm_reference` for CPU tensors. The pad bits past K
+are 0 in both operands and cancel.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 from ._build import load
 from .packing import packed_words, unpack_bits
 
-__all__ = ["binary_gemm", "binary_gemm_reference"]
+__all__ = ["binary_gemm", "binary_gemm_reference", "popcount_gemm",
+           "popcount_gemm_reference"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -115,6 +122,101 @@ def binary_gemm_reference(x: torch.Tensor, w_packed: torch.Tensor, k: int,
     xs = torch.where(x >= 0, 1.0, -1.0) if sign_inputs else x
     w = unpack_bits(w_packed, k, axis=-2, dtype=torch.float64)[:k]
     out = (xs.to(torch.float64) @ w).to(torch.float32)
+    if scale is not None:
+        out = out * scale.to(torch.float32)
+    if add is not None:
+        out = out + add.to(torch.float32)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _popcount_kernel():
+    """The C entry point of ``csrc/popcount_gemm.cu``, built at first use."""
+    fn = load("popcount_gemm").bnn_popcount_gemm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
+                  scale: Optional[torch.Tensor] = None,
+                  add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(k - 2 * popcount(x_packed XOR w_packed)) * scale + add``.
+
+    Args:
+        x_packed: ``(M, ceil(K/32))`` int32 words, :func:`pack_bits` of the
+            activations along the last axis (sign(0) = +1).
+        w_packed: ``(ceil(K/32), N)`` int32 words of the weights.
+        k: the true reduction length K.
+        scale, add: ``(N,)`` per-out-channel epilogue (default 1 and 0).
+    Returns:
+        ``(M, N)`` f32.
+    """
+    if x_packed.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError(f"expected 2-D x_packed and w_packed, got "
+                         f"{tuple(x_packed.shape)} and {tuple(w_packed.shape)}")
+    m, kw_in = x_packed.shape
+    kw, n = w_packed.shape
+    if kw != packed_words(k) or kw_in != kw:
+        raise ValueError(f"shape mismatch: x_packed {tuple(x_packed.shape)}, "
+                         f"w_packed {tuple(w_packed.shape)}, k={k} needs "
+                         f"{packed_words(k)} words")
+    for v in (scale, add):
+        if v is not None and tuple(v.shape) != (n,):
+            raise ValueError(f"epilogue operands must have shape ({n},), got "
+                             f"{tuple(v.shape)}")
+    if x_packed.device.type == "cpu":
+        return popcount_gemm_reference(x_packed, w_packed, k, scale, add)
+    if x_packed.device.type != "cuda" or w_packed.device != x_packed.device:
+        raise ValueError(f"popcount_gemm needs x_packed and w_packed on one "
+                         f"CUDA device, got {x_packed.device} and "
+                         f"{w_packed.device}")
+    if x_packed.dtype != torch.int32 or w_packed.dtype != torch.int32:
+        raise TypeError(f"popcount_gemm takes int32 words, got "
+                        f"{x_packed.dtype} and {w_packed.dtype}")
+    if not (x_packed.is_contiguous() and w_packed.is_contiguous()):
+        raise ValueError("popcount_gemm needs contiguous x_packed and w_packed")
+    scale = _epilogue_operand(scale, n, 1.0, x_packed.device)
+    add = _epilogue_operand(add, n, 0.0, x_packed.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x_packed.device)
+    if m == 0 or n == 0:
+        return out
+    err = _popcount_kernel()(
+        x_packed.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+        add.data_ptr(), out.data_ptr(), m, kw, n, k,
+        torch.cuda.current_stream(x_packed.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"popcount_gemm kernel launch failed: CUDA error {err}")
+    popcount_gemm.launches += 1
+    return out
+
+
+popcount_gemm.launches = 0
+
+
+def _popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word held in an int64 tensor."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def popcount_gemm_reference(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                            k: int, scale: Optional[torch.Tensor] = None,
+                            add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`popcount_gemm`, on the same packed
+    words (the JAX reference packs ``(M, K)`` activations first: pass
+    ``pack_bits(x, axis=-1)``). The mismatch counts are exact integers; the
+    epilogue is f32."""
+    mask = 0xFFFFFFFF
+    xw = x_packed.to(torch.int64) & mask
+    ww = w_packed.to(torch.int64) & mask
+    mism = torch.zeros((xw.shape[0], ww.shape[1]), dtype=torch.int64,
+                       device=xw.device)
+    for i in range(ww.shape[0]):
+        mism += _popcount32(xw[:, i, None] ^ ww[None, i, :])
+    out = (k - 2 * mism).to(torch.float32)
     if scale is not None:
         out = out * scale.to(torch.float32)
     if add is not None:

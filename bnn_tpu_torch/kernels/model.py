@@ -15,6 +15,11 @@ Bound on an H100: each stage moves its int8 weights once (0.15 MB for
 ResNet-18's layer1, 8.4 MB for layer4, whose 1000-class head adds 1 MB of
 bf16 weights), which bounds it at batches 1 to 4; the kernel runs a stage as
 one cooperative launch over the card (csrc/fused_chain.cu).
+
+:func:`fused_stem_chain` runs the network entry, the float stem and then
+layer1's stride-1 blocks, as one launch of ``csrc/fused_stem_chain.cu``
+(plain version :func:`fused_stem_chain_reference`); it equals
+``fused_chain(fused_stem(x))`` bit for bit.
 """
 from __future__ import annotations
 
@@ -24,12 +29,14 @@ import torch
 
 from . import _blocks as B
 from .block import fused_basic_block_reference
+from .stem import _check_geometry, _f32_operands, fused_stem_reference
 from .strided_block import (_transform_w1, _untransform_w1,
                             fused_downsample_block_reference)
 
 __all__ = ["BlockParams", "fused_chain", "fused_pair", "fused_down_stage",
            "fused_chain_reference", "fused_pair_reference",
-           "fused_down_stage_reference"]
+           "fused_down_stage_reference", "fused_stem_chain",
+           "fused_stem_chain_reference"]
 
 _MAX_BATCH = 8
 
@@ -232,3 +239,86 @@ def fused_pair_reference(x, blocks, **kw):
 
 
 fused_down_stage_reference = fused_chain_reference
+
+
+def _check_stem_chain(x: torch.Tensor, w: torch.Tensor,
+                      blocks: Sequence[BlockParams]) -> None:
+    _check_geometry(x, w)
+    n, h, ws, _ = x.shape
+    if n > _MAX_BATCH:
+        raise ValueError(f"fused_stem_chain serves batches up to {_MAX_BATCH}, "
+                         f"got {n}")
+    if h % 16 or ws % 8:
+        raise ValueError(f"fused_stem_chain needs H % 16 == 0 and W % 8 == 0, "
+                         f"got x {tuple(x.shape)}")
+    plan = tuple(b.kind for b in blocks)
+    if not plan or any(k != "basic" for k in plan):
+        raise ValueError(f"fused_stem_chain takes stride-1 'basic' blocks "
+                         f"only, got {plan}")
+    if blocks[0].ci != w.shape[-1]:
+        raise ValueError(f"the stem's {w.shape[-1]} channels do not feed a "
+                         f"block of {blocks[0].ci} input channels")
+    for a, b in zip(blocks, blocks[1:]):
+        if b.ci != a.co:
+            raise ValueError(f"block widths do not chain: {a.co} -> {b.ci}")
+
+
+def fused_stem_chain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    blocks: Sequence[BlockParams],
+    *,
+    act="relu",
+    pre: bool = False,
+    zero_to_one: bool = True,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The network entry in one kernel: ``maxpool3x3/s2/p1(relu(
+    conv7x7/s2/p3(x, w) + bias))``, rounded to the IO dtype (``out_dtype``,
+    else x's) as the split pipeline's kernel boundary rounds it, then
+    layer1's stride-1 blocks.
+
+    ``x``: ``(N, H, W, C)`` raw input, N <= 8, C <= 4, H % 16 == 0,
+    W % 8 == 0; ``w``: ``(7, 7, C, O)`` HWIO stem kernel (BN folded);
+    ``blocks``: ``basic`` BlockParams with ``blocks[0].ci == O``. Returns
+    ``(N, H/4, W/4, C_out)`` in the IO dtype.
+    """
+    _check_stem_chain(x, w, blocks)
+    acts = B.split_act(act)
+    if x.device.type == "cpu":
+        return fused_stem_chain_reference(x, w, bias, blocks, act=acts, pre=pre,
+                                          zero_to_one=zero_to_one,
+                                          out_dtype=out_dtype)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"fused_stem_chain needs x and w on one CUDA device, "
+                         f"got {x.device} and {w.device}")
+    if x.dtype not in B._FLOATS:
+        raise TypeError(f"fused_stem_chain takes f32/bf16 x, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_stem_chain needs a contiguous NHWC x")
+    io = x.dtype if out_dtype is None else out_dtype
+    n, h, ws, _ = x.shape
+    o = w.shape[-1]
+    wf, bf = _f32_operands(w, bias, x.device)
+    stem_out = torch.empty((n, h // 4, ws // 4, o), dtype=io, device=x.device)
+    out = torch.empty((n, h // 4, ws // 4, blocks[-1].co), dtype=io,
+                      device=x.device)
+    B.launch("fused_stem_chain", stem_out, [b.desc() for b in blocks], out,
+             acts=acts, pre=pre, zero_to_one=zero_to_one, stem=(x, wf, bf))
+    fused_stem_chain.launches += 1
+    return out
+
+
+fused_stem_chain.launches = 0
+
+
+def fused_stem_chain_reference(x, w, bias, blocks, *, act="relu", pre=False,
+                               zero_to_one=True, out_dtype=None):
+    """Plain PyTorch version of :func:`fused_stem_chain`: the stem's plain
+    version in f32, rounded to the IO dtype, then the chain's."""
+    _check_stem_chain(x, w, blocks)
+    io = x.dtype if out_dtype is None else out_dtype
+    y = fused_stem_reference(x.to(torch.float32), w, bias).to(io)
+    return fused_chain_reference(y, blocks, act=act, pre=pre,
+                                 zero_to_one=zero_to_one, out_dtype=io)

@@ -44,6 +44,18 @@ def _check_geometry(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(w.shape)}")
 
 
+def _f32_operands(w: torch.Tensor, bias: Optional[torch.Tensor], device):
+    """The stem's weights and bias as the kernels take them: contiguous f32,
+    a zero bias where there is none."""
+    o = w.shape[-1]
+    wf = w.to(torch.float32).contiguous()
+    bf = (torch.zeros(o, dtype=torch.float32, device=device) if bias is None
+          else bias.to(device=device, dtype=torch.float32).reshape(-1).contiguous())
+    if bf.shape != (o,):
+        raise ValueError(f"bias must have shape ({o},), got {tuple(bf.shape)}")
+    return wf, bf
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry point of ``csrc/fused_stem.cu``, built at first use."""
@@ -79,11 +91,7 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("fused_stem needs a contiguous NHWC x")
     n, h, ws, c = x.shape
     o = w.shape[-1]
-    wf = w.to(torch.float32).contiguous()
-    bf = (torch.zeros(o, dtype=torch.float32, device=x.device) if bias is None
-          else bias.to(device=x.device, dtype=torch.float32).contiguous())
-    if bf.shape != (o,):
-        raise ValueError(f"bias must have shape ({o},), got {tuple(bf.shape)}")
+    wf, bf = _f32_operands(w, bias, x.device)
     out = torch.empty((n, h // 4, ws // 4, o), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out

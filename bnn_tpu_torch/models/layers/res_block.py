@@ -19,6 +19,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ...utils.precision import promote_call
 from .common import conv1x1, conv3x3, make_activation
 
 # a unit is (fan_in, fan_out, ksize, stride, groups, dilation)
@@ -79,14 +80,16 @@ class _UnitChain(nn.Module):
         for i in range(1, self.n_units + 1):
             conv = getattr(self, f"conv{i}")
             norm = getattr(self, f"bn{i}")
+            act = getattr(self, f"act{i}")
             if self.preact:
-                h = getattr(self, f"act{i}")(conv(norm(h)))
+                h = promote_call(act, conv(promote_call(norm, h)))
             else:
-                h = norm(conv(h))
+                h = promote_call(norm, conv(h))
                 if i < self.n_units:
-                    h = getattr(self, f"act{i}")(h)
+                    h = promote_call(act, h)
         h = h + shortcut
-        return h if self.preact else getattr(self, f"act{self.n_units}")(h)
+        return h if self.preact else promote_call(
+            getattr(self, f"act{self.n_units}"), h)
 
 
 class BasicBlock(_UnitChain):

@@ -14,6 +14,7 @@ from typing import Callable, List, Optional, Type
 import torch
 from torch import nn
 
+from ..utils.precision import promote_call
 from .layers import BasicBlock, Bottleneck, conv1x1
 
 _STAGE_WIDTHS = (64, 128, 256, 512)
@@ -133,7 +134,7 @@ class ResNet(nn.Module):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in (1, 2, 3, 4):
             x = getattr(self, f"layer{i}")(x)
-        return self.fc(torch.flatten(self.avgpool(x), 1))
+        return promote_call(self.fc, torch.flatten(self.avgpool(x), 1))
 
 
 _CONFIGS = {

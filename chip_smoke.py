@@ -21,15 +21,22 @@ Phases, each reported on its own lines:
    for layer4), and ResNet-50 through ``Predictor(batch_size=1)``, ``4``
    (stem, 13 ``fused_bottleneck``, the strided blocks on deployed convs) and
    ``8`` (deployed convs); then the same weights in f32 on the card against
-   the plain versions on the CPU;
+   the plain versions on the CPU; then the three opt-in paths: (A) the
+   ResNet-18 predictors of batch 1 and 4 after ``fuse_entry`` (the stem and
+   layer1 as one ``fused_stem_chain``), (B) a Z1-PReLU ResNet-18 (zero_to_one
+   signs, PReLU) deployed with its stride-1 3x3 convs in mode
+   ``pallas-conv`` (``binary_conv2d_s1``) at batch 8, (C) a Z1-PReLU
+   ResNet-50 through ``Predictor(binary_gemm_impl="popcount")`` at batch 8
+   and 1 (``popcount_gemm``);
 4. every residual-block kernel call of the batch 1 and 4 serving paths
-   (ResNet-18, ResNet-34 and ResNet-50), captured with its own bf16 inputs
-   and held against its plain version as in phase 2; then times: each
-   kernel's device time (torch.profiler) and time per call (CUDA events) at
-   the shapes the serving paths gave it, beside its plain
-   version's, its bound and the one-call PyTorch yardstick where there is
-   one; the forward latency, images/s, device busy share and the kernels
-   that take the time, at batch 8, 4 and 1;
+   (ResNet-18, ResNet-34 and ResNet-50), and every call of the three
+   opt-in paths' kernels, captured with its own inputs and held against its
+   plain version as in phase 2; then times: each kernel's device time
+   (torch.profiler) and time per call (CUDA events) at the shapes the
+   serving paths gave it, beside its plain version's, its bound and the
+   one-call PyTorch yardstick where there is one; the forward latency,
+   images/s, device busy share and the kernels that take the time, of each
+   path;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -205,7 +212,8 @@ def rand_block(kernels, kind, ci, co, gen, dev, dtype, *, options: bool):
     return kernels.BlockParams.from_arrays((bp.kind, bp.ci, bp.co), arrays)
 
 
-def check_exact(name, got, ref, head: bool, phase: int = 2) -> float:
+def check_exact(name, got, ref, head: bool, phase: int = 2,
+                verbose: bool = True) -> float:
     """The kernel against its plain version: logits within 1e-5; other
     outputs bit-identical in f32 and within one bf16 ulp in bf16."""
     torch.cuda.synchronize()
@@ -223,8 +231,9 @@ def check_exact(name, got, ref, head: bool, phase: int = 2) -> float:
     if not ok or not bool(torch.isfinite(got.float()).all()):
         raise AssertionError(f"{name}: max |err| {err.max().item()}, "
                              f"{mismatched} of {err.numel()} values differ")
-    print(f"phase {phase}: {name}: max |err| {err.max().item():.3g}, {mismatched} of "
-          f"{err.numel()} values differ")
+    if verbose:
+        print(f"phase {phase}: {name}: max |err| {err.max().item():.3g}, "
+              f"{mismatched} of {err.numel()} values differ")
     return err.max().item()
 
 
@@ -352,18 +361,25 @@ def bottleneck_bound(xh, desc):
     return bound_ms(moved, ops, torch.int8)
 
 
-def flagship(gen: torch.Generator, depth: int = 18):
+def flagship(gen: torch.Generator, depth: int = 18, z1_prelu: bool = False):
     """The flagship QAT ResNet-18 (or the ResNet of ``depth``): binary body,
     float first and last layers, torch-parity ternary sign; BN statistics
-    and output scales random so that every folded ``add`` is non-zero."""
+    and output scales random so that every folded ``add`` is non-zero. With
+    ``z1_prelu``, the Z1-PReLU variant: zero_to_one signs (sign(0) = +1, as
+    the pallas-conv and popcount kernels sign) and PReLU activations with
+    random slopes (with ReLU, sign(relu(x)) would be +1 everywhere)."""
     import bnn_tpu_torch as bt
     from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer,
                                    XNORWeightBinarizer)
 
-    model = getattr(bt.models, f"resnet{depth}")(num_classes=1000, generator=gen)
+    kw = dict(activation=torch.nn.PReLU) if z1_prelu else {}
+    sign = (BasicInputBinarizer.with_args(zero_to_one=True) if z1_prelu
+            else BasicInputBinarizer)
+    model = getattr(bt.models, f"resnet{depth}")(num_classes=1000, generator=gen,
+                                                 **kw)
     model = bt.prepare_binary_model(
         model,
-        bt.BConfig(activation_pre_process=BasicInputBinarizer,
+        bt.BConfig(activation_pre_process=sign,
                    activation_post_process=BasicScaleBinarizer,
                    weight_pre_process=XNORWeightBinarizer),
         ignore_layers_name=["_first_", "_last_"])
@@ -377,11 +393,14 @@ def flagship(gen: torch.Generator, depth: int = 18):
                 m.bias.copy_(0.3 * torch.randn(c, generator=gen))
             elif isinstance(m, BasicScaleBinarizer):
                 m.alpha.copy_(0.5 + torch.rand(m.alpha.shape, generator=gen))
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.copy_(0.05 + 0.45 * torch.rand(m.weight.shape, generator=gen))
     return model.eval()
 
 
 KERNELS = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
-           "fused_downsample_block", "fused_bottleneck")
+           "fused_downsample_block", "fused_bottleneck", "fused_stem_chain",
+           "binary_conv2d_s1", "popcount_gemm")
 
 
 def serve_counted(kernels, pred, requests, name: str, want_per_forward: dict,
@@ -511,6 +530,217 @@ def forward_times(pred, xb, card, name):
     return fwd, busy
 
 
+def pm1(shape, gen) -> torch.Tensor:
+    return torch.where(torch.randn(shape, generator=gen) >= 0, 1, -1).to(torch.int8)
+
+
+# binary_conv2d_s1's phase-2 cases: (x shape, O, k, x dtype, share of exact
+# zeros in x); the first five are path B's layer shapes at batch 8
+CONVS = [
+    ((8, 56, 56, 64), 64, 3, torch.bfloat16, 0.0),
+    ((8, 56, 56, 64), 64, 3, torch.float32, 0.1),
+    ((8, 28, 28, 128), 128, 3, torch.float32, 0.0),
+    ((8, 14, 14, 256), 256, 3, torch.bfloat16, 0.1),
+    ((8, 7, 7, 512), 512, 3, torch.float32, 0.1),
+    ((2, 9, 11, 32), 100, 1, torch.bfloat16, 0.2),   # k=1, odd H and W
+    ((2, 10, 10, 64), 128, 5, torch.float32, 0.2),   # k=5
+    ((1, 7, 9, 6), 10, 3, torch.float32, 0.3),       # C and O not multiples of 4
+]
+
+
+def check_convs(kernels, gen, dev) -> float:
+    """binary_conv2d_s1 against its plain version on the card: bit-identical."""
+    err = 0.0
+    for shape, o, k, dtype, zeros in CONVS:
+        x = torch.randn(shape, generator=gen)
+        x[torch.rand(shape, generator=gen) < zeros] = 0.0
+        x = x.to(dev, dtype)
+        w = pm1((k, k, shape[-1], o), gen).to(dev)
+        scale = (torch.rand(o, generator=gen) + 0.5).to(dev)
+        add = torch.randn(o, generator=gen).to(dev)
+        got = kernels.binary_conv2d_s1(x, w, scale, add)
+        ref = kernels.binary_conv2d_s1_reference(x, w, scale, add)
+        err = max(err, check_exact(
+            f"binary_conv2d_s1 {shape} -> {o} k={k} {str(dtype)[6:]} "
+            f"zeros={zeros}", got, ref, False))
+    return err
+
+
+def r50_pointwise(batch: int, size: int = SIZE):
+    """(M, K, N) of each of ResNet-50's 36 pointwise convs at ``batch``:
+    conv1 at the block's input resolution, conv3 and the shortcut after the
+    stride (on the 3x3, ResNet V1.5)."""
+    shapes, h, cin = [], size // 4, 64
+    for planes, count, stride in ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)):
+        for i in range(count):
+            ho = h // (stride if i == 0 else 1)
+            shapes.append((batch * h * h, cin, planes))
+            shapes.append((batch * ho * ho, planes, 4 * planes))
+            if i == 0:
+                shapes.append((batch * ho * ho, cin, 4 * planes))
+            h, cin = ho, 4 * planes
+    return shapes
+
+
+def check_popcounts(kernels, gen, dev) -> float:
+    """popcount_gemm against its plain version on the card, bit-identical,
+    at path C's shapes (batch 8 and 1) and two ragged ones."""
+    err = 0.0
+    shapes = sorted(set(r50_pointwise(8)) | set(r50_pointwise(1)))
+    for m, k, n in shapes + [(5, 33, 7), (17, 100, 33)]:
+        x = torch.randn((m, k), generator=gen)
+        x[torch.rand((m, k), generator=gen) < 0.1] = 0.0
+        xp = kernels.pack_bits(x.to(dev), axis=-1)
+        wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
+        scale = (torch.rand(n, generator=gen) + 0.5).to(dev)
+        add = torch.randn(n, generator=gen).to(dev)
+        got = kernels.popcount_gemm(xp, wp, k, scale, add)
+        ref = kernels.popcount_gemm_reference(xp, wp, k, scale, add)
+        err = max(err, check_exact(f"popcount_gemm M={m} K={k} N={n}", got, ref,
+                                   False))
+    return err
+
+
+def check_stem_chains(kernels, gen, dev) -> float:
+    """fused_stem_chain against fused_chain(fused_stem(x)) on the card:
+    bit-identical; against its own plain version the stem is within a bf16
+    ulp, not identical, so that difference is printed. Returns its max."""
+    err = 0.0
+    bf = torch.bfloat16
+    for n, dtype, act, z21, options in ((1, bf, "relu", False, False),
+                                        (4, bf, "prelu", True, True),
+                                        (1, torch.float32, "prelu", False, True),
+                                        (4, torch.float32, "relu", True, False)):
+        x = torch.randn((n, SIZE, SIZE, 3), generator=gen).to(dev, dtype)
+        ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, dtype)
+        bs = (0.1 * torch.randn(64, generator=gen)).to(dev, dtype)
+        blocks = [rand_block(kernels, "basic", 64, 64, gen, dev, dtype, options=options)
+                  for _ in range(2)]
+        opts = dict(act=act, zero_to_one=z21)
+        got = kernels.fused_stem_chain(x, ws, bs, blocks, **opts)
+        split = kernels.fused_chain(kernels.fused_stem(x, ws, bs), blocks, **opts)
+        ref = kernels.fused_stem_chain_reference(x, ws, bs, blocks, **opts)
+        torch.cuda.synchronize()
+        label = (f"fused_stem_chain ({n},{SIZE},{SIZE},3) {str(dtype)[6:]} act={act} "
+                 f"zero_to_one={z21} thresholds={options}")
+        if got.shape != split.shape or not torch.equal(got, split):
+            raise AssertionError(f"{label}: differs from fused_chain(fused_stem(x)) "
+                                 f"in {int((got != split).sum())} values")
+        e = (got.float() - ref.float()).abs()
+        print(f"phase 2: {label}: bit-identical to fused_chain(fused_stem(x)); "
+              f"against its plain version max |err| {e.max().item():.3g}, "
+              f"{int((e > 0).sum())} of {e.numel()} values differ")
+        err = max(err, e.max().item())
+    return err
+
+
+def pallas_conv_model(qat, dtype):
+    """Path B: deploy (int8 weights), then every stride-1 3x3 binary conv as
+    ``DeployedConv(mode="pallas-conv")``, BN folds, the space-to-depth stem
+    and floats cast to ``dtype``; no stage or block pass."""
+    from bnn_tpu_torch import layers
+    from bnn_tpu_torch.binarize import set_module_by_name
+    from bnn_tpu_torch.inference import (DeployedConv, deploy,
+                                         optimize_deployed, space_to_depth_stem)
+    from bnn_tpu_torch.utils import cast_floats
+
+    model = deploy(copy.deepcopy(qat), weight_format="int8")
+    for name, m in qat.named_modules():
+        if (isinstance(m, layers.Conv2d) and tuple(m.kernel_size) == (3, 3)
+                and tuple(m.stride) == (1, 1)):
+            set_module_by_name(model, name, DeployedConv(
+                m, mode="pallas-conv", weight_format="int8"))
+    optimize_deployed(model)
+    space_to_depth_stem(model)
+    if dtype is not None:
+        cast_floats(model, dtype)
+    return model.eval()
+
+
+class Served:
+    """A deployed model served as ``Predictor`` serves it: requests padded
+    and split into ``batch_size`` forwards on ``device``."""
+
+    def __init__(self, model, batch_size, device, dtype):
+        self.model = model.to(device)
+        self.batch_size, self.device, self.dtype = batch_size, device, dtype
+
+    @torch.no_grad()
+    def __call__(self, x):
+        from bnn_tpu_torch.inference import batched_call
+
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        return batched_call(self.model, x, self.batch_size)
+
+
+def plus_share(values) -> tuple:
+    """(share of +1 over all, [share of each call]) of (number of +1 signs,
+    number of signs) pairs."""
+    shares = [p / t for p, t in values]
+    return sum(p for p, _ in values) / sum(t for _, t in values), shares
+
+
+def check_share(name, values) -> float:
+    """The share of +1 signs at a kernel's inputs over one forward, held in
+    [5%, 95%] so that a degenerate net (every sign alike) cannot pass."""
+    share, per_call = plus_share(values)
+    print(f"phase 3: {name}: share of +1 signs at the kernel's inputs "
+          f"{100 * share:.1f}% over {len(per_call)} calls (each call "
+          f"{100 * min(per_call):.1f}-{100 * max(per_call):.1f}%)")
+    if not 0.05 <= share <= 0.95:
+        raise AssertionError(f"{name}: degenerate signs, {100 * share:.1f}% +1")
+    return share
+
+
+def stem_chain_bound(xh, w, bias, blocks, out_numel, out_size):
+    """Least time of a fused_stem_chain call: the input, stem weights, bias,
+    blocks and output once, against the stem's bf16 operations plus the
+    blocks' int8 operations, each at its type's peak."""
+    n, h, ws, c = xh.shape
+    moved = (nbytes(xh, w, *([bias] if bias is not None else []))
+             + sum(block_bytes(b) for b in blocks) + out_numel * out_size)
+    stem_ops = 2 * n * (h // 2) * (ws // 2) * w.shape[-1] * 49 * c
+    int8_ops = sum(2 * 2 * n * (h // 4) * (ws // 4) * b.co * 9 * b.ci for b in blocks)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (stem_ops / PEAK_OPS_PER_S[torch.bfloat16]
+             + int8_ops / PEAK_OPS_PER_S[torch.int8]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_row(fns: dict) -> dict:
+    """{name: (device ms, ms per call)}; plain versions get fewer runs."""
+    out = {}
+    for name, fn in fns.items():
+        few = name == "plain"
+        out[name] = ((device_ms(fn, iters=3), cuda_ms(fn, iters=3, warmup=1)) if few
+                     else (device_ms(fn), cuda_ms(fn)))
+    return out
+
+
+def print_rows(kname, rows, card, library):
+    """Print each timed shape of a kernel; return its sums over one forward
+    (each shape times its calls): ms, plain, library, bound, bound_by."""
+    tot = dict(ms=0.0, plain=0.0, library=0.0, bound=0.0, by_bytes=0.0)
+    for label, calls, t, (bound, by) in rows:
+        lib = (f"; library {library} {t['library'][0] * 1e3:.2f} us device"
+               if "library" in t else "; library: none (no single call)")
+        print(f"phase 4: {label} x{calls} per forward: kernel "
+              f"{t['kernel'][0] * 1e3:.2f} us device / {t['kernel'][1] * 1e3:.2f} us "
+              f"per call; plain {t['plain'][0] * 1e3:.1f} us device / "
+              f"{t['plain'][1] * 1e3:.1f} us per call{lib}; bound "
+              f"{bound * 1e3:.3f} us ({by}) | {card}")
+        tot["ms"] += calls * t["kernel"][0]
+        tot["plain"] += calls * t["plain"][0]
+        tot["library"] += calls * t.get("library", (0.0,))[0]
+        tot["bound"] += calls * bound
+        tot["by_bytes"] += calls * bound * (by == "bytes")
+    tot["by"] = "bytes" if 2 * tot["by_bytes"] >= tot["bound"] else "operations"
+    print(f"phase 4: {kname} summed over one forward: {tot['ms'] * 1e3:.2f} us "
+          f"device, plain {tot['plain'] * 1e3:.1f} us, bound {tot['bound'] * 1e3:.3f} us "
+          f"({tot['by']}) | {card}")
+    return tot
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -548,10 +778,20 @@ def main() -> int:
     check_stem(kernels, (2, 200, 196, 3), gen, dev)           # v1: H%16
     block_errs = check_blocks(kernels, gen, dev)
     block_errs["fused_bottleneck"] = check_bottlenecks(kernels, gen, dev)
+    # the opt-in paths' kernels draw from their own generator, so that the
+    # inputs above and the images below stay as they were
+    gen_opt = torch.Generator().manual_seed(SEED + 1)
+    conv_err = check_convs(kernels, gen_opt, dev)
+    pop_err = check_popcounts(kernels, gen_opt, dev)
+    entry_err = check_stem_chains(kernels, gen_opt, dev)
     if quick:
         print("chip_smoke: --quick: phases 1 and 2 passed", file=sys.stderr)
         return 0
 
+    from bnn_tpu_torch.inference import (fuse_entry, megablock,
+                                         optimize_deployed,
+                                         space_to_depth_stem, stages)
+    deploy = importlib.import_module("bnn_tpu_torch.inference.deploy")
     qat = flagship(torch.Generator().manual_seed(SEED))
     images = torch.randn((24, 3, SIZE, SIZE), generator=gen)
     totals = dict.fromkeys(KERNELS, 0)
@@ -621,6 +861,80 @@ def main() -> int:
     for b in (1, 4, 8):
         check_f32(Predictor(copy.deepcopy(qat50), batch_size=b, dtype=None), ref50,
                   images[:2], f"ResNet-50 batch {b}")
+
+    # path A: the batch 1 and 4 ResNet-18 predictors after fuse_entry: the
+    # stem and layer1 as one fused_stem_chain launch, bit-identical
+    pred_a = {}
+    for b, requests in ((1, (images[:1], images[1:3])), (4, (images[:4], images[4:7]))):
+        pred_a[b] = Predictor(copy.deepcopy(qat), batch_size=b)
+        if fuse_entry(pred_a[b].model) != 1:
+            raise AssertionError("fuse_entry merged no entry")
+        outs, launches = serve_counted(
+            kernels, pred_a[b], requests,
+            f"path A: ResNet-18 Predictor(batch_size={b}) + fuse_entry bf16",
+            {"fused_stem_chain": 1, "fused_chain": 3})
+        add(launches)
+        for r, o in zip(requests, outs):
+            if not torch.equal(o, small[b](r)):
+                raise AssertionError(f"path A batch {b}: logits differ from the "
+                                     "Predictor without fuse_entry")
+        print(f"phase 3: path A batch {b}: bf16 logits equal the same Predictor "
+              "without fuse_entry, bit for bit")
+    for b in (1, 4):
+        pa32 = Predictor(copy.deepcopy(qat), batch_size=b, dtype=None)
+        fuse_entry(pa32.model)
+        check_f32(pa32, ref4, images[:4], f"path A ResNet-18 + fuse_entry batch {b}")
+
+    # path B: the Z1-PReLU ResNet-18 with its 13 stride-1 3x3 convs in mode
+    # pallas-conv, at batch 8; layer4.0's shortcut (K = 256) on binary_gemm
+    qz18 = flagship(torch.Generator().manual_seed(SEED), z1_prelu=True)
+    served_b = Served(pallas_conv_model(qz18, torch.bfloat16), BATCH, dev,
+                      torch.bfloat16)
+    run = []
+    calls = capture_calls(deploy, "binary_conv2d_s1", lambda: run.append(serve_counted(
+        kernels, served_b, (images[:8], images[8:11]),
+        "path B: Z1-PReLU ResNet-18 pallas-conv batch 8 bf16",
+        {"binary_conv2d_s1": 13, "binary_gemm": 1})))
+    add(run[0][1])
+    check_share("path B binary_conv2d_s1",
+                [(int((a[0] >= 0).sum()), a[0].numel()) for a, _ in calls[:13]])
+    b32 = Served(pallas_conv_model(qz18, None), BATCH, dev, torch.float32)
+    ref_b = Served(pallas_conv_model(qz18, None), 2, torch.device("cpu"),
+                   torch.float32)(images[:2])
+    check_f32(b32, ref_b, images[:2], "path B Z1-PReLU ResNet-18 pallas-conv batch 8")
+    conv_mode = deploy.deploy(copy.deepcopy(qz18), weight_format="int8")
+    optimize_deployed(conv_mode)
+    space_to_depth_stem(conv_mode)
+    check_f32(b32, Served(conv_mode.eval(), BATCH, dev, torch.float32)(images[:2]).cpu(),
+              images[:2], "path B against the same model in the conv mode, on the card,")
+
+    # path C: the Z1-PReLU ResNet-50 through the popcount Predictor, which
+    # serves unfused with its 36 pointwise convs on popcount_gemm
+    qz50 = flagship(torch.Generator().manual_seed(SEED), depth=50, z1_prelu=True)
+    pred_c = {}
+    for b, requests in ((8, (images[:8], images[8:11])), (1, (images[:1], images[1:3]))):
+        pred_c[b] = Predictor(copy.deepcopy(qz50), batch_size=b,
+                              binary_gemm_impl="popcount")
+        if len(pred_c[b].popcount_layers) != 36:
+            raise AssertionError(f"path C: {len(pred_c[b].popcount_layers)} "
+                                 "popcount layers, expected 36")
+        run = []
+        calls = capture_calls(deploy, "popcount_gemm", lambda: run.append(serve_counted(
+            kernels, pred_c[b], requests,
+            f"path C: Z1-PReLU ResNet-50 Predictor(batch_size={b}, "
+            "binary_gemm_impl='popcount') bf16", {"popcount_gemm": 36})))
+        add(run[0][1])
+        check_share(f"path C batch {b} popcount_gemm", [
+            (int((kernels.unpack_bits(a[0], a[2], axis=-1) > 0).sum()),
+             a[0].shape[0] * a[2]) for a, _ in calls[:36]])
+    c32 = Predictor(copy.deepcopy(qz50), batch_size=BATCH, dtype=None,
+                    binary_gemm_impl="popcount")
+    ref_c = Predictor(copy.deepcopy(qz50), batch_size=2, dtype=None,
+                      binary_gemm_impl="popcount", device="cpu")(images[:2])
+    check_f32(c32, ref_c, images[:2], "path C Z1-PReLU ResNet-50 popcount batch 8")
+    check_f32(c32, Predictor(copy.deepcopy(qz50), batch_size=BATCH, dtype=None,
+                             fuse=False)(images[:2]).cpu(), images[:2],
+              "path C against binary_gemm_impl='mxu', fuse=False, on the card,")
     print(f"phase 3: launches over every serving run above: {totals}")
 
     # times at the serving paths' shapes
@@ -727,8 +1041,6 @@ def main() -> int:
                           wfc is not None))
         return calls
 
-    from bnn_tpu_torch.inference import megablock, stages
-    deploy = importlib.import_module("bnn_tpu_torch.inference.deploy")
     for b in (1, 4):
         for label, fn, plain, bound, head in chain_calls(small[b], images[:b].to(dev)):
             record(f"fused_chain@{b}", label, fn, plain, bound, head)
@@ -818,6 +1130,102 @@ def main() -> int:
                   f"{pc * 1e3:.1f} us per call; bound {bound * 1e3:.3f} us "
                   f"({by}); library: none (no single call) | {card}")
 
+    # the opt-in paths' kernels, every call held against its plain version
+    # on its own inputs, timed once per shape
+    entry_rows = []
+    for b in (1, 4):
+        xb = images[:b].to(dev)
+        (args, kw), = capture_calls(stages, "fused_stem_chain", lambda: pred_a[b](xb))
+        xh, w, bias, blocks = args
+        fn = lambda a=args, k=kw: kernels.fused_stem_chain(*a, **k)
+        plain = lambda a=args, k=kw: kernels.fused_stem_chain_reference(*a, **k)
+        split = lambda a=args, k=kw: kernels.fused_chain(
+            kernels.fused_stem(*a[:3]), a[3], **k)
+        got, ref, two = fn(), plain(), split()
+        torch.cuda.synchronize()
+        if not torch.equal(got, two):
+            raise AssertionError(f"path A batch {b}: fused_stem_chain differs from "
+                                 "fused_chain(fused_stem(x))")
+        e = (got.float() - ref.float()).abs()
+        entry_err = max(entry_err, e.max().item())
+        print(f"phase 4: path A batch {b} fused_stem_chain {tuple(xh.shape)}: "
+              f"bit-identical to the split pair; against its plain version max "
+              f"|err| {e.max().item():.3g}, {int((e > 0).sum())} of {e.numel()} "
+              "values differ")
+        t = timed_row({"kernel": fn, "plain": plain, "split": split})
+        entry_rows.append((f"fused_stem_chain {tuple(xh.shape)} bf16 (path A, batch {b})",
+                           1, t, stem_chain_bound(xh, w, bias, blocks, got.numel(),
+                                                  got.element_size())))
+        print(f"phase 4: path A batch {b}: the split pair (fused_stem, then "
+              f"fused_chain) on the same inputs {t['split'][0] * 1e3:.2f} us device "
+              f"/ {t['split'][1] * 1e3:.2f} us per call | {card}")
+    entry_t = [print_rows("fused_stem_chain", [r], card, None) for r in entry_rows]
+
+    conv_rows, errs = {}, []
+    conv_calls = capture_calls(deploy, "binary_conv2d_s1",
+                               lambda: served_b(images[:BATCH]))
+    for a, k in conv_calls:
+        x, w = a[0], a[1]
+        n, h, wd, c = x.shape
+        kk, o = w.shape[0], w.shape[-1]
+        label = f"binary_conv2d_s1 {tuple(x.shape)} {str(x.dtype)[6:]} -> {o} k={kk}"
+        errs.append(check_exact(
+            "path B " + label, kernels.binary_conv2d_s1(*a, **k),
+            kernels.binary_conv2d_s1_reference(*a, **k), False, phase=4,
+            verbose=False))
+        key = (tuple(x.shape), x.dtype, o)
+        if key in conv_rows:
+            conv_rows[key][1] += 1
+            continue
+        xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
+        wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        t = timed_row({
+            "kernel": lambda a=a, k=k: kernels.binary_conv2d_s1(*a, **k),
+            "plain": lambda a=a, k=k: kernels.binary_conv2d_s1_reference(*a, **k),
+            "library": lambda xs=xs, wl=wl, kk=kk: torch.nn.functional.conv2d(
+                xs, wl, padding=kk // 2)})
+        params = [v for v in a[2:] if isinstance(v, torch.Tensor)]
+        conv_rows[key] = [label, 1, t, bound_ms(
+            nbytes(x, w, *params) + n * h * wd * o * 4, 2 * n * h * wd * o * c * kk * kk,
+            torch.int8)]
+    conv_err = max([conv_err] + errs)
+    print(f"phase 4: path B batch {BATCH}: {len(conv_calls)} binary_conv2d_s1 calls "
+          f"held against the plain version on their own inputs: bit-identical "
+          f"(max |err| {max(errs):.3g})")
+    conv_t = print_rows("binary_conv2d_s1 (path B, batch 8)",
+                        list(conv_rows.values()), card, "F.conv2d bf16")
+
+    pop_rows, errs = {}, []
+    pop_calls = capture_calls(deploy, "popcount_gemm",
+                              lambda: pred_c[BATCH](images[:BATCH]))
+    for a, k in pop_calls:
+        xp, wp, kk = a[0], a[1], a[2]
+        m, n = xp.shape[0], wp.shape[1]
+        label = f"popcount_gemm M={m} K={kk} N={n}"
+        errs.append(check_exact(
+            "path C " + label, kernels.popcount_gemm(*a, **k),
+            kernels.popcount_gemm_reference(*a, **k), False, phase=4,
+            verbose=False))
+        key = (m, kk, n)
+        if key in pop_rows:
+            pop_rows[key][1] += 1
+            continue
+        a8 = kernels.unpack_bits(xp, kk, axis=-1, dtype=torch.int8)[:, :kk].contiguous()
+        w8 = kernels.unpack_bits(wp, kk, axis=-2, dtype=torch.int8)[:kk].t().contiguous()
+        t = timed_row({
+            "kernel": lambda a=a, k=k: kernels.popcount_gemm(*a, **k),
+            "plain": lambda a=a, k=k: kernels.popcount_gemm_reference(*a, **k),
+            "library": lambda a8=a8, w8=w8: torch._int_mm(a8, w8.t())})
+        params = [v for v in a[3:] if isinstance(v, torch.Tensor)]
+        pop_rows[key] = [label, 1, t, bound_ms(
+            nbytes(xp, wp, *params) + m * n * 4, 2 * m * kk * n, torch.int8)]
+    pop_err = max([pop_err] + errs)
+    print(f"phase 4: path C batch {BATCH}: {len(pop_calls)} popcount_gemm calls "
+          f"held against the plain version on their own inputs: bit-identical "
+          f"(max |err| {max(errs):.3g})")
+    pop_t = print_rows("popcount_gemm (path C, batch 8)", list(pop_rows.values()),
+                       card, "torch._int_mm")
+
     def summed(kname):
         rows = block_t[kname]
         by = "bytes" if sum(r[3] for r in rows if r[4] == "bytes") >= \
@@ -838,6 +1246,37 @@ def main() -> int:
     for b in (1, 4, 8):
         forward_times(pred50[b], images[:b].to(dev), card,
                       f"ResNet-50 Predictor(batch_size={b}) bf16 {SIZE}x{SIZE}")
+    for b in (1, 4):
+        forward_times(pred_a[b], images[:b].to(dev), card,
+                      f"path A: ResNet-18 Predictor(batch_size={b}) + fuse_entry bf16")
+    # the entry split (FusedStem, then FusedStage) and merged (FusedEntry):
+    # host time per call issued back to back, then the forward, in turns
+    # split, merged, merged, split
+    xe = x1.to(torch.bfloat16)
+    split_m, merged_m = small[1].model, pred_a[1].model
+    with torch.no_grad():
+        host = {"split": [], "merged": []}
+        for order in (("split", "merged"), ("merged", "split")) * 2:
+            for name in order:
+                host[name].append(1e3 * host_ms(
+                    (lambda: split_m.layer1(split_m.conv1(xe))) if name == "split"
+                    else (lambda: merged_m.conv1(xe))))
+    ab_entry = {"split": [], "merged": []}
+    for order in (("split", "merged"), ("merged", "split")) * 2:
+        for name in order:
+            ab_entry[name].append(fwd_ms(small[1] if name == "split" else pred_a[1], x1))
+    print(f"phase 4: ResNet-18 batch 1 entry host time per call, in turns: split "
+          f"(FusedStem, FusedStage) {[round(v, 2) for v in host['split']]} us, "
+          f"FusedEntry {[round(v, 2) for v in host['merged']]} us | {card}")
+    print(f"phase 4: ResNet-18 Predictor(batch_size=1) bf16 forward, in turns: "
+          f"split {[round(v, 3) for v in ab_entry['split']]} ms, fuse_entry "
+          f"{[round(v, 3) for v in ab_entry['merged']]} ms | {card}")
+    forward_times(served_b, images[:BATCH].to(dev), card,
+                  f"path B: Z1-PReLU ResNet-18 pallas-conv batch {BATCH} bf16")
+    for b in (BATCH, 1):
+        forward_times(pred_c[b], images[:b].to(dev), card,
+                      f"path C: Z1-PReLU ResNet-50 Predictor(batch_size={b}, "
+                      "binary_gemm_impl='popcount') bf16")
 
     chain = summed("fused_chain@1")
     basic = summed("fused_basic_block")
@@ -846,7 +1285,10 @@ def main() -> int:
     print("phase 5: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
-          "forward at batch 1; launches are totals over phase 3's serving runs")
+          "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
+          "binary_conv2d_s1's and popcount_gemm's the sums over the 13 and 36 "
+          "calls of one batch-8 forward of paths B and C; launches are totals "
+          "over phase 3's serving runs")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",
@@ -888,6 +1330,25 @@ def main() -> int:
          "max_abs_err": block_errs["fused_bottleneck"],
          "ms": bneck[0], "plain_ms": bneck[1], "bound_ms": bneck[2],
          "bound_by": bneck[3], "library_ms": None},
+        {"name": "fused_stem_chain", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/fused_stem_chain.cu",
+         "replaces": "bnn_tpu/kernels/model.py:360",
+         "launches": totals["fused_stem_chain"], "max_abs_err": entry_err,
+         "ms": entry_t[0]["ms"], "plain_ms": entry_t[0]["plain"],
+         "bound_ms": entry_t[0]["bound"], "bound_by": entry_t[0]["by"],
+         "library_ms": None},
+        {"name": "binary_conv2d_s1", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/binary_conv2d_s1.cu",
+         "replaces": "bnn_tpu/kernels/conv.py:68",
+         "launches": totals["binary_conv2d_s1"], "max_abs_err": conv_err,
+         "ms": conv_t["ms"], "plain_ms": conv_t["plain"], "bound_ms": conv_t["bound"],
+         "bound_by": conv_t["by"], "library_ms": conv_t["library"]},
+        {"name": "popcount_gemm", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/popcount_gemm.cu",
+         "replaces": "bnn_tpu/kernels/gemm.py:223",
+         "launches": totals["popcount_gemm"], "max_abs_err": pop_err,
+         "ms": pop_t["ms"], "plain_ms": pop_t["plain"], "bound_ms": pop_t["bound"],
+         "bound_by": pop_t["by"], "library_ms": pop_t["library"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

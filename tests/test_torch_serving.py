@@ -179,7 +179,6 @@ def _tiny():
     (dict(binary_gemm_impl="popcount", fuse=True), ValueError,
      "incompatible with fuse=True"),
     (dict(mesh=object(), fuse=False), NotImplementedError, "multi-device"),
-    (dict(binary_gemm_impl="popcount"), NotImplementedError, "popcount_gemm"),
     (dict(quantize_float_bits=8), NotImplementedError, "quantize_float_bits"),
 ])
 def test_predictor_loud_errors(kwargs, error, match):

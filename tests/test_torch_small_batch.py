@@ -23,7 +23,7 @@ from bnn_tpu.inference import Predictor as JPredictor
 from bnn_tpu.ops import binarizers as jops
 from bnn_tpu_torch.inference import (FusedBlock, FusedBottleneck,
                                      FusedDownBlock, FusedStage, FusedStem,
-                                     Predictor, fuse_entry)
+                                     Predictor)
 from bnn_tpu_torch.kernels import fused_basic_block, fused_chain
 from bnn_tpu_torch.ops import binarizers as tops
 from bnn_tpu_torch.utils import load_jax_state
@@ -242,10 +242,3 @@ def test_bottleneck_small_batch_serves_and_matches_unfused():
                          device="cpu", dtype=None)
         assert isinstance(pred.model.layer1[0], FusedBottleneck)
         torch.testing.assert_close(pred(x), plain, rtol=1e-5, atol=1e-5)
-
-
-def test_fuse_entry_raises_naming_the_kernel():
-    _, tm, _ = _models("flagship")
-    pred = Predictor(copy.deepcopy(tm), batch_size=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_stem_chain"):
-        fuse_entry(pred.model)
