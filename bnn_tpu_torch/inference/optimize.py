@@ -25,14 +25,16 @@ from .deploy import DeployedConv, DeployedLinear
 __all__ = ["optimize_deployed", "fold_bn_after", "fold_bn_before"]
 
 _FLOAT_LAYERS = (nn.Conv1d, nn.Conv2d, nn.Linear)
+# the JAX package's BatchNorm1d is its BatchNorm2d: both fold alike
+_BATCH_NORMS = (nn.BatchNorm1d, nn.BatchNorm2d)
 
 
 def _foldable(bn) -> bool:
-    return (isinstance(bn, nn.BatchNorm2d) and not bn.training
+    return (isinstance(bn, _BATCH_NORMS) and not bn.training
             and bn.running_mean is not None)
 
 
-def _bn_affine(bn: nn.BatchNorm2d):
+def _bn_affine(bn: nn.BatchNorm1d | nn.BatchNorm2d):
     """``(a, b)`` with eval-mode ``bn(x) == a * x + b`` per channel, in the
     JAX package's arithmetic order (``1 / sqrt(var + eps)``)."""
     mean = bn.running_mean.detach()
@@ -43,7 +45,7 @@ def _bn_affine(bn: nn.BatchNorm2d):
 
 
 @torch.no_grad()
-def fold_bn_after(layer, bn: nn.BatchNorm2d) -> bool:
+def fold_bn_after(layer, bn: nn.BatchNorm1d | nn.BatchNorm2d) -> bool:
     """Fold ``bn(layer(x))`` into ``layer``; returns True on success."""
     if not _foldable(bn):
         return False
@@ -77,7 +79,8 @@ def _in_channel_flip(flip: torch.Tensor, conv: DeployedConv, ndim: int):
 
 
 @torch.no_grad()
-def fold_bn_before(bn: nn.BatchNorm2d, conv: DeployedConv) -> bool:
+def fold_bn_before(bn: nn.BatchNorm1d | nn.BatchNorm2d,
+                   conv: DeployedConv) -> bool:
     """Fold ``conv(sign(bn(x)))`` into a thresholded sign + weight flips."""
     if not isinstance(conv, DeployedConv) or not _foldable(bn):
         return False
@@ -113,10 +116,10 @@ def _fold_in_sequential(seq: nn.Sequential) -> int:
     folded = 0
     for i in range(len(seq) - 1):
         a, b = seq[i], seq[i + 1]
-        if isinstance(b, nn.BatchNorm2d) and fold_bn_after(a, b):
+        if isinstance(b, _BATCH_NORMS) and fold_bn_after(a, b):
             seq[i + 1] = nn.Identity()
             folded += 1
-        elif isinstance(a, nn.BatchNorm2d) and isinstance(b, DeployedConv):
+        elif isinstance(a, _BATCH_NORMS) and isinstance(b, DeployedConv):
             if fold_bn_before(a, b):
                 seq[i] = nn.Identity()
                 folded += 1

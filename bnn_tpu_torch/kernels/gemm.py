@@ -12,8 +12,12 @@ separately, so kernel and plain version agree bit for bit.
 
 Bound on an H100 at the main-path shape (M=392, K=256, N=512, bf16 x): about
 1.0 MB moved, 0.3 us at 3.35 TB/s, against 0.05 us of int8 work, so the
-layer is bound by bytes and in practice by its launch. The kernel reads the
-weights packed (1 bit each) and expands them only in shared memory.
+layer is bound by bytes and in practice by its launch. The kernel runs the
+int8 tensor cores (``mma.sync`` s8 tiles) on weights that stay packed (1 bit
+each) until they reach the registers. :func:`gemm_plan` is its host plan:
+the output tile (64 or 32 a side, the larger whose grid fills half a wave
+of the card's SMs) and the loader (16-byte asynchronous copies where K, N and
+the pointers allow them, else element by element).
 
 :func:`popcount_gemm` is the XNOR / popcount form over packed activations
 AND packed weights, ``(K - 2 * sum popcount(xp ^ wp)) * scale + add``: the
@@ -25,17 +29,45 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ._build import load
 from .packing import packed_words, unpack_bits
 
-__all__ = ["binary_gemm", "binary_gemm_reference", "popcount_gemm",
-           "popcount_gemm_reference"]
+__all__ = ["binary_gemm", "binary_gemm_planned", "binary_gemm_reference",
+           "gemm_plan", "popcount_gemm", "popcount_gemm_reference"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
+# output rows and columns per block of binary_gemm.cu's instances, largest first
+GEMM_TILES = (64, 32)
+H100_SMS = 132
+
+
+def gemm_plan(m: int, k: int, n: int, x_itemsize: int, x_ptr: int,
+              w_ptr: int, sms: int = H100_SMS) -> Tuple[int, str]:
+    """``(tile, loader)`` of a :func:`binary_gemm` launch.
+
+    ``tile``: the largest of :data:`GEMM_TILES` whose grid of ``tile x tile``
+    output blocks has at least half a wave (``sms / 2`` blocks), else the
+    smallest. On the H100 a 64x64 grid of 100 blocks or more ran faster than
+    the 32x32 grid of the same product, one of 98 tied with it, and one of
+    64 or fewer ran slower (``chip_smoke.py`` phase 4 times both).
+    ``loader``: ``"vector"`` (16-byte copies) when every x row and every word
+    row starts on 16 bytes (K a multiple of 16 bytes of x, N of 4 words, both
+    pointers aligned), else ``"scalar"``.
+    """
+    tile = next((t for t in GEMM_TILES
+                 if 2 * (-(-m // t) * -(-n // t)) >= sms), GEMM_TILES[-1])
+    vector = (k * x_itemsize % 16 == 0 and n % 4 == 0 and x_ptr % 16 == 0
+              and w_ptr % 16 == 0)
+    return tile, "vector" if vector else "scalar"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _epilogue_operand(v: Optional[torch.Tensor], n: int, fill: float,
@@ -53,8 +85,25 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
+
+
+def _check_shapes(x, w_packed, k, scale, add):
+    """``(M, N)`` of a product, or a ValueError naming what disagrees."""
+    if x.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError(f"expected 2-D x and w_packed, got {tuple(x.shape)} "
+                         f"and {tuple(w_packed.shape)}")
+    m, k_in = x.shape
+    kw, n = w_packed.shape
+    if k_in != k or kw != packed_words(k):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_packed "
+                         f"{tuple(w_packed.shape)}, k={k}")
+    for v in (scale, add):
+        if v is not None and tuple(v.shape) != (n,):
+            raise ValueError(f"epilogue operands must have shape ({n},), got "
+                             f"{tuple(v.shape)}")
+    return m, n
 
 
 def binary_gemm(x: torch.Tensor, w_packed: torch.Tensor, k: int,
@@ -72,21 +121,24 @@ def binary_gemm(x: torch.Tensor, w_packed: torch.Tensor, k: int,
     Returns:
         ``(M, N)`` f32.
     """
-    if x.ndim != 2 or w_packed.ndim != 2:
-        raise ValueError(f"expected 2-D x and w_packed, got {tuple(x.shape)} "
-                         f"and {tuple(w_packed.shape)}")
-    m, k_in = x.shape
-    kw, n = w_packed.shape
-    if k_in != k or kw != packed_words(k):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_packed "
-                         f"{tuple(w_packed.shape)}, k={k}")
-    for v in (scale, add):
-        if v is not None and tuple(v.shape) != (n,):
-            raise ValueError(f"epilogue operands must have shape ({n},), got "
-                             f"{tuple(v.shape)}")
     if x.device.type == "cpu":
+        _check_shapes(x, w_packed, k, scale, add)
         return binary_gemm_reference(x, w_packed, k, scale, add,
                                      sign_inputs=sign_inputs)
+    return binary_gemm_planned(x, w_packed, k, scale, add,
+                               sign_inputs=sign_inputs)
+
+
+def binary_gemm_planned(x: torch.Tensor, w_packed: torch.Tensor, k: int,
+                        scale: Optional[torch.Tensor] = None,
+                        add: Optional[torch.Tensor] = None, *,
+                        sign_inputs: bool = True,
+                        plan: Optional[Tuple[int, str]] = None) -> torch.Tensor:
+    """:func:`binary_gemm`'s kernel on CUDA tensors, launched with ``plan``
+    (``(tile, loader)``) in place of :func:`gemm_plan`'s, so that each
+    instance can be held against the plain version. The vector loader is
+    refused where :func:`gemm_plan` would not take it."""
+    m, n = _check_shapes(x, w_packed, k, scale, add)
     if x.device.type != "cuda" or w_packed.device != x.device:
         raise ValueError(f"binary_gemm needs x and w_packed on one CUDA "
                          f"device, got {x.device} and {w_packed.device}")
@@ -95,6 +147,13 @@ def binary_gemm(x: torch.Tensor, w_packed: torch.Tensor, k: int,
                         f"got {x.dtype} and {w_packed.dtype}")
     if not (x.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("binary_gemm needs contiguous x and w_packed")
+    auto = gemm_plan(m, k, n, x.element_size(), x.data_ptr(),
+                     w_packed.data_ptr(), _sm_count(x.device))
+    tile, loader = plan or auto
+    if tile not in GEMM_TILES or loader not in ("vector", "scalar") or (
+            loader == "vector" and auto[1] != "vector"):
+        raise ValueError(f"binary_gemm has no launch plan {plan!r} for x "
+                         f"{tuple(x.shape)} and w_packed {tuple(w_packed.shape)}")
     scale = _epilogue_operand(scale, n, 1.0, x.device)
     add = _epilogue_operand(add, n, 0.0, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -103,7 +162,8 @@ def binary_gemm(x: torch.Tensor, w_packed: torch.Tensor, k: int,
     err = _kernel()(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w_packed.data_ptr(),
         scale.data_ptr(), add.data_ptr(), out.data_ptr(), m, k, n,
-        int(sign_inputs), torch.cuda.current_stream(x.device).cuda_stream)
+        int(sign_inputs), tile, int(loader == "vector"),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"binary_gemm kernel launch failed: CUDA error {err}")
     binary_gemm.launches += 1

@@ -10,7 +10,8 @@ Phases, each reported on its own lines:
    kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
-   points take;
+   points take; ``binary_gemm`` bit for bit at each of its tile and loader
+   instances and at ragged shapes, each case naming the instance it took;
 3. the serving paths, with every kernel's launch count set to 0 just
    before each and read just after: the flagship binary ResNet-18 (1000
    classes, weights and BN statistics random from a seed) through
@@ -34,7 +35,9 @@ Phases, each reported on its own lines:
    plain version as in phase 2; then times: each kernel's device time
    (torch.profiler) and time per call (CUDA events) at the shapes the
    serving paths gave it, beside its plain version's, its bound and the
-   one-call PyTorch yardstick where there is one; the forward latency,
+   one-call PyTorch yardstick where there is one (for ``binary_gemm``, a
+   table per distinct shape of ResNet-50's batch 1 and 8 calls and
+   ResNet-18's batch 8 call, with the host's tile); the forward latency,
    images/s, device busy share and the kernels that take the time, of each
    path;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -96,11 +99,16 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device_profile's key when every trace came back without device events
+EVENTS_ONLY = "all kernels (CUDA events: torch.profiler recorded no device time)"
+
+
 def device_profile(fn, iters: int = 20, attempts: int = 3):
     """``({kernel name: device ms per call}, wall ms per call)`` of ``fn``
     over ``iters`` calls under ``torch.profiler``, after a warm-up. A trace
     that comes back without device events (CUPTI now and then delivers
-    none) is taken again, up to ``attempts`` times."""
+    none) is taken again, up to ``attempts`` times; then the CUDA-event time
+    per call stands in, under the key ``EVENTS_ONLY``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,12 +129,22 @@ def device_profile(fn, iters: int = 20, attempts: int = 3):
                                    + e.time_range.elapsed_us() / 1e3 / iters)
         if by_name:
             return by_name, wall / iters * 1e3
-    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} traces")
+    print(f"phase 4: torch.profiler recorded no device time in {attempts} traces; "
+          "CUDA-event time per call stands in for this one")
+    return {EVENTS_ONLY: cuda_ms(fn, iters)}, wall / iters * 1e3
 
 
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call of ``fn``: the sum of its kernels' durations."""
     return sum(device_profile(fn, iters)[0].values())
+
+
+def own_ms(fn, name: str, iters: int = 20) -> tuple:
+    """Device ms per call of ``fn``'s kernels whose name holds ``name``, and
+    of its other kernels."""
+    by_name = device_profile(fn, iters)[0]
+    own = sum(v for k, v in by_name.items() if name in k or k == EVENTS_ONLY)
+    return own, sum(by_name.values()) - own
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -155,33 +173,106 @@ def check_stem(kernels, shape, gen, dev) -> float:
     return err.max().item()
 
 
-def hold_gemm(kernels, label, args, kw, phase: int = 2) -> float:
-    """binary_gemm on ``args``/``kw`` against its plain version: within 1e-6
-    relative. Returns the largest absolute difference."""
-    got = kernels.binary_gemm(*args, **kw)
+def hold_gemm(kernels, label, args, kw, phase: int = 2, plan=None) -> float:
+    """binary_gemm on ``args``/``kw`` (through the host plan, or launched with
+    ``plan``) against its plain version: bit-identical. Returns the largest
+    absolute difference."""
+    auto = gemm_plan_of(kernels, *args[:3])
+    if plan is None:
+        got, plan = kernels.binary_gemm(*args, **kw), auto
+    else:
+        got = kernels.gemm.binary_gemm_planned(*args, plan=plan, **kw)
     ref = kernels.binary_gemm_reference(*args, **kw)
     torch.cuda.synchronize()
-    err = (got - ref).abs()
-    if got.shape != ref.shape or not bool((err <= 1e-6 * ref.abs() + 1e-6).all()):
-        raise AssertionError(f"binary_gemm {label}: max |err| {err.max().item()}")
+    err = (got - ref).abs().max().item() if got.shape == ref.shape else None
+    if err is None or not torch.equal(got, ref):
+        raise AssertionError(f"binary_gemm {label} tile {plan[0]} {plan[1]} loader: "
+                             f"max |err| {err}")
     if phase == 2:
-        print(f"phase 2: binary_gemm {label}: max |err| {err.max().item():.3g}")
-    return err.max().item()
+        print(f"phase 2: binary_gemm {label}: tile {plan[0]}x{plan[0]}, {plan[1]} "
+              f"loader ({'host plan' if plan == auto else 'forced'}): max |err| {err}")
+    return err
 
 
-def check_gemm(kernels, m, k, n, dtype, sign_inputs, gen, dev) -> float:
-    """binary_gemm against its plain version on random inputs of the shape."""
+def gemm_plan_of(kernels, x, wp, k):
+    """The host plan ``(tile, loader)`` binary_gemm takes for ``x`` and ``wp``."""
+    return kernels.gemm.gemm_plan(
+        x.shape[0], k, wp.shape[1], x.element_size(), x.data_ptr(), wp.data_ptr(),
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+
+
+def check_gemm(kernels, m, k, n, dtype, sign_inputs, gen, dev, tile=None,
+               loader=None, offset=False) -> float:
+    """binary_gemm against its plain version on random inputs of the shape:
+    10% exact zeros when ``sign_inputs``, else ternary values; ``offset``
+    starts x one element into its buffer, off 16 bytes. ``tile`` and
+    ``loader`` force that instance, the other coming from the host plan."""
     if sign_inputs:
         x = torch.randn((m, k), generator=gen)
         x[torch.rand((m, k), generator=gen) < 0.1] = 0.0  # exact zeros
     else:
         x = torch.randint(-1, 2, (m, k), generator=gen).float()
-    x = x.to(dev, dtype)
+    if offset:
+        buf = torch.zeros(m * k + 1, dtype=dtype, device=dev)
+        buf[1:] = x.to(dev, dtype).flatten()
+        x = buf[1:].view(m, k)
+    else:
+        x = x.to(dev, dtype)
     wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
     scale = torch.rand(n, generator=gen).to(dev) + 0.5
     add = torch.randn(n, generator=gen).to(dev)
-    return hold_gemm(kernels, f"M={m} K={k} N={n} {dtype} sign_inputs={sign_inputs}",
-                     (x, wp, k, scale, add), dict(sign_inputs=sign_inputs))
+    plan = None
+    if tile or loader:
+        auto = gemm_plan_of(kernels, x, wp, k)
+        plan = (tile or auto[0], loader or auto[1])
+    label = (f"M={m} K={k} N={n} {str(dtype)[6:]} sign_inputs={sign_inputs}"
+             f"{' x off 16 bytes' if offset else ''}")
+    return hold_gemm(kernels, label, (x, wp, k, scale, add),
+                     dict(sign_inputs=sign_inputs), plan=plan)
+
+
+# binary_gemm's edge shapes, each at both tiles with the host's loader:
+# (M, K, N, x dtype, sign_inputs, x off 16 bytes)
+GEMM_EDGES = [
+    (1, 256, 512, torch.bfloat16, False, False),   # M = 1
+    (1, 33, 7, torch.float32, True, False),
+    (37, 31, 65, torch.bfloat16, True, False),     # K % 8 != 0, N % 4 != 0
+    (37, 33, 64, torch.bfloat16, False, False),
+    (37, 40, 64, torch.bfloat16, True, False),     # K = 40 takes 16-byte copies
+    (37, 40, 65, torch.float32, False, False),     # N = 65
+    (100, 70, 7, torch.float32, True, False),      # f32 with K % 4 != 0, N = 7
+    (100, 70, 130, torch.bfloat16, False, False),
+    (37, 70, 64, torch.bfloat16, True, True),      # x = buf[1:], K % 8 != 0
+    (49, 256, 512, torch.bfloat16, False, True),   # only the pointer is off
+]
+
+
+def check_gemms(kernels, gen, dev) -> float:
+    """binary_gemm's every tile and loader instance at the serving shapes
+    (ResNet-18 layer4.0's shortcut at batch 8, ResNet-50 layer4.0.conv1 at
+    batch 1), then the edge shapes; a plan the shape cannot take is refused.
+    Returns the largest |err|."""
+    errs = []
+    for m, k, n in ((BATCH * 7 * 7, 256, 512), (196, 1024, 512)):
+        for tile in kernels.gemm.GEMM_TILES:
+            for loader in ("vector", "scalar"):
+                errs.append(check_gemm(kernels, m, k, n, torch.bfloat16, False, gen,
+                                       dev, tile=tile, loader=loader))
+            errs.append(check_gemm(kernels, m, k, n, torch.float32, True, gen, dev,
+                                   tile=tile))
+    for m, k, n, dtype, sign_inputs, offset in GEMM_EDGES:
+        for tile in kernels.gemm.GEMM_TILES:
+            errs.append(check_gemm(kernels, m, k, n, dtype, sign_inputs, gen, dev,
+                                   tile=tile, offset=offset))
+    x = torch.zeros((8, 70), device=dev)
+    wp = torch.zeros((3, 64), dtype=torch.int32, device=dev)
+    try:
+        kernels.gemm.binary_gemm_planned(x, wp, 70, plan=(32, "vector"))
+    except ValueError:
+        print("phase 2: binary_gemm refuses the vector loader at K=70 f32")
+    else:
+        raise AssertionError("binary_gemm launched 16-byte copies at K=70 f32")
+    return max(errs)
 
 
 def rand_block(kernels, kind, ci, co, gen, dev, dtype, *, options: bool):
@@ -719,24 +810,28 @@ def timed_row(fns: dict) -> dict:
 
 def print_rows(kname, rows, card, library):
     """Print each timed shape of a kernel; return its sums over one forward
-    (each shape times its calls): ms, plain, library, bound, bound_by."""
+    (each shape times its calls): ms, plain, library, bound, bound_by. A
+    row's times may leave out the plain version."""
     tot = dict(ms=0.0, plain=0.0, library=0.0, bound=0.0, by_bytes=0.0)
     for label, calls, t, (bound, by) in rows:
+        plain = (f"; plain {t['plain'][0] * 1e3:.1f} us device / "
+                 f"{t['plain'][1] * 1e3:.1f} us per call" if "plain" in t else "")
         lib = (f"; library {library} {t['library'][0] * 1e3:.2f} us device"
                if "library" in t else "; library: none (no single call)")
         print(f"phase 4: {label} x{calls} per forward: kernel "
               f"{t['kernel'][0] * 1e3:.2f} us device / {t['kernel'][1] * 1e3:.2f} us "
-              f"per call; plain {t['plain'][0] * 1e3:.1f} us device / "
-              f"{t['plain'][1] * 1e3:.1f} us per call{lib}; bound "
-              f"{bound * 1e3:.3f} us ({by}) | {card}")
+              f"per call{plain}{lib}; bound {bound * 1e3:.3f} us ({by}) | {card}")
         tot["ms"] += calls * t["kernel"][0]
-        tot["plain"] += calls * t["plain"][0]
+        tot["plain"] += calls * t.get("plain", (0.0,))[0]
         tot["library"] += calls * t.get("library", (0.0,))[0]
         tot["bound"] += calls * bound
         tot["by_bytes"] += calls * bound * (by == "bytes")
     tot["by"] = "bytes" if 2 * tot["by_bytes"] >= tot["bound"] else "operations"
+    plain = (f", plain {tot['plain'] * 1e3:.1f} us"
+             if all("plain" in r[2] for r in rows) else "")
+    lib = f", library {library} {tot['library'] * 1e3:.2f} us" if library else ""
     print(f"phase 4: {kname} summed over one forward: {tot['ms'] * 1e3:.2f} us "
-          f"device, plain {tot['plain'] * 1e3:.1f} us, bound {tot['bound'] * 1e3:.3f} us "
+          f"device{plain}{lib}, bound {tot['bound'] * 1e3:.3f} us "
           f"({tot['by']}) | {card}")
     return tot
 
@@ -773,6 +868,10 @@ def main() -> int:
                           False, gen, dev)
     check_gemm(kernels, 37, 77, 65, torch.float32, True, gen, dev)
     check_gemm(kernels, 37, 300, 65, torch.bfloat16, True, gen, dev)
+    # every tile and loader instance; its own generator keeps the draws
+    # below as they were
+    gemm_err = max(gemm_err, check_gemms(kernels, torch.Generator().manual_seed(SEED + 2),
+                                         dev))
     stem_err = check_stem(kernels, (BATCH, SIZE, SIZE, 3), gen, dev)  # v3
     check_stem(kernels, (1, SIZE, SIZE - 4, 3), gen, dev)     # v2: B=1, W%8
     check_stem(kernels, (2, 200, 196, 3), gen, dev)           # v1: H%16
@@ -960,6 +1059,9 @@ def main() -> int:
 
         hold_gemm(kernels, f"timed M={m} K={k} N={n}", (xg, wp, k, sc, ad),
                   dict(sign_inputs=False), phase=4)
+        tile, loader = gemm_plan_of(kernels, xg, wp, k)
+        print(f"phase 4: binary_gemm M={m} K={k} N={n}: tile {tile}x{tile}, "
+              f"{-(-m // tile) * -(-n // tile)} blocks, {loader} loader")
         return ({f.__name__: (device_ms(f), cuda_ms(f)) for f in (gemm, gemm_plain, gemm_lib)},
                 *bound_ms(nbytes(xg, wp, sc, ad) + m * n * 4, 2 * m * k * n, torch.int8))
 
@@ -1090,16 +1192,55 @@ def main() -> int:
           f"call {[round(v, 3) for v in ab_fwd['per call']]} ms | {card}")
     # every binary_gemm call of the ResNet-50 paths (the strided blocks'
     # pointwise convs; all of them at B=8) on its own inputs
+    gemm_calls = {}
     for b in (1, 4, 8):
         xb = images[:b].to(dev)
         calls = capture_calls(deploy, "binary_gemm", lambda: pred50[b](xb))
         errs = [hold_gemm(kernels, f"ResNet-50 B={b} call {i}", a, k, phase=4)
                 for i, (a, k) in enumerate(calls)]
         gemm_err = max([gemm_err] + errs)
+        gemm_calls[f"ResNet-50 batch {b}"] = calls
         shapes = sorted({(a[0].shape[0], a[2], a[1].shape[1]) for a, _ in calls})
         print(f"phase 4: ResNet-50 Predictor(batch_size={b}): {len(calls)} "
-              f"binary_gemm calls held against the plain version (1e-6 "
-              f"relative), max |err| {max(errs):.3g}; (M, K, N) {shapes}")
+              f"binary_gemm calls held against the plain version: bit-identical "
+              f"(max |err| {max(errs):.3g}); (M, K, N) {shapes}")
+    gemm_calls[f"ResNet-18 batch {BATCH}"] = capture_calls(
+        deploy, "binary_gemm", lambda: pred(images[:BATCH].to(dev)))
+    # binary_gemm per distinct (M, K, N) of those calls, on the call's own
+    # inputs: the kernel with the host's tile (its own device time), the
+    # other tile and torch._int_mm on the same int8 product (the plain
+    # version is timed at the two shapes above)
+    for path in ("ResNet-50 batch 1", "ResNet-50 batch 8", f"ResNet-18 batch {BATCH}"):
+        rows = {}
+        for a, kw in gemm_calls[path]:
+            x, wp, kk = a[:3]
+            m, n = x.shape[0], wp.shape[1]
+            if (m, kk, n) in rows:
+                rows[(m, kk, n)][1] += 1
+                continue
+            tile, loader = gemm_plan_of(kernels, x, wp, kk)
+            x8 = (torch.where(x >= 0, 1, -1) if kw.get("sign_inputs", True) else x).to(torch.int8)
+            w8 = kernels.unpack_bits(wp, kk, axis=-2, dtype=torch.int8)[:kk].t().contiguous()
+            fn = lambda a=a, kw=kw: kernels.binary_gemm(*a, **kw)
+            t = {}
+            if m > 16 and kk % 8 == 0 and n % 8 == 0:  # what torch._int_mm takes
+                t = timed_row({"library": lambda x8=x8, w8=w8: torch._int_mm(x8, w8.t())})
+            # the kernel alone: the wrapper casts bf16 epilogue rows to f32
+            own, casts = own_ms(fn, "binary_gemm_kernel")
+            t["kernel"] = (own, cuda_ms(fn))
+            alt = [tl for tl in kernels.gemm.GEMM_TILES if tl != tile][0]
+            alt_ms = own_ms(lambda a=a, kw=kw, p=(alt, loader): kernels.gemm.binary_gemm_planned(
+                *a, plan=p, **kw), "binary_gemm_kernel")[0]
+            params = [v for v in a[3:] if isinstance(v, torch.Tensor)]
+            rows[(m, kk, n)] = [
+                f"binary_gemm M={m} K={kk} N={n} {str(x.dtype)[6:]} ({path}; tile "
+                f"{tile}x{tile}, {-(-m // tile) * -(-n // tile)} blocks, {loader} loader; "
+                f"{alt}x{alt} {alt_ms * 1e3:.2f} us; the wrapper's epilogue casts "
+                f"{casts * 1e3:.2f} us)",
+                1, t,
+                bound_ms(nbytes(x, wp, *params) + m * n * 4, 2 * m * kk * n, torch.int8)]
+        print_rows(f"binary_gemm ({path}, {len(gemm_calls[path])} calls)",
+                   list(rows.values()), card, "torch._int_mm")
     for kname in ("fused_downsample_block", "fused_basic_block"):
         for args, kw in capture_calls(megablock, kname, lambda: pred34(x1)):
             xh = args[0]

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time ``binary_gemm`` at the serving paths' shapes, for the checkout it is
+run from.
+
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME]
+
+``bnn_tpu_torch`` is imported from the current directory, so one copy of
+this script times any checkout whose ``binary_gemm`` has the public
+signature: for example a parent commit unpacked with ``git archive`` and the
+change, run in turns on one card (parent, change, change, parent). For each
+(M, K, N) that ResNet-50's batch 1 and batch 8 forwards and ResNet-18's
+batch 8 forward give ``binary_gemm`` (``chip_smoke.py`` phase 4 captures and
+prints them): ternary bf16 rows and random packed weights from a seed, f32
+epilogue rows; the result held bit for bit against
+``binary_gemm_reference``; the kernel's own device time per call
+(``torch.profiler``), the launch plan where the checkout has ``gemm_plan``,
+and ``torch._int_mm`` on the same int8 product. Prints the card line, one
+JSON line per shape, then one per path with the sums over a forward's calls.
+Exits 1 without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+# (M, K, N, calls per forward) of each path's binary_gemm calls
+PATHS = {
+    "ResNet-50 batch 1": [
+        (49, 512, 2048, 1), (49, 1024, 2048, 1), (196, 256, 1024, 1),
+        (196, 512, 1024, 1), (196, 1024, 512, 1), (784, 256, 512, 1),
+        (784, 512, 256, 1), (3136, 256, 128, 1)],
+    "ResNet-50 batch 8": [
+        (25088, 256, 64, 2), (25088, 256, 128, 1), (6272, 256, 512, 1),
+        (6272, 512, 128, 3), (6272, 512, 256, 1), (1568, 256, 1024, 6),
+        (1568, 512, 1024, 1), (1568, 1024, 256, 5), (1568, 1024, 512, 1),
+        (392, 512, 2048, 3), (392, 1024, 2048, 1), (392, 2048, 512, 2)],
+    "ResNet-18 batch 8": [(392, 256, 512, 1)],
+}
+
+
+def device_us(fn, name: str = "", iters: int = 20) -> float:
+    """Device us per call of ``fn``'s kernels whose name holds ``name``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            return sum(us) / iters
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--label", default=os.path.basename(os.getcwd()))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("gemm_shapes: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    from bnn_tpu_torch import kernels
+    from bnn_tpu_torch.kernels import gemm
+
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0])
+    gen = torch.Generator().manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for path, shapes in PATHS.items():
+        tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
+        for m, k, n, calls in shapes:
+            x = torch.randint(-1, 2, (m, k), generator=gen).to(dev, torch.bfloat16)
+            wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
+            scale = (torch.rand(n, generator=gen) + 0.5).to(dev)
+            add = torch.randn(n, generator=gen).to(dev)
+            run = lambda: kernels.binary_gemm(x, wp, k, scale, add, sign_inputs=False)
+            ref = kernels.binary_gemm_reference(x, wp, k, scale, add, sign_inputs=False)
+            exact = bool(torch.equal(run(), ref))
+            x8 = x.to(torch.int8)
+            w8 = kernels.unpack_bits(wp, k, axis=-2, dtype=torch.int8)[:k].t().contiguous()
+            plan = (gemm.gemm_plan(m, k, n, 2, x.data_ptr(), wp.data_ptr(), sms)
+                    if hasattr(gemm, "gemm_plan") else None)
+            row = {"label": args.label, "path": path, "m": m, "k": k, "n": n,
+                   "calls": calls, "plan": plan, "exact": exact,
+                   "kernel_us": device_us(run, "binary_gemm"),
+                   "int_mm_us": device_us(lambda: torch._int_mm(x8, w8.t()))}
+            print(json.dumps(row))
+            if not exact:
+                raise AssertionError(f"binary_gemm M={m} K={k} N={n} differs from "
+                                     "its plain version")
+            tot["kernel_us"] += calls * row["kernel_us"]
+            tot["int_mm_us"] += calls * row["int_mm_us"]
+        print(json.dumps({"label": args.label, "path": path,
+                          "calls": sum(s[3] for s in shapes), **tot}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

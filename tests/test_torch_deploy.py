@@ -239,6 +239,74 @@ def test_fold_bn_before_matches_jax(mode, fmt):
     assert not toptimize.fold_bn_before(tbn, td)  # already folded
 
 
+def _bn1d_models(kind, seed):
+    """(JAX model, port model, input of the JAX layout, torch <- JAX layout)
+    for the three BatchNorm1d folds, from the same numpy-seeded weights."""
+    rng = np.random.RandomState(seed)
+    r = nnx.Rngs(seed)
+    jn, tn = bnn_tpu.nn, torch.nn
+    if kind == "linear-linear-bn":  # the model of ROADMAP queue 3, item 1
+        jm = jn.Sequential(jn.Linear(64, 64, rngs=r), jn.Linear(64, 32, rngs=r),
+                           jn.BatchNorm1d(32, rngs=r))
+        tm = tn.Sequential(tn.Linear(64, 64), tn.Linear(64, 32), tn.BatchNorm1d(32))
+        x, to_t, ignore = rng.randn(5, 64), torch.from_numpy, ["_first_"]
+    else:
+        # (N, L, C) in JAX, (N, C, L) in the port
+        to_t = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1)))
+        if kind == "conv1d-bn":  # a float and a deployed Conv1d, each then a BN
+            jm = jn.Sequential(jn.Conv1d(4, 8, 3, 1, 1, rngs=r), jn.BatchNorm1d(8, rngs=r),
+                               jn.Conv1d(8, 12, 3, 1, 1, rngs=r),
+                               jn.BatchNorm1d(12, rngs=r))
+            tm = tn.Sequential(tn.Conv1d(4, 8, 3, 1, 1), tn.BatchNorm1d(8),
+                               tn.Conv1d(8, 12, 3, 1, 1), tn.BatchNorm1d(12))
+            x, ignore = rng.randn(2, 9, 4), ["_first_"]
+        else:  # "bn-conv1d": the BN-before fold into a deployed Conv1d
+            jm = jn.Sequential(jn.BatchNorm1d(8, rngs=r), jn.Conv1d(8, 12, 3, 1, 1, rngs=r))
+            tm = tn.Sequential(tn.BatchNorm1d(8), tn.Conv1d(8, 12, 3, 1, 1))
+            x, ignore = rng.randn(2, 9, 8), []
+    jb, tb = _bconfigs(False)
+    jm = bnn_tpu.prepare_binary_model(jm, jb, ignore_layers_name=ignore)
+    tm = bt.prepare_binary_model(tm, tb, ignore_layers_name=ignore)
+    for _, m in bnn_tpu.binarize.named_modules(jm):
+        if isinstance(m, jn.BatchNorm1d):
+            c = m.mean[...].shape[0]
+            # negative gammas on every third channel exercise the weight flips
+            m.scale[...] = jnp.asarray((rng.randn(c) * 0.5 + 1.0)
+                                       * np.where(np.arange(c) % 3, 1, -1), jnp.float32)
+            m.bias[...] = jnp.asarray(rng.randn(c) * 0.3, jnp.float32)
+            m.mean[...] = jnp.asarray(rng.randn(c) * 0.3, jnp.float32)
+            m.var[...] = jnp.asarray(rng.uniform(0.5, 2.0, c), jnp.float32)
+        elif isinstance(m, (jlayers.Linear, jlayers.Conv1d)):
+            _randomize_alpha(m, rng)
+    load_jax_state(tm, _flat(jm))
+    jm.eval()
+    return jm, tm.eval(), x.astype(np.float32), to_t
+
+
+@pytest.mark.parametrize("kind,folds", [("linear-linear-bn", 1), ("conv1d-bn", 2),
+                                        ("bn-conv1d", 1)])
+def test_optimize_folds_batchnorm1d_as_jax(kind, folds):
+    """``BatchNorm1d`` is the JAX package's ``BatchNorm2d``, so both fold it:
+    after a deployed and a float layer, and before a deployed conv."""
+    jm, tm, x, to_t = _bn1d_models(kind, seed=len(kind))
+    jd = jdeploy.deploy(jm, use_pallas=True, interpret=True)
+    td = tdeploy.deploy(tm)
+    want_unfolded = np.asarray(jd(jnp.asarray(x)))
+    got_unfolded = td(to_t(x)).detach()
+    assert joptimize.optimize_deployed(jd) == folds
+    assert toptimize.optimize_deployed(td) == folds
+    for jl, tl in zip(jd, td):
+        assert isinstance(tl, torch.nn.Identity) == isinstance(jl, bnn_tpu.nn.Identity)
+        assert not isinstance(tl, torch.nn.BatchNorm1d)
+    want = np.asarray(jd(jnp.asarray(x)))
+    got = td(to_t(x)).detach()
+    from_t = (lambda t: t.numpy()) if got.ndim == 2 else (lambda t: t.permute(0, 2, 1).numpy())
+    np.testing.assert_allclose(from_t(got), want, rtol=1e-5, atol=1e-5)
+    # the fold keeps what each package computed before it
+    np.testing.assert_allclose(from_t(got), from_t(got_unfolded), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(want, want_unfolded, rtol=1e-5, atol=1e-5)
+
+
 def _stem_models(seed):
     jm = bnn_tpu.models.resnet18(num_classes=10, rngs=nnx.Rngs(seed))
     tm = bt.models.resnet18(num_classes=10)

@@ -15,6 +15,7 @@ from bnn_tpu.kernels import stem as jstem
 from bnn_tpu.kernels.packing import pack_bits as jpack_bits
 from bnn_tpu_torch.kernels import (binary_gemm, binary_gemm_reference,
                                    fused_stem, fused_stem_reference, pack_bits)
+from bnn_tpu_torch.kernels.gemm import GEMM_TILES, binary_gemm_planned, gemm_plan
 
 
 def _gemm_inputs(m, k, n, sign_inputs, seed):
@@ -73,6 +74,59 @@ def test_binary_gemm_rejects_bad_shapes():
         binary_gemm(torch.randn(9, 70), wp, 70)  # 3 words, not 2
     with pytest.raises(ValueError):
         binary_gemm(torch.randn(9, 40), wp, 40, torch.ones(11))
+
+
+@pytest.mark.parametrize("m,n,tile,blocks", [
+    (196, 512, 32, 112),     # ResNet-50 layer4.0.conv1 at batch 1: 32 blocks of 64x64
+    (392, 512, 32, 208),     # ResNet-18 layer4.0's shortcut at batch 8: 56 of 64x64
+    (49, 2048, 32, 128),     # ResNet-50 layer4's conv3 at batch 1
+    (196, 1024, 32, 224),    # 64 blocks of 64x64: under half a wave
+    (784, 512, 64, 104),     # ResNet-50 layer3's conv1 at batch 4
+    (3136, 128, 64, 98),     # ResNet-50 layer2's conv1 at batch 1
+    (25088, 64, 64, 392),    # ResNet-50 layer1's conv1 at batch 8
+    (6272, 128, 64, 196),    # ResNet-50 layer2's conv1 at batch 8
+    (1, 7, 32, 1),
+])
+def test_gemm_plan_takes_the_largest_tile_that_fills_half_the_card(m, n, tile, blocks):
+    """binary_gemm's grid: the largest tile whose grid reaches half a wave
+    of the H100's 132 SMs (66 blocks), else the smallest."""
+    got, _ = gemm_plan(m, 256, n, 2, 0, 0)
+    assert got == tile and got in GEMM_TILES
+    assert -(-m // tile) * -(-n // tile) == blocks
+    if tile != GEMM_TILES[-1]:
+        assert blocks >= 66
+    else:
+        big = GEMM_TILES[0]
+        assert -(-m // big) * -(-n // big) < 66
+    assert gemm_plan(m, 256, n, 2, 0, 0, sms=10 ** 9)[0] == GEMM_TILES[-1]
+
+
+@pytest.mark.parametrize("k,n,itemsize,x_off,w_off,loader", [
+    (256, 512, 2, 0, 0, "vector"),
+    (40, 12, 2, 0, 0, "vector"),     # 80 bytes a row
+    (40, 12, 4, 0, 0, "vector"),
+    (70, 12, 2, 0, 0, "scalar"),     # K % 8 != 0 in bf16
+    (70, 12, 4, 0, 0, "scalar"),     # K % 4 != 0 in f32
+    (33, 64, 4, 0, 0, "scalar"),
+    (256, 65, 2, 0, 0, "scalar"),    # N % 4 != 0
+    (256, 7, 4, 0, 0, "scalar"),
+    (256, 512, 2, 2, 0, "scalar"),   # x off 16 bytes (a row view)
+    (256, 512, 2, 16, 0, "vector"),
+    (256, 512, 2, 0, 4, "scalar"),   # words off 16 bytes
+])
+def test_gemm_plan_vector_loader_only_where_16_byte_copies_fit(k, n, itemsize, x_off,
+                                                               w_off, loader):
+    base = 1 << 20
+    assert gemm_plan(392, k, n, itemsize, base + x_off, base + w_off)[1] == loader
+
+
+def test_binary_gemm_planned_launches_only_on_the_card():
+    x, w, _, _ = _gemm_inputs(9, 40, 12, True, seed=5)
+    args = (torch.from_numpy(x), pack_bits(torch.from_numpy(w), axis=-2), 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        binary_gemm_planned(*args, plan=(32, "scalar"))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        binary_gemm_planned(torch.zeros(9, 70), args[1], 70)  # 3 words, not 2
 
 
 _STEM_CASES = {
