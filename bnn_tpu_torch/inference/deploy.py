@@ -316,7 +316,9 @@ class DeployedConv(nn.Module):
     def _call_pallas_conv(self, x: torch.Tensor) -> torch.Tensor:
         # the kernel signs x - threshold with sign(0) = +1 and returns f32,
         # not the scale's dtype, as the JAX package's mode does
-        w = self._int8_weight().permute(2, 3, 1, 0).contiguous()  # (k, k, I, O)
+        # (k, k, I, O) as a view: the wrapper makes the kernel's operand
+        # from it with one copy
+        w = self._int8_weight().permute(2, 3, 1, 0)
         xin = x if self.threshold is None else x - _per_channel(self.threshold, x.ndim)
         y = binary_conv2d_s1(xin.permute(0, 2, 3, 1).contiguous(), w,
                              self.scale, self.add)

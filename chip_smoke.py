@@ -12,6 +12,9 @@ Phases, each reported on its own lines:
    serving paths' shapes and at the other geometries and options its entry
    points take; ``binary_gemm`` bit for bit at each of its tile and loader
    instances and at ragged shapes, each case naming the instance it took;
+   ``binary_conv2d_s1`` bit for bit at each of its tile, loader and K-split
+   instances, at path B's shapes and at edges (N = 1, k = 1, 5 and 7, odd H
+   and W, C and O off every multiple, x off 16 bytes, exact zeros);
 3. the serving paths, with every kernel's launch count set to 0 just
    before each and read just after: the flagship binary ResNet-18 (1000
    classes, weights and BN statistics random from a seed) through
@@ -37,7 +40,9 @@ Phases, each reported on its own lines:
    serving paths gave it, beside its plain version's, its bound and the
    one-call PyTorch yardstick where there is one (for ``binary_gemm``, a
    table per distinct shape of ResNet-50's batch 1 and 8 calls and
-   ResNet-18's batch 8 call, with the host's tile); the forward latency,
+   ResNet-18's batch 8 call, with the host's tile; for ``binary_conv2d_s1``,
+   one per distinct shape of path B's calls, the host's plan beside the
+   other tiles and splits); the forward latency,
    images/s, device busy share and the kernels that take the time, of each
    path;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -51,6 +56,7 @@ from __future__ import annotations
 import copy
 import importlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -97,6 +103,25 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sass_counts(lib) -> str:
+    """Tensor-core (IMMA) and dot-product (IDP4A) instructions in a built
+    library's SASS, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"SASS not read ({e})"
+    ops = []  # the opcode of each instruction line, past any @predicate
+    for line in sass.splitlines():
+        words = line.split("*/", 1)[-1].split() if line.strip().startswith("/*") else []
+        words = words[1:] if words and words[0].startswith("@") else words
+        if words:
+            ops.append(words[0])
+    return (f"{sum(o.startswith('IMMA') for o in ops)} IMMA, "
+            f"{sum(o.startswith('IDP4A') for o in ops)} IDP4A instructions in its SASS")
 
 
 # device_profile's key when every trace came back without device events
@@ -637,23 +662,84 @@ CONVS = [
     ((2, 10, 10, 64), 128, 5, torch.float32, 0.2),   # k=5
     ((1, 7, 9, 6), 10, 3, torch.float32, 0.3),       # C and O not multiples of 4
 ]
+# and its edges, drawn from their own generator: (x shape, O, k, x dtype,
+# share of exact zeros, x off 16 bytes)
+CONV_EDGES = [
+    ((1, 7, 7, 512), 512, 3, torch.bfloat16, 0.1, False),  # N = 1
+    ((1, 9, 13, 64), 24, 7, torch.bfloat16, 0.1, False),   # k = 7, odd H and W
+    ((2, 6, 7, 40), 33, 3, torch.bfloat16, 0.2, False),    # C = 40: part of a chunk
+    ((1, 5, 5, 132), 70, 3, torch.float32, 0.1, False),    # C = 132, O = 70
+    ((2, 14, 14, 256), 256, 3, torch.bfloat16, 0.1, True),  # x = buf[1:]
+    ((2, 8, 8, 64), 100, 3, torch.float32, 0.3, True),
+]
+
+
+def conv_instances(conv, x, k):
+    """Every (tile, loader, split) that ``conv.binary_conv2d_s1_planned``
+    takes for x and a k x k kernel."""
+    out = []
+    for tile in conv.CONV_TILES:
+        for loader in ("vector", "scalar"):
+            for split in conv.CONV_SPLITS:
+                try:
+                    conv._check_plan((tile, loader, split), x, k)
+                except ValueError:
+                    continue
+                out.append((tile, loader, split))
+    return out
+
+
+def check_conv_case(kernels, shape, o, k, dtype, zeros, offset, gen, dev) -> float:
+    """binary_conv2d_s1 on random inputs of the case, through the host plan
+    and through every instance, against its plain version: bit-identical.
+    ``offset`` starts x one element into its buffer, off 16 bytes."""
+    conv = kernels.conv
+    x = torch.randn(shape, generator=gen)
+    x[torch.rand(shape, generator=gen) < zeros] = 0.0
+    if offset:
+        buf = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+        buf[1:] = x.to(dev, dtype).flatten()
+        x = buf[1:].view(shape)
+    else:
+        x = x.to(dev, dtype)
+    w = pm1((k, k, shape[-1], o), gen).to(dev)
+    scale = (torch.rand(o, generator=gen) + 0.5).to(dev)
+    add = torch.randn(o, generator=gen).to(dev)
+    ref = kernels.binary_conv2d_s1_reference(x, w, scale, add)
+    label = (f"binary_conv2d_s1 {shape} -> {o} k={k} {str(dtype)[6:]} zeros={zeros}"
+             f"{' x off 16 bytes' if offset else ''}")
+    err = check_exact(label + " (host plan)", kernels.binary_conv2d_s1(x, w, scale, add),
+                      ref, False, verbose=False)
+    instances = conv_instances(conv, x, k)
+    for plan in instances:
+        err = max(err, check_exact(f"{label} {plan}", conv.binary_conv2d_s1_planned(
+            x, w, scale, add, plan=plan), ref, False, verbose=False))
+    auto = conv.conv_plan(*shape, k, o, x.element_size(), x.data_ptr(),
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"phase 2: {label}: the host plan {auto} and all {len(instances)} instances "
+          f"that take it bit-identical (max |err| {err})")
+    return err
 
 
 def check_convs(kernels, gen, dev) -> float:
-    """binary_conv2d_s1 against its plain version on the card: bit-identical."""
-    err = 0.0
-    for shape, o, k, dtype, zeros in CONVS:
-        x = torch.randn(shape, generator=gen)
-        x[torch.rand(shape, generator=gen) < zeros] = 0.0
-        x = x.to(dev, dtype)
-        w = pm1((k, k, shape[-1], o), gen).to(dev)
-        scale = (torch.rand(o, generator=gen) + 0.5).to(dev)
-        add = torch.randn(o, generator=gen).to(dev)
-        got = kernels.binary_conv2d_s1(x, w, scale, add)
-        ref = kernels.binary_conv2d_s1_reference(x, w, scale, add)
-        err = max(err, check_exact(
-            f"binary_conv2d_s1 {shape} -> {o} k={k} {str(dtype)[6:]} "
-            f"zeros={zeros}", got, ref, False))
+    """binary_conv2d_s1 against its plain version on the card, bit-identical,
+    at every instance: the cases, then the edges; a plan the input cannot
+    take is refused."""
+    err = max(check_conv_case(kernels, *case, False, gen, dev) for case in CONVS)
+    edge_gen = torch.Generator().manual_seed(SEED + 3)
+    err = max([err] + [check_conv_case(kernels, *case, edge_gen, dev)
+                       for case in CONV_EDGES])
+    # 16-byte copies of 6 f32 channels; four groups of f32 64x64 rings (259 KB)
+    for c, plan in ((6, (32, "vector", 1)), (96, (64, "vector", 4))):
+        x = torch.zeros((1, 4, 4, c), device=dev)
+        w = torch.ones((3, 3, c, 8), dtype=torch.int8, device=dev)
+        try:
+            kernels.conv.binary_conv2d_s1_planned(x, w, plan=plan)
+        except ValueError:
+            print(f"phase 2: binary_conv2d_s1 refuses {plan} for f32 x of {c} channels")
+        else:
+            raise AssertionError(f"binary_conv2d_s1 launched {plan} for f32 x of "
+                                 f"{c} channels")
     return err
 
 
@@ -862,6 +948,8 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1: {log.name.split('-')[0]}: {line.strip()}")
+    for name in ("binary_gemm", "binary_conv2d_s1"):
+        print(f"phase 1: lib{name}: {sass_counts(_build._target(name))}")
 
     gen = torch.Generator().manual_seed(SEED)
     gemm_err = check_gemm(kernels, BATCH * 7 * 7, 256, 512, torch.bfloat16,
@@ -1320,15 +1408,37 @@ def main() -> int:
             continue
         xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
         wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        fn = lambda a=a, k=k: kernels.binary_conv2d_s1(*a, **k)
         t = timed_row({
-            "kernel": lambda a=a, k=k: kernels.binary_conv2d_s1(*a, **k),
             "plain": lambda a=a, k=k: kernels.binary_conv2d_s1_reference(*a, **k),
             "library": lambda xs=xs, wl=wl, kk=kk: torch.nn.functional.conv2d(
                 xs, wl, padding=kk // 2)})
+        # the kernel alone; the wrapper also copies the weights into the
+        # kernel's operand and casts bf16 epilogue rows to f32
+        own, rest = own_ms(fn, "binary_conv2d_s1_kernel")
+        t["kernel"] = (own, cuda_ms(fn))
+        plan = kernels.conv.conv_plan(
+            n, h, wd, c, kk, o, x.element_size(), x.data_ptr(),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        # the other tiles and splits of the same loader, each held first
+        want, alts = fn(), []
+        for alt in conv_instances(kernels.conv, x, kk):
+            if alt[1] != plan[1] or alt == plan:
+                continue
+            run_alt = lambda a=a, k=k, alt=alt: kernels.conv.binary_conv2d_s1_planned(
+                *a, plan=alt, **k)
+            errs.append(check_exact(f"path B {label} {alt}", run_alt(), want, False,
+                                    phase=4, verbose=False))
+            alts.append(f"{alt[0]}x{alt[0]} split {alt[2]} "
+                        f"{own_ms(run_alt, 'binary_conv2d_s1_kernel')[0] * 1e3:.2f} us")
+        blocks = -(-n * h * wd // plan[0]) * -(-o // plan[0])
         params = [v for v in a[2:] if isinstance(v, torch.Tensor)]
-        conv_rows[key] = [label, 1, t, bound_ms(
-            nbytes(x, w, *params) + n * h * wd * o * 4, 2 * n * h * wd * o * c * kk * kk,
-            torch.int8)]
+        conv_rows[key] = [
+            f"{label} (host plan: {plan[0]}x{plan[0]}, {blocks} blocks, {plan[1]} "
+            f"loader, split {plan[2]}; {'; '.join(alts)}; the wrapper's weight copy "
+            f"and casts {rest * 1e3:.2f} us)",
+            1, t, bound_ms(nbytes(x, w, *params) + n * h * wd * o * 4,
+                           2 * n * h * wd * o * c * kk * kk, torch.int8)]
     conv_err = max([conv_err] + errs)
     print(f"phase 4: path B batch {BATCH}: {len(conv_calls)} binary_conv2d_s1 calls "
           f"held against the plain version on their own inputs: bit-identical "

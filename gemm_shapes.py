@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Time ``binary_gemm`` at the serving paths' shapes, for the checkout it is
-run from.
+"""Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``) at the
+serving paths' shapes, for the checkout it is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
-this script times any checkout whose ``binary_gemm`` has the public
-signature: for example a parent commit unpacked with ``git archive`` and the
-change, run in turns on one card (parent, change, change, parent). For each
+this script times any checkout whose kernels have the public signatures:
+for example a parent commit unpacked with ``git archive`` and the change,
+run in turns on one card (parent, change, change, parent). For each
 (M, K, N) that ResNet-50's batch 1 and batch 8 forwards and ResNet-18's
 batch 8 forward give ``binary_gemm`` (``chip_smoke.py`` phase 4 captures and
 prints them): ternary bf16 rows and random packed weights from a seed, f32
 epilogue rows; the result held bit for bit against
 ``binary_gemm_reference``; the kernel's own device time per call
 (``torch.profiler``), the launch plan where the checkout has ``gemm_plan``,
-and ``torch._int_mm`` on the same int8 product. Prints the card line, one
-JSON line per shape, then one per path with the sums over a forward's calls.
+and ``torch._int_mm`` on the same int8 product. With ``--conv``, for each
+(x shape, dtype) of path B's 13 calls (a Z1-PReLU ResNet-18's stride-1 3x3
+convs at batch 8): random x with 10% exact zeros, +/-1 int8 weights passed
+as the (k, k, C, O) view of an (O, C, k, k) tensor (as
+``DeployedConv(mode="pallas-conv")`` passes them), f32 epilogue rows; the
+result held bit for bit against ``binary_conv2d_s1_reference``; the kernel's
+own device time, the device time of the whole call (the wrapper's weight
+copy included), the plan where the checkout has ``conv_plan``, and
+``F.conv2d`` in bf16 on the same +/-1 values. Prints the card line, one JSON
+line per shape, then one per path with the sums over a forward's calls.
 Exits 1 without CUDA.
 """
 from __future__ import annotations
@@ -41,6 +49,13 @@ PATHS = {
         (392, 512, 2048, 3), (392, 1024, 2048, 1), (392, 2048, 512, 2)],
     "ResNet-18 batch 8": [(392, 256, 512, 1)],
 }
+# (x shape, x dtype, calls per forward) of path B's binary_conv2d_s1 calls
+CONVS = [
+    ((8, 56, 56, 64), torch.bfloat16, 1), ((8, 56, 56, 64), torch.float32, 3),
+    ((8, 28, 28, 128), torch.bfloat16, 1), ((8, 28, 28, 128), torch.float32, 2),
+    ((8, 14, 14, 256), torch.bfloat16, 1), ((8, 14, 14, 256), torch.float32, 2),
+    ((8, 7, 7, 512), torch.bfloat16, 1), ((8, 7, 7, 512), torch.float32, 2),
+]
 
 
 def device_us(fn, name: str = "", iters: int = 20) -> float:
@@ -66,6 +81,8 @@ def device_us(fn, name: str = "", iters: int = 20) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
+    parser.add_argument("--conv", action="store_true",
+                        help="time binary_conv2d_s1 at path B's shapes instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -80,6 +97,8 @@ def main() -> int:
                          timeout=60, check=True).stdout.strip().splitlines()[0])
     gen = torch.Generator().manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if args.conv:
+        return time_convs(args.label, kernels, gen, dev, sms)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -106,6 +125,44 @@ def main() -> int:
             tot["int_mm_us"] += calls * row["int_mm_us"]
         print(json.dumps({"label": args.label, "path": path,
                           "calls": sum(s[3] for s in shapes), **tot}))
+    return 0
+
+
+def time_convs(label, kernels, gen, dev, sms) -> int:
+    """binary_conv2d_s1 at path B's (x shape, dtype) rows, beside F.conv2d."""
+    from bnn_tpu_torch.kernels import conv
+
+    tot = {"kernel_us": 0.0, "call_us": 0.0, "conv2d_us": 0.0}
+    for shape, dtype, calls in CONVS:
+        c = o = shape[-1]
+        x = torch.randn(shape, generator=gen)
+        x[torch.rand(shape, generator=gen) < 0.1] = 0.0
+        x = x.to(dev, dtype)
+        w_oihw = torch.where(torch.randn((o, c, 3, 3), generator=gen) >= 0, 1, -1)
+        w = w_oihw.to(dev, torch.int8).permute(2, 3, 1, 0)  # (k, k, C, O) view
+        scale = (torch.rand(o, generator=gen) + 0.5).to(dev)
+        add = torch.randn(o, generator=gen).to(dev)
+        run = lambda: kernels.binary_conv2d_s1(x, w, scale, add)
+        exact = bool(torch.equal(run(), kernels.binary_conv2d_s1_reference(
+            x, w, scale, add)))
+        xs = torch.where(x >= 0, 1.0, -1.0).to(torch.bfloat16).permute(0, 3, 1, 2)
+        xs, wl = xs.contiguous(), w_oihw.to(dev, torch.bfloat16)
+        plan = (conv.conv_plan(*shape, 3, o, x.element_size(), x.data_ptr(), sms)
+                if hasattr(conv, "conv_plan") else None)
+        row = {"label": label, "shape": shape, "dtype": str(dtype)[6:], "o": o,
+               "calls": calls, "plan": plan, "exact": exact,
+               "kernel_us": device_us(run, "binary_conv2d_s1_kernel"),
+               "call_us": device_us(run),
+               "conv2d_us": device_us(lambda: torch.nn.functional.conv2d(
+                   xs, wl, padding=1))}
+        print(json.dumps(row))
+        if not exact:
+            raise AssertionError(f"binary_conv2d_s1 {shape} {dtype} differs from "
+                                 "its plain version")
+        for key in tot:
+            tot[key] += calls * row[key]
+    print(json.dumps({"label": label, "path": "path B batch 8",
+                      "calls": sum(r[2] for r in CONVS), **tot}))
     return 0
 
 

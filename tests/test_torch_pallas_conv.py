@@ -34,6 +34,10 @@ from bnn_tpu_torch.binarize import set_module_by_name as tset_module
 from bnn_tpu_torch.inference import optimize as toptimize
 from bnn_tpu_torch.inference import stem as tstem
 from bnn_tpu_torch.kernels import binary_conv2d_s1, binary_conv2d_s1_reference
+from bnn_tpu_torch.kernels.conv import (CONV_KC, CONV_SPLITS, CONV_TILES,
+                                        MIN_CHUNKS, SMEM_PER_BLOCK, SMEM_PER_SM,
+                                        binary_conv2d_s1_planned, conv_plan,
+                                        conv_smem_bytes, conv_weight_operand)
 from bnn_tpu_torch.ops import binarizers as tops
 from bnn_tpu_torch.utils import cast_floats, load_jax_state
 from test_torch_deploy import _conv_pair, _nchw, _nhwc
@@ -104,6 +108,147 @@ def test_binary_conv2d_s1_rejects(bad):
         scale = torch.ones(5)
     with pytest.raises(ValueError):
         binary_conv2d_s1(x, w, scale)
+
+
+# --- the kernel's host plan and weight operand ------------------------------
+
+
+# path B's four layer shapes at batch 8 (a ResNet-18's stride-1 3x3 convs),
+# in both x dtypes: (x shape, itemsize, plan, blocks of the plan's tile)
+_PATH_B_PLANS = [
+    ((8, 56, 56, 64), 2, (64, "vector", 1), 392),
+    ((8, 56, 56, 64), 4, (64, "vector", 1), 392),
+    ((8, 28, 28, 128), 2, (64, "vector", 2), 196),
+    ((8, 28, 28, 128), 4, (64, "vector", 1), 196),
+    ((8, 14, 14, 256), 2, (64, "vector", 4), 100),
+    ((8, 14, 14, 256), 4, (64, "vector", 2), 100),
+    ((8, 7, 7, 512), 2, (32, "vector", 4), 208),
+    ((8, 7, 7, 512), 4, (32, "vector", 2), 208),
+]
+
+
+@pytest.mark.parametrize("shape,itemsize,plan,blocks", _PATH_B_PLANS, ids=str)
+def test_conv_plan_at_path_b_shapes(shape, itemsize, plan, blocks):
+    """The tile by the half-wave rule of the H100's 132 SMs (66 blocks), the
+    K split on where K is long, off at (8,56,56,64), and a grid whose blocks
+    the split's shared memory lets the card hold at once."""
+    c = o = shape[-1]
+    got = conv_plan(*shape, 3, o, itemsize, 0)
+    assert got == plan
+    tile, _, split = got
+    m = shape[0] * shape[1] * shape[2]
+    assert -(-m // tile) * -(-o // tile) == blocks
+    big = CONV_TILES[0]
+    assert (blocks >= 66) if tile == big else (-(-m // big) * -(-o // big) < 66)
+    if c == 64:
+        assert split == 1
+    if c >= 256:
+        assert split > 1
+    smem = conv_smem_bytes(tile, split, itemsize, 3)
+    assert smem <= SMEM_PER_BLOCK
+    assert blocks <= SMEM_PER_SM // (smem + 1024) * 132
+    assert 3 * -(-c // CONV_KC) >= MIN_CHUNKS * split
+
+
+def test_conv_plan_takes_the_smallest_tile_on_a_huge_card():
+    for shape in [s for s, *_ in _PATH_B_PLANS]:
+        assert conv_plan(*shape, 3, shape[-1], 2, 0, sms=10 ** 9)[0] == CONV_TILES[-1]
+
+
+@pytest.mark.parametrize("c,k,itemsize,x_off,loader", [
+    (64, 3, 2, 0, "vector"),
+    (64, 3, 4, 0, "vector"),
+    (32, 1, 2, 0, "vector"),     # k = 1
+    (40, 3, 2, 0, "vector"),     # 80 bytes a pixel
+    (132, 3, 4, 0, "vector"),
+    (6, 3, 4, 0, "scalar"),      # 24 bytes a pixel
+    (6, 3, 2, 0, "scalar"),
+    (12, 3, 2, 0, "scalar"),     # 24 bytes
+    (10, 1, 4, 0, "scalar"),     # 40 bytes
+    (256, 3, 2, 2, "scalar"),    # x off 16 bytes (an odd element offset)
+    (256, 3, 4, 4, "scalar"),
+    (256, 3, 2, 16, "vector"),
+])
+def test_conv_plan_vector_loader_only_where_16_byte_copies_fit(c, k, itemsize, x_off,
+                                                               loader):
+    assert conv_plan(2, 9, 11, c, k, 16, itemsize, (1 << 20) + x_off)[1] == loader
+
+
+@pytest.mark.parametrize("c,view", [(64, False), (64, True), (6, False), (6, True),
+                                    (130, True)])
+def test_conv_weight_operand_is_one_k_contiguous_row_per_output(c, view):
+    """(O, k*k*Cp): w.permute(3, 0, 1, 2).reshape(O, k*k*C) with each tap's
+    channels zero-padded to Cp, a multiple of the kernel's chunk, for a
+    contiguous w and for the permuted view DeployedConv passes."""
+    k, o = 3, 10
+    g = torch.Generator().manual_seed(c)
+    w_oihw = torch.where(torch.randn(o, c, k, k, generator=g) >= 0, 1, -1).to(torch.int8)
+    w = w_oihw.permute(2, 3, 1, 0)  # (k, k, C, O)
+    if not view:
+        w = w.contiguous()
+    op = conv_weight_operand(w)
+    cp = -(-c // CONV_KC) * CONV_KC
+    assert op.shape == (o, k * k * cp) and op.dtype == torch.int8
+    assert op.is_contiguous() and op.data_ptr() % 16 == 0
+    taps = op.reshape(o, k * k, cp)
+    assert torch.equal(taps[..., :c], w.permute(3, 0, 1, 2).reshape(o, k * k, c))
+    assert not taps[..., c:].any()
+    if cp == c:
+        assert torch.equal(op, w.permute(3, 0, 1, 2).reshape(o, k * k * c))
+
+
+def test_pallas_conv_passes_its_weights_as_a_view(monkeypatch):
+    """DeployedConv hands the wrapper a (k, k, I, O) view of its stored
+    weights; the wrapper's operand is then the one copy of a forward."""
+    _, tl = _conv_pair(8, 16, 3, 1, 1, False, seed=73)
+    td = tdeploy.DeployedConv(tl, mode="pallas-conv", weight_format="int8")
+    seen = []
+    real = tdeploy.binary_conv2d_s1
+
+    def spy(x, w, *args):
+        seen.append(w)
+        return real(x, w, *args)
+
+    monkeypatch.setattr(tdeploy, "binary_conv2d_s1", spy)
+    td(torch.randn(1, 8, 5, 5))
+    (w,) = seen
+    assert w.shape == (3, 3, 8, 16) and not w.is_contiguous()
+    assert w.untyped_storage().data_ptr() == td.w_packed.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("plan,match", [
+    ((64, "vector", 1), "CUDA"),      # a valid plan, but CPU tensors
+    (None, "CUDA"),
+    ((48, "vector", 1), "no launch plan"),
+    ((64, "vector", 3), "no launch plan"),
+    ((64, "tma", 1), "no launch plan"),
+    ((64, "vector", 4), "no launch plan"),  # four f32 64x64 rings: 259 KB
+])
+def test_binary_conv2d_s1_planned_launches_only_on_the_card(plan, match):
+    x, w = torch.zeros(1, 4, 4, 64), torch.ones(3, 3, 64, 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match=match):
+        binary_conv2d_s1_planned(x, w, plan=plan)
+
+
+@pytest.mark.parametrize("bad", ["vector_c6", "offset", "shape"])
+def test_binary_conv2d_s1_planned_refuses_what_does_not_fit(bad):
+    x, w = torch.zeros(1, 4, 4, 6), torch.ones(3, 3, 6, 8, dtype=torch.int8)
+    plan = (32, "vector", 1)
+    if bad == "offset":
+        x = torch.zeros(1 + 4 * 4 * 64)[1:].view(1, 4, 4, 64)
+        w = torch.ones(3, 3, 64, 8, dtype=torch.int8)
+    elif bad == "shape":
+        w, plan = torch.ones(3, 3, 5, 8, dtype=torch.int8), (32, "scalar", 1)
+    with pytest.raises(ValueError, match="no launch plan|odd square"):
+        binary_conv2d_s1_planned(x, w, plan=plan)
+
+
+def test_conv_splits_fit_the_card():
+    """Every instance the plan may pick fits one block's shared memory, but
+    the four-group f32 64x64 one, which the plan never picks."""
+    too_big = {(t, s, i) for t in CONV_TILES for s in CONV_SPLITS for i in (2, 4)
+               if conv_smem_bytes(t, s, i, 3) > SMEM_PER_BLOCK}
+    assert too_big == {(64, 4, 4)}
 
 
 def test_pallas_conv_sign_of_zero_is_plus_one():
