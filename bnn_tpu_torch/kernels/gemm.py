@@ -23,7 +23,12 @@ the pointers allow them, else element by element).
 AND packed weights, ``(K - 2 * sum popcount(xp ^ wp)) * scale + add``: the
 kernel ``bnn_tpu_torch/csrc/popcount_gemm.cu`` for CUDA tensors, the plain
 version :func:`popcount_gemm_reference` for CPU tensors. The pad bits past K
-are 0 in both operands and cancel.
+are 0 in both operands and cancel. The kernel runs 1-bit tensor-core
+products (``mma.sync`` m16n8k256 ``.and.popc``, the mismatches as
+``popc(x & ~w) + popc(~x & w)``) on the packed words; it is bound by its f32
+output. :func:`popcount_plan` is its host plan: the output tile (the
+half-wave rule of :func:`gemm_plan`), the loader and the K split over warp
+groups of a block.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from ._build import load
 from .packing import packed_words, unpack_bits
 
 __all__ = ["binary_gemm", "binary_gemm_planned", "binary_gemm_reference",
-           "gemm_plan", "popcount_gemm", "popcount_gemm_reference"]
+           "gemm_plan", "popcount_gemm", "popcount_gemm_planned",
+           "popcount_gemm_reference", "popcount_plan"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 # output rows and columns per block of binary_gemm.cu's instances, largest first
@@ -189,13 +195,80 @@ def binary_gemm_reference(x: torch.Tensor, w_packed: torch.Tensor, k: int,
     return out
 
 
+# popcount_gemm.cu's instances: output tile sides (largest first) and warp
+# groups sharing K (most first); its words per chunk of K; the fewest chunks
+# a warp group of a split is left to walk
+POPCOUNT_TILES = (64, 32)
+POPCOUNT_SPLITS = (4, 2, 1)
+POPCOUNT_KWC = 8
+POPCOUNT_MIN_CHUNKS = 2
+
+
+def popcount_plan(m: int, kw: int, n: int, x_ptr: int, w_ptr: int,
+                  sms: int = H100_SMS) -> Tuple[int, str, int]:
+    """``(tile, loader, split)`` of a :func:`popcount_gemm` launch on
+    ``(m, kw)`` activation words and ``(kw, n)`` weight words.
+
+    ``tile``: the largest of :data:`POPCOUNT_TILES` whose grid has at least
+    half a wave (``sms / 2`` blocks), else the smallest, as
+    :func:`gemm_plan`. ``loader``: ``"vector"`` (8-byte copies of x word
+    pairs, 16-byte copies of four weight columns, 16-byte output rows) when
+    ``kw`` is even, ``n`` a multiple of 4 and the pointers aligned to 8 and
+    16 bytes, else ``"scalar"``. ``split``: on the 32x32 tile only, the most
+    warp groups of :data:`POPCOUNT_SPLITS` that leave each at least
+    :data:`POPCOUNT_MIN_CHUNKS` chunks of :data:`POPCOUNT_KWC` words and put
+    at most four warp groups per SM; else 1. On the H100 the split ran
+    faster at most such shapes of a ResNet-50's pointwise convs and slower
+    at every 64x64 one (``PERF.md``; ``chip_smoke.py`` phase 4 times every
+    split beside the plan's).
+    """
+    def blocks(t):
+        return -(-m // t) * -(-n // t)
+
+    tile = next((t for t in POPCOUNT_TILES if 2 * blocks(t) >= sms),
+                POPCOUNT_TILES[-1])
+    chunks = -(-kw // POPCOUNT_KWC)
+    split = next(s for s in POPCOUNT_SPLITS
+                 if s == 1 or (tile == POPCOUNT_TILES[-1]
+                               and chunks >= POPCOUNT_MIN_CHUNKS * s
+                               and blocks(tile) * s <= 4 * sms))
+    return tile, "vector" if _popcount_vector_ok(kw, n, x_ptr, w_ptr) else "scalar", split
+
+
+def _popcount_vector_ok(kw: int, n: int, x_ptr: int, w_ptr: int) -> bool:
+    """Whether every x word pair and every quad of weight columns can be
+    copied whole: ``kw`` even, ``n`` a multiple of 4, x on 8 bytes and the
+    weights on 16."""
+    return kw % 2 == 0 and n % 4 == 0 and x_ptr % 8 == 0 and w_ptr % 16 == 0
+
+
 @functools.lru_cache(maxsize=None)
 def _popcount_kernel():
     """The C entry point of ``csrc/popcount_gemm.cu``, built at first use."""
     fn = load("popcount_gemm").bnn_popcount_gemm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     return fn
+
+
+def _popcount_check_shapes(x_packed, w_packed, k, scale, add):
+    """``(M, N)`` of a popcount product, or a ValueError naming what
+    disagrees."""
+    if x_packed.ndim != 2 or w_packed.ndim != 2:
+        raise ValueError(f"expected 2-D x_packed and w_packed, got "
+                         f"{tuple(x_packed.shape)} and {tuple(w_packed.shape)}")
+    m, kw_in = x_packed.shape
+    kw, n = w_packed.shape
+    if kw != packed_words(k) or kw_in != kw:
+        raise ValueError(f"shape mismatch: x_packed {tuple(x_packed.shape)}, "
+                         f"w_packed {tuple(w_packed.shape)}, k={k} needs "
+                         f"{packed_words(k)} words")
+    for v in (scale, add):
+        if v is not None and tuple(v.shape) != (n,):
+            raise ValueError(f"epilogue operands must have shape ({n},), got "
+                             f"{tuple(v.shape)}")
+    return m, n
 
 
 def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
@@ -212,21 +285,33 @@ def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
     Returns:
         ``(M, N)`` f32.
     """
-    if x_packed.ndim != 2 or w_packed.ndim != 2:
-        raise ValueError(f"expected 2-D x_packed and w_packed, got "
-                         f"{tuple(x_packed.shape)} and {tuple(w_packed.shape)}")
-    m, kw_in = x_packed.shape
-    kw, n = w_packed.shape
-    if kw != packed_words(k) or kw_in != kw:
-        raise ValueError(f"shape mismatch: x_packed {tuple(x_packed.shape)}, "
-                         f"w_packed {tuple(w_packed.shape)}, k={k} needs "
-                         f"{packed_words(k)} words")
-    for v in (scale, add):
-        if v is not None and tuple(v.shape) != (n,):
-            raise ValueError(f"epilogue operands must have shape ({n},), got "
-                             f"{tuple(v.shape)}")
     if x_packed.device.type == "cpu":
+        _popcount_check_shapes(x_packed, w_packed, k, scale, add)
         return popcount_gemm_reference(x_packed, w_packed, k, scale, add)
+    return popcount_gemm_planned(x_packed, w_packed, k, scale, add)
+
+
+def popcount_gemm_planned(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                          k: int, scale: Optional[torch.Tensor] = None,
+                          add: Optional[torch.Tensor] = None, *,
+                          plan: Optional[Tuple[int, str, int]] = None
+                          ) -> torch.Tensor:
+    """:func:`popcount_gemm`'s kernel on CUDA tensors, launched with ``plan``
+    (``(tile, loader, split)``) in place of :func:`popcount_plan`'s, so that
+    each instance can be held against the plain version. A plan is refused
+    where it names no instance or the vector loader cannot take the
+    operands."""
+    m, n = _popcount_check_shapes(x_packed, w_packed, k, scale, add)
+    kw = w_packed.shape[0]
+    if plan is not None:
+        tile, loader, split = plan
+        if (tile not in POPCOUNT_TILES or split not in POPCOUNT_SPLITS
+                or loader not in ("vector", "scalar")
+                or (loader == "vector" and not _popcount_vector_ok(
+                    kw, n, x_packed.data_ptr(), w_packed.data_ptr()))):
+            raise ValueError(f"popcount_gemm has no launch plan {plan!r} for "
+                             f"x_packed {tuple(x_packed.shape)} and w_packed "
+                             f"{tuple(w_packed.shape)}")
     if x_packed.device.type != "cuda" or w_packed.device != x_packed.device:
         raise ValueError(f"popcount_gemm needs x_packed and w_packed on one "
                          f"CUDA device, got {x_packed.device} and "
@@ -236,6 +321,9 @@ def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
                         f"{x_packed.dtype} and {w_packed.dtype}")
     if not (x_packed.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("popcount_gemm needs contiguous x_packed and w_packed")
+    tile, loader, split = plan or popcount_plan(
+        m, kw, n, x_packed.data_ptr(), w_packed.data_ptr(),
+        _sm_count(x_packed.device))
     scale = _epilogue_operand(scale, n, 1.0, x_packed.device)
     add = _epilogue_operand(add, n, 0.0, x_packed.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x_packed.device)
@@ -243,7 +331,8 @@ def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
         return out
     err = _popcount_kernel()(
         x_packed.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
-        add.data_ptr(), out.data_ptr(), m, kw, n, k,
+        add.data_ptr(), out.data_ptr(), m, kw, n, k, tile,
+        int(loader == "vector"), split,
         torch.cuda.current_stream(x_packed.device).cuda_stream)
     if err:
         raise RuntimeError(f"popcount_gemm kernel launch failed: CUDA error {err}")

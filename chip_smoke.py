@@ -7,7 +7,9 @@
 Phases, each reported on its own lines:
 
 1. device and build: the card's name and power limit, then every CUDA
-   kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel);
+   kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel),
+   and the tensor-core, dot-product and popcount instructions in the SASS
+   of the three GEMM-shaped kernels;
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
    points take; ``binary_gemm`` bit for bit at each of its tile and loader
@@ -15,6 +17,10 @@ Phases, each reported on its own lines:
    ``binary_conv2d_s1`` bit for bit at each of its tile, loader and K-split
    instances, at path B's shapes and at edges (N = 1, k = 1, 5 and 7, odd H
    and W, C and O off every multiple, x off 16 bytes, exact zeros);
+   ``popcount_gemm`` bit for bit through its host plan and at each of its
+   tile, loader and K-split instances, at path C's shapes (batch 8 and 1)
+   and at edges (K = 1, K = 33 and 100, KW odd, N off 4, x off 8 and 16
+   bytes); each kernel refuses a plan its operands cannot take;
 3. the serving paths, with every kernel's launch count set to 0 just
    before each and read just after: the flagship binary ResNet-18 (1000
    classes, weights and BN statistics random from a seed) through
@@ -42,7 +48,8 @@ Phases, each reported on its own lines:
    table per distinct shape of ResNet-50's batch 1 and 8 calls and
    ResNet-18's batch 8 call, with the host's tile; for ``binary_conv2d_s1``,
    one per distinct shape of path B's calls, the host's plan beside the
-   other tiles and splits); the forward latency,
+   other tiles and splits; for ``popcount_gemm``, the same per distinct
+   shape of path C's calls at batch 8 and at batch 1); the forward latency,
    images/s, device busy share and the kernels that take the time, of each
    path;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
@@ -106,8 +113,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def sass_counts(lib) -> str:
-    """Tensor-core (IMMA) and dot-product (IDP4A) instructions in a built
-    library's SASS, from ``cuobjdump -sass``."""
+    """Int8 (IMMA) and 1-bit (BMMA) tensor-core, dot-product (IDP4A) and
+    popcount (POPC) instructions in a built library's SASS, from
+    ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -120,8 +128,9 @@ def sass_counts(lib) -> str:
         words = words[1:] if words and words[0].startswith("@") else words
         if words:
             ops.append(words[0])
-    return (f"{sum(o.startswith('IMMA') for o in ops)} IMMA, "
-            f"{sum(o.startswith('IDP4A') for o in ops)} IDP4A instructions in its SASS")
+    counts = ", ".join(f"{sum(o.startswith(name) for o in ops)} {name}"
+                       for name in ("IMMA", "BMMA", "IDP4A", "POPC"))
+    return f"{counts} instructions in its SASS"
 
 
 # device_profile's key when every trace came back without device events
@@ -759,22 +768,77 @@ def r50_pointwise(batch: int, size: int = SIZE):
     return shapes
 
 
+# popcount_gemm's phase-2 cases beyond path C's shapes: (M, K, N, x offset
+# in words: 1 is off 8 and 16 bytes, 2 off 16 bytes only)
+POPCOUNT_EDGES = [
+    (5, 33, 7, 0), (17, 100, 33, 0),
+    (37, 1, 64, 0),       # K = 1: one word, 31 pad bits
+    (100, 256, 70, 0),    # N % 4 != 0
+    (70, 96, 64, 0),      # KW = 3, odd
+    (33, 2048, 36, 0),    # long K on a one-block grid
+    (64, 512, 128, 1),    # x = buf[1:]
+    (64, 512, 128, 2),    # x = buf[2:]: 8-byte copies still fit
+]
+
+
+def popcount_instances(gemm, xp, wp):
+    """Every (tile, loader, split) that ``gemm.popcount_gemm_planned`` takes
+    for xp and wp."""
+    vector = gemm._popcount_vector_ok(xp.shape[1], wp.shape[1], xp.data_ptr(),
+                                      wp.data_ptr())
+    return [(tile, loader, split) for tile in gemm.POPCOUNT_TILES
+            for loader in (("vector", "scalar") if vector else ("scalar",))
+            for split in gemm.POPCOUNT_SPLITS]
+
+
+def check_popcount_case(kernels, m, k, n, offset, gen, dev) -> float:
+    """popcount_gemm on random inputs of the shape (10% exact zeros in x,
+    which pack as +1), through the host plan and through every instance,
+    against its plain version: bit-identical. ``offset`` starts the x words
+    that many words into their buffer."""
+    gemm = kernels.gemm
+    x = torch.randn((m, k), generator=gen)
+    x[torch.rand((m, k), generator=gen) < 0.1] = 0.0
+    xp = kernels.pack_bits(x.to(dev), axis=-1)
+    if offset:
+        buf = torch.zeros(xp.numel() + offset, dtype=torch.int32, device=dev)
+        buf[offset:] = xp.flatten()
+        xp = buf[offset:].view(xp.shape)
+    wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
+    scale = (torch.rand(n, generator=gen) + 0.5).to(dev)
+    add = torch.randn(n, generator=gen).to(dev)
+    ref = kernels.popcount_gemm_reference(xp, wp, k, scale, add)
+    label = (f"popcount_gemm M={m} K={k} N={n}"
+             f"{f' x off {4 * offset} bytes' if offset else ''}")
+    err = check_exact(label + " (host plan)", kernels.popcount_gemm(
+        xp, wp, k, scale, add), ref, False, verbose=False)
+    instances = popcount_instances(gemm, xp, wp)
+    for plan in instances:
+        err = max(err, check_exact(f"{label} {plan}", gemm.popcount_gemm_planned(
+            xp, wp, k, scale, add, plan=plan), ref, False, verbose=False))
+    auto = gemm.popcount_plan(m, xp.shape[1], n, xp.data_ptr(), wp.data_ptr(),
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"phase 2: {label}: the host plan {auto} and all {len(instances)} "
+          f"instances that take it bit-identical (max |err| {err})")
+    return err
+
+
 def check_popcounts(kernels, gen, dev) -> float:
     """popcount_gemm against its plain version on the card, bit-identical,
-    at path C's shapes (batch 8 and 1) and two ragged ones."""
-    err = 0.0
+    at every instance: path C's shapes (batch 8 and 1), then the edges; a
+    plan the operands cannot take is refused."""
     shapes = sorted(set(r50_pointwise(8)) | set(r50_pointwise(1)))
-    for m, k, n in shapes + [(5, 33, 7), (17, 100, 33)]:
-        x = torch.randn((m, k), generator=gen)
-        x[torch.rand((m, k), generator=gen) < 0.1] = 0.0
-        xp = kernels.pack_bits(x.to(dev), axis=-1)
-        wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
-        scale = (torch.rand(n, generator=gen) + 0.5).to(dev)
-        add = torch.randn(n, generator=gen).to(dev)
-        got = kernels.popcount_gemm(xp, wp, k, scale, add)
-        ref = kernels.popcount_gemm_reference(xp, wp, k, scale, add)
-        err = max(err, check_exact(f"popcount_gemm M={m} K={k} N={n}", got, ref,
-                                   False))
+    err = max(check_popcount_case(kernels, *case, gen, dev)
+              for case in [(m, k, n, 0) for m, k, n in shapes] + POPCOUNT_EDGES)
+    xp = torch.zeros((8, 3), dtype=torch.int32, device=dev)  # K = 70: 3 words
+    wp = torch.zeros((3, 64), dtype=torch.int32, device=dev)
+    for plan in ((64, "vector", 1), (48, "scalar", 1), (32, "scalar", 3)):
+        try:
+            kernels.gemm.popcount_gemm_planned(xp, wp, 70, plan=plan)
+        except ValueError:
+            print(f"phase 2: popcount_gemm refuses {plan} for 3 words a row")
+        else:
+            raise AssertionError(f"popcount_gemm launched {plan} for 3 words a row")
     return err
 
 
@@ -948,7 +1012,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1: {log.name.split('-')[0]}: {line.strip()}")
-    for name in ("binary_gemm", "binary_conv2d_s1"):
+    for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm"):
         print(f"phase 1: lib{name}: {sass_counts(_build._target(name))}")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1446,36 +1510,64 @@ def main() -> int:
     conv_t = print_rows("binary_conv2d_s1 (path B, batch 8)",
                         list(conv_rows.values()), card, "F.conv2d bf16")
 
-    pop_rows, errs = {}, []
-    pop_calls = capture_calls(deploy, "popcount_gemm",
-                              lambda: pred_c[BATCH](images[:BATCH]))
-    for a, k in pop_calls:
-        xp, wp, kk = a[0], a[1], a[2]
-        m, n = xp.shape[0], wp.shape[1]
-        label = f"popcount_gemm M={m} K={kk} N={n}"
-        errs.append(check_exact(
-            "path C " + label, kernels.popcount_gemm(*a, **k),
-            kernels.popcount_gemm_reference(*a, **k), False, phase=4,
-            verbose=False))
-        key = (m, kk, n)
-        if key in pop_rows:
-            pop_rows[key][1] += 1
-            continue
-        a8 = kernels.unpack_bits(xp, kk, axis=-1, dtype=torch.int8)[:, :kk].contiguous()
-        w8 = kernels.unpack_bits(wp, kk, axis=-2, dtype=torch.int8)[:kk].t().contiguous()
-        t = timed_row({
-            "kernel": lambda a=a, k=k: kernels.popcount_gemm(*a, **k),
-            "plain": lambda a=a, k=k: kernels.popcount_gemm_reference(*a, **k),
-            "library": lambda a8=a8, w8=w8: torch._int_mm(a8, w8.t())})
-        params = [v for v in a[3:] if isinstance(v, torch.Tensor)]
-        pop_rows[key] = [label, 1, t, bound_ms(
-            nbytes(xp, wp, *params) + m * n * 4, 2 * m * kk * n, torch.int8)]
-    pop_err = max([pop_err] + errs)
-    print(f"phase 4: path C batch {BATCH}: {len(pop_calls)} popcount_gemm calls "
-          f"held against the plain version on their own inputs: bit-identical "
-          f"(max |err| {max(errs):.3g})")
-    pop_t = print_rows("popcount_gemm (path C, batch 8)", list(pop_rows.values()),
-                       card, "torch._int_mm")
+    def popcount_table(b):
+        """Every popcount_gemm call of a path-C forward at batch ``b`` held
+        against its plain version on its own inputs, then timed per
+        distinct shape: the kernel alone beside the other tiles and splits
+        of its loader, the whole call (the wrapper casts bf16 epilogue rows
+        to f32), the plain version and torch._int_mm on the +/-1 product."""
+        rows, errs = {}, []
+        calls = capture_calls(deploy, "popcount_gemm",
+                              lambda: pred_c[b](images[:b]))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for a, k in calls:
+            xp, wp, kk = a[0], a[1], a[2]
+            m, n = xp.shape[0], wp.shape[1]
+            label = f"popcount_gemm M={m} K={kk} N={n}"
+            fn = lambda a=a, k=k: kernels.popcount_gemm(*a, **k)
+            errs.append(check_exact(f"path C batch {b} {label}", fn(),
+                                    kernels.popcount_gemm_reference(*a, **k), False,
+                                    phase=4, verbose=False))
+            key = (m, kk, n)
+            if key in rows:
+                rows[key][1] += 1
+                continue
+            a8 = kernels.unpack_bits(xp, kk, axis=-1, dtype=torch.int8)[:, :kk].contiguous()
+            w8 = kernels.unpack_bits(wp, kk, axis=-2, dtype=torch.int8)[:kk].t().contiguous()
+            t = timed_row({
+                "plain": lambda a=a, k=k: kernels.popcount_gemm_reference(*a, **k),
+                "library": lambda a8=a8, w8=w8: torch._int_mm(a8, w8.t())})
+            own, rest = own_ms(fn, "popcount_gemm_kernel")
+            t["kernel"] = (own, cuda_ms(fn))
+            plan = kernels.gemm.popcount_plan(m, xp.shape[1], n, xp.data_ptr(),
+                                              wp.data_ptr(), sms)
+            want, alts = fn(), []
+            for alt in popcount_instances(kernels.gemm, xp, wp):
+                if alt[1] != plan[1] or alt == plan:
+                    continue
+                run_alt = lambda a=a, k=k, alt=alt: kernels.gemm.popcount_gemm_planned(
+                    *a, plan=alt, **k)
+                errs.append(check_exact(f"path C batch {b} {label} {alt}", run_alt(),
+                                        want, False, phase=4, verbose=False))
+                alts.append(f"{alt[0]}x{alt[0]} split {alt[2]} "
+                            f"{own_ms(run_alt, 'popcount_gemm_kernel')[0] * 1e3:.2f} us")
+            blocks = -(-m // plan[0]) * -(-n // plan[0])
+            params = [v for v in a[3:] if isinstance(v, torch.Tensor)]
+            rows[key] = [
+                f"{label} (host plan: {plan[0]}x{plan[0]}, {blocks} blocks, "
+                f"{plan[1]} loader, split {plan[2]}; {'; '.join(alts)}; the "
+                f"wrapper's casts {rest * 1e3:.2f} us)",
+                1, t, bound_ms(nbytes(xp, wp, *params) + m * n * 4, 2 * m * kk * n,
+                               torch.int8)]
+        print(f"phase 4: path C batch {b}: {len(calls)} popcount_gemm calls held "
+              f"against the plain version on their own inputs: bit-identical "
+              f"(max |err| {max(errs):.3g})")
+        return max(errs), print_rows(f"popcount_gemm (path C, batch {b})",
+                                     list(rows.values()), card, "torch._int_mm")
+
+    err8, pop_t = popcount_table(BATCH)
+    err1, _ = popcount_table(1)
+    pop_err = max(pop_err, err8, err1)
 
     def summed(kname):
         rows = block_t[kname]

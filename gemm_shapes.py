@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``) at the
-serving paths' shapes, for the checkout it is run from.
+"""Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``, or with
+``--popcount``, ``popcount_gemm``) at the serving paths' shapes, for the
+checkout it is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
 this script times any checkout whose kernels have the public signatures:
@@ -22,8 +23,14 @@ as the (k, k, C, O) view of an (O, C, k, k) tensor (as
 result held bit for bit against ``binary_conv2d_s1_reference``; the kernel's
 own device time, the device time of the whole call (the wrapper's weight
 copy included), the plan where the checkout has ``conv_plan``, and
-``F.conv2d`` in bf16 on the same +/-1 values. Prints the card line, one JSON
-line per shape, then one per path with the sums over a forward's calls.
+``F.conv2d`` in bf16 on the same +/-1 values. With ``--popcount``, for each
+(M, K, N) of path C's 36 calls (a Z1-PReLU ResNet-50's pointwise convs,
+``chip_smoke.r50_pointwise``) at batch 8 and 1: activation words packed from
+random x with 10% exact zeros, random weight words, f32 epilogue rows; the
+result held bit for bit against ``popcount_gemm_reference``; the kernel's
+own device time, the plan where the checkout has ``popcount_plan``, and
+``torch._int_mm`` on the same +/-1 int8 product. Prints the card line, one
+JSON line per shape, then one per path with the sums over a forward's calls.
 Exits 1 without CUDA.
 """
 from __future__ import annotations
@@ -81,8 +88,11 @@ def device_us(fn, name: str = "", iters: int = 20) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
-    parser.add_argument("--conv", action="store_true",
-                        help="time binary_conv2d_s1 at path B's shapes instead")
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--conv", action="store_true",
+                       help="time binary_conv2d_s1 at path B's shapes instead")
+    which.add_argument("--popcount", action="store_true",
+                       help="time popcount_gemm at path C's shapes instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -99,6 +109,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if args.conv:
         return time_convs(args.label, kernels, gen, dev, sms)
+    if args.popcount:
+        return time_popcounts(args.label, kernels, gen, dev, sms)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -163,6 +175,46 @@ def time_convs(label, kernels, gen, dev, sms) -> int:
             tot[key] += calls * row[key]
     print(json.dumps({"label": label, "path": "path B batch 8",
                       "calls": sum(r[2] for r in CONVS), **tot}))
+    return 0
+
+
+def time_popcounts(label, kernels, gen, dev, sms) -> int:
+    """popcount_gemm at path C's (M, K, N) rows at batch 8 and 1, beside
+    torch._int_mm on the +/-1 product."""
+    from collections import Counter
+
+    from bnn_tpu_torch.kernels import gemm
+    from chip_smoke import r50_pointwise
+
+    for batch in (8, 1):
+        tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
+        shapes = sorted(Counter(r50_pointwise(batch)).items())
+        for (m, k, n), calls in shapes:
+            x = torch.randn((m, k), generator=gen)
+            x[torch.rand((m, k), generator=gen) < 0.1] = 0.0
+            xp = kernels.pack_bits(x.to(dev), axis=-1)
+            wp = kernels.pack_bits(torch.randn((k, n), generator=gen).to(dev), axis=-2)
+            scale = (torch.rand(n, generator=gen) + 0.5).to(dev)
+            add = torch.randn(n, generator=gen).to(dev)
+            run = lambda: kernels.popcount_gemm(xp, wp, k, scale, add)
+            exact = bool(torch.equal(run(), kernels.popcount_gemm_reference(
+                xp, wp, k, scale, add)))
+            x8 = kernels.unpack_bits(xp, k, axis=-1, dtype=torch.int8)[:, :k].contiguous()
+            w8 = kernels.unpack_bits(wp, k, axis=-2, dtype=torch.int8)[:k].t().contiguous()
+            plan = (gemm.popcount_plan(m, xp.shape[1], n, xp.data_ptr(), wp.data_ptr(),
+                                       sms) if hasattr(gemm, "popcount_plan") else None)
+            row = {"label": label, "path": f"path C batch {batch}", "m": m, "k": k,
+                   "n": n, "calls": calls, "plan": plan, "exact": exact,
+                   "kernel_us": device_us(run, "popcount_gemm_kernel"),
+                   "int_mm_us": device_us(lambda: torch._int_mm(x8, w8.t()))}
+            print(json.dumps(row))
+            if not exact:
+                raise AssertionError(f"popcount_gemm M={m} K={k} N={n} differs from "
+                                     "its plain version")
+            tot["kernel_us"] += calls * row["kernel_us"]
+            tot["int_mm_us"] += calls * row["int_mm_us"]
+        print(json.dumps({"label": label, "path": f"path C batch {batch}",
+                          "calls": sum(c for _, c in shapes), **tot}))
     return 0
 
 
