@@ -1,6 +1,6 @@
 // Device code shared by the residual-block megakernels (fused_basic_block,
-// fused_downsample_block, fused_chain, fused_bottleneck), hand-written for
-// Hopper (sm_90a).
+// fused_downsample_block, fused_chain, fused_stem_chain, fused_bottleneck),
+// hand-written for Hopper (sm_90a).
 //
 // A binary BasicBlock runs as phases of one cooperative launch, separated
 // by grid-wide barriers:
@@ -16,11 +16,19 @@
 // pixels x TN channels and a slice of K, gathered in chunks of 64 int8 values
 // from the signed map (zero outside the image: the conv's zero padding is
 // added after the sign, so padded taps contribute exactly 0) and summed
-// exactly in int32 with __dp4a; the partial sums meet in an int32 buffer by
-// atomic adds, which are exact in any order. Slicing K gives a batch-1 layer
-// (49 output pixels at 7x7) enough items for every SM. The epilogues are
-// elementwise passes over that buffer. Products of ternary values need int8:
-// a 1-bit XNOR form cannot hold the zeros of the torch-parity sign.
+// exactly in int32; the partial sums meet in an int32 buffer by atomic adds,
+// which are exact in any order (a GEMM whose K is one slice stores them).
+// Slicing K gives a batch-1 layer (49 output pixels at 7x7) enough items for
+// every SM. The epilogues are elementwise passes over that buffer. Products
+// of ternary values need int8: a 1-bit XNOR form cannot hold the zeros of
+// the torch-parity sign.
+//
+// Two tiles run a work item, picked by run_block's Tile parameter:
+// Dp4aTile, the first form (__dp4a on CUDA cores, word-by-word gathers,
+// weights read in the JAX (K, N) layout and transposed in registers), and
+// MmaTile, the int8 tensor-core form (mma.sync m16n8k32 over a cp.async ring,
+// 16-byte copies of A rows and of a K-major (N, K) weight copy). fused_chain
+// runs MmaTile; the other block kernels still run Dp4aTile.
 //
 // Numerics are those of the plain PyTorch versions bit for bit: the sums are
 // exact, every f32 multiply and add is rounded on its own (__fmul_rn,
@@ -33,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_s8.cuh"
 
 namespace bnn {
 
@@ -87,16 +97,22 @@ __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
 
 // One block of a chain. Weights are int8 in the JAX kernels' layouts: basic
 // w1/w2 (9C, C) tap-major; down w1 (16Ci, Co) in _transform_w1's s2d order,
-// w2 (9Co, Co), wd (Ci, Co). A row of length 0 takes its default value, of
-// length 1 is broadcast.
+// w2 (9Co, Co), wd (Ci, Co). wt holds the K-major copies (Co, K) of conv1,
+// conv2 and the shortcut that MmaTile reads (a down block's conv1 as its
+// 9*Ci taps in (dy, dx, c) order), or nulls for a kernel on Dp4aTile. A row
+// of length 0 takes its default value, of length 1 is broadcast.
 struct Block {
   int down, ci, co;
   const int8_t* w1;
   const int8_t* w2;
   const int8_t* wd;
+  const int8_t* wt[3];
   const void* ptr[NROWS];
   int len[NROWS];
 };
+// a block's pointers and ints in the flat host arrays (see setup())
+constexpr int BLOCK_PTRS = 6 + NROWS;
+constexpr int BLOCK_INTS = 3 + NROWS;
 
 struct ChainParams {
   int nblocks, n, h, w;
@@ -128,7 +144,9 @@ __device__ __forceinline__ float row(const ChainParams& p, const Block& b,
 
 // --- K-word gathers: four consecutive K values of an output pixel -------
 // pixel(m) resolves output pixel m once per tile (out of range: a pixel
-// whose every load is 0); load(pixel, kw) reads K word kw.
+// whose every load is 0); load(pixel, kw) reads K word kw (Dp4aTile);
+// src(pixel, k) is the address of K value k, from which the C - k % C values
+// of its tap are consecutive, or null where the tap is padding (MmaTile).
 
 // 3x3 / stride 1 / pad 1 over an (N, H, W, C) map; K order (dy, dx, c)
 struct Conv3x3 {
@@ -148,6 +166,12 @@ struct Conv3x3 {
     const int yy = p.y + tap / 3 - 1, xx = p.x + tap % 3 - 1;
     if (yy < 0 || yy >= H || xx < 0 || xx >= W) return 0;
     return *reinterpret_cast<const int*>(p.img + (yy * W + xx) * C + c);
+  }
+  __device__ __forceinline__ const int8_t* src(const Pix& p, int k) const {
+    const int tap = k / C, c = k - tap * C, dy = tap / 3;
+    const int yy = p.y + dy - 1, xx = p.x + tap - 3 * dy - 1;
+    if (yy < 0 || yy >= H || xx < 0 || xx >= W) return nullptr;
+    return p.img + (yy * W + xx) * C + c;
   }
 };
 
@@ -178,6 +202,31 @@ struct Conv3x3S2 {
   }
 };
 
+// 3x3 / stride 2 / pad 1 over an (N, H, W, C) map with even H, W, K order
+// (dy, dx, c): output pixel (i, j) reads input (2i - 1 + dy, 2j - 1 + dx).
+// MmaTile's form of a down block's conv1: 9*C taps, where the s2d form above
+// has 16*C, 7*C of them against zero weights.
+struct Conv3x3S2Taps {
+  const int8_t* s;
+  int H, W, C;
+  struct Pix {
+    const int8_t* img;
+    int y0, x0;  // 2i - 1, 2j - 1
+  };
+  __device__ __forceinline__ Pix pixel(int m, int M) const {
+    const int ow = W / 2, hw = (H / 2) * ow, n = m / hw, r = m - n * hw;
+    const int i = r / ow;
+    if (m >= M) return {s, -1 << 20, -1 << 20};
+    return {s + static_cast<size_t>(n) * H * W * C, 2 * i - 1, 2 * (r - i * ow) - 1};
+  }
+  __device__ __forceinline__ const int8_t* src(const Pix& p, int k) const {
+    const int tap = k / C, c = k - tap * C, dy = tap / 3;
+    const int yy = p.y0 + dy, xx = p.x0 + tap - 3 * dy;
+    if (yy < 0 || yy >= H || xx < 0 || xx >= W) return nullptr;
+    return p.img + (yy * W + xx) * C + c;
+  }
+};
+
 // 1x1 over an (M, C) map
 struct Pointwise {
   const int8_t* s;
@@ -190,6 +239,9 @@ struct Pointwise {
   }
   __device__ __forceinline__ int load(const Pix& p, int kw) const {
     return p.row ? *reinterpret_cast<const int*>(p.row + 4 * kw) : 0;
+  }
+  __device__ __forceinline__ const int8_t* src(const Pix& p, int k) const {
+    return p.row ? p.row + k : nullptr;
   }
 };
 
@@ -336,14 +388,236 @@ __device__ __forceinline__ void gemm_item(const Gather& gather, const int8_t* w,
             min(s.chunks, c0 + s.per_slice), sm, out);
 }
 
+// --- MmaTile: the int8 tensor-core tile --------------------------------
+// The work item is gemm_tile's: a TM x TN output tile and a slice of K.
+// A chunk of 64 K values lands in one stage of a cp.async ring: A as TM rows
+// of KCW words (four int8 each, row-major) and the weights as TN rows of KCW
+// words from the K-major copy, which is mma.sync's .col layout of B, so no
+// word is transposed. With C % 16 == 0 (every ResNet width from 64 up) a
+// 16-byte segment of a row lies inside one tap and is one 16-byte cp.async,
+// its tap and channel worked out once; otherwise each word is a 4-byte
+// cp.async. The weight rows go through L1 (.ca), where the blocks resident
+// on one SM find the rows that another has read; A rows bypass it (.cg). A
+// padded tap, a row past M or K past its end copies zeros. The four warps
+// split the tile as 2 (m16) x 2 (n32): per 32-deep step, lane (g, t) reads
+// a[g][t], a[g+8][t], a[g][t+4], a[g+8][t+4] of its m16 rows and w[n+g][t],
+// w[n+g][t+4] of four n8 blocks n, for four mma.sync m16n8k32.
+constexpr int MP = KCW + 4;  // row pitch in words: 80-byte rows, 16-byte
+                             // aligned; rows g = 0..7 start on banks 20g mod
+                             // 32, so the fragment reads are conflict-free
+constexpr int STAGES = 3;
+constexpr int SEGS = 4 * KCW / 16;  // 16-byte segments per row and chunk
+static_assert(TM * SEGS == THREADS && TN * SEGS % THREADS == 0, "tile shape");
+
+struct MmaStage {
+  int a[TM][MP];
+  int w[TN][MP];
+};
+
+struct MmaSmem {
+  MmaStage st[STAGES];
+};
+
+// BYTES (4 or 16) from global to shared memory through L1; src_bytes 0
+// writes zeros
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(BYTES), "r"(src_bytes));
+}
+
+// The A rows this thread copies, i < MMA_ROWS: segment tid % SEGS of row
+// tid / SEGS (VEC), or word tid % KCW of rows tid / KCW + i * THREADS / KCW
+template <bool VEC>
+constexpr int MMA_ROWS = VEC ? 1 : A_PER;
+
+template <bool VEC>
+__device__ __forceinline__ int mma_row(int i) {
+  return VEC ? threadIdx.x / SEGS + i * (THREADS / SEGS)
+             : threadIdx.x / KCW + i * (THREADS / KCW);
+}
+
+// Start the copies of chunk `chunk` into stage st (not committed)
+template <bool VEC, class Gather>
+__device__ __forceinline__ void mma_load(
+    const Gather& gather, const typename Gather::Pix (&px)[MMA_ROWS<VEC>],
+    const int8_t* __restrict__ wt, int K, int N, int n0, int chunk,
+    MmaStage& st) {
+  const int tid = threadIdx.x, k0 = chunk * 4 * KCW;
+  if constexpr (VEC) {
+    const int seg = tid % SEGS, k = k0 + 16 * seg;
+    const int8_t* a = k < K ? gather.src(px[0], k) : nullptr;
+    cp_async16(&st.a[mma_row<true>(0)][4 * seg], a ? a : wt, a ? 16 : 0);
+#pragma unroll
+    for (int i = 0; i < TN * SEGS / THREADS; ++i) {
+      const int r = mma_row<true>(i), n = n0 + r;
+      const bool ok = n < N && k < K;
+      cp_async_ca<16>(&st.w[r][4 * seg],
+                      ok ? wt + static_cast<size_t>(n) * K + k : wt, ok ? 16 : 0);
+    }
+  } else {
+    const int kw = tid % KCW, k = k0 + 4 * kw;
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int8_t* a = k < K ? gather.src(px[i], k) : nullptr;
+      cp_async_ca<4>(&st.a[mma_row<false>(i)][kw], a ? a : wt, a ? 4 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < TN * KCW / THREADS; ++i) {
+      const int r = mma_row<false>(i), n = n0 + r;
+      const bool ok = n < N && k < K;
+      cp_async_ca<4>(&st.w[r][kw], ok ? wt + static_cast<size_t>(n) * K + k : wt,
+                     ok ? 4 : 0);
+    }
+  }
+}
+
+// The products of one chunk: two 32-deep steps of this warp's m16 x n32
+__device__ __forceinline__ void mma_chunk(const MmaStage& st, int (&acc)[4][4]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int* a = &st.a[(warp & 1) * 16 + lane / 4][lane % 4];
+  const int* w = &st.w[(warp >> 1) * 32 + lane / 4][lane % 4];
+#pragma unroll
+  for (int q = 0; q < KCW; q += 8) {
+    const uint32_t fa[4] = {static_cast<uint32_t>(a[q]),
+                            static_cast<uint32_t>(a[8 * MP + q]),
+                            static_cast<uint32_t>(a[q + 4]),
+                            static_cast<uint32_t>(a[8 * MP + q + 4])};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mma_s8(acc[j], fa, static_cast<uint32_t>(w[8 * j * MP + q]),
+             static_cast<uint32_t>(w[8 * j * MP + q + 4]));
+    }
+  }
+}
+
+// gemm_tile's contract on the tensor cores, w given K-major as wt (N, K);
+// with `store` (K is one slice) the sums are stored, not added.
+template <bool VEC, class Gather>
+__device__ void mma_tile(const Gather& gather, const int8_t* __restrict__ wt,
+                         int M, int K, int N, int m0, int n0, int c0, int c1,
+                         bool store, MmaSmem& sm, int* __restrict__ out) {
+  typename Gather::Pix px[MMA_ROWS<VEC>];
+#pragma unroll
+  for (int i = 0; i < MMA_ROWS<VEC>; ++i) {
+    px[i] = gather.pixel(m0 + mma_row<VEC>(i), M);
+  }
+  int acc[4][4] = {};
+  __syncthreads();  // every warp is done with the ring's previous item
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (c0 + s < c1) mma_load<VEC>(gather, px, wt, K, N, n0, c0 + s, sm.st[s]);
+    cp_async_commit();
+  }
+  for (int c = c0, s = 0; c < c1; ++c, s = s + 1 == STAGES ? 0 : s + 1) {
+    cp_async_wait<STAGES - 2>();  // chunk c has landed for this thread ...
+    __syncthreads();              // ... and every thread; stage s - 1 is free
+    const int next = c + STAGES - 1;
+    if (next < c1) {
+      mma_load<VEC>(gather, px, wt, K, N, n0, next,
+                    sm.st[s == 0 ? STAGES - 1 : s - 1]);
+    }
+    cp_async_commit();
+    mma_chunk(sm.st[s], acc);
+  }
+  // lane (g, t) holds rows g and g + 8, columns 2t and 2t + 1 of each n8
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m = m0 + (warp & 1) * 16 + lane / 4;
+  const int n = n0 + (warp >> 1) * 32 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mm = m + 8 * h, nn = n + 8 * j;  // N % 4 == 0: nn + 1 < N too
+      if (mm >= M || nn >= N) continue;
+      int* o = out + static_cast<size_t>(mm) * N + nn;
+      const int v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
+      if (store) {
+        *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+      } else {
+        if (v0 != 0) atomicAdd(o, v0);
+        if (v1 != 0) atomicAdd(o + 1, v1);
+      }
+    }
+  }
+}
+
+// split() with half an item per resident block: slices only where the tiles
+// fill less than half the grid, so fewer K slices (and atomics) than split()
+__device__ __forceinline__ Split mma_split(int M, int K, int N) {
+  Split s;
+  s.nt = (N + TN - 1) / TN;
+  const int tiles = ((M + TM - 1) / TM) * s.nt;
+  s.chunks = (K / 4 + KCW - 1) / KCW;
+  const int want = max(1, min(s.chunks, (static_cast<int>(gridDim.x) + 2 * tiles - 1) /
+                                            (2 * tiles)));
+  s.per_slice = (s.chunks + want - 1) / want;
+  s.slices = (s.chunks + s.per_slice - 1) / s.per_slice;
+  s.items = tiles * s.slices;
+  return s;
+}
+
+// --- The two tiles of run_block ------------------------------------------
+// Each names its shared memory, the gather and K of a down block's conv1 and
+// the weights it reads (i = 0, 1, 2: conv1, conv2, the shortcut), splits a
+// GEMM into work items and runs one of them.
+struct Dp4aTile {
+  using Smem = bnn::Smem;
+  using Conv1S2 = Conv3x3S2;
+  static __device__ __forceinline__ Split split(int M, int K, int N) {
+    return bnn::split(M, K, N);
+  }
+  static __device__ __forceinline__ int k1(bool down, int ci) {
+    return (down ? 16 : 9) * ci;
+  }
+  static __device__ __forceinline__ const int8_t* w(const Block& b, int i) {
+    return i == 0 ? b.w1 : i == 1 ? b.w2 : b.wd;
+  }
+  template <class Gather>
+  static __device__ __forceinline__ void item(const Gather& gather,
+                                              const int8_t* w, int M, int K,
+                                              int N, const Split& s, int item,
+                                              Smem& sm, int* out) {
+    gemm_item(gather, w, M, K, N, s, item, sm, out);
+  }
+};
+
+struct MmaTile {
+  using Smem = MmaSmem;
+  using Conv1S2 = Conv3x3S2Taps;
+  static __device__ __forceinline__ Split split(int M, int K, int N) {
+    return mma_split(M, K, N);
+  }
+  static __device__ __forceinline__ int k1(bool, int ci) { return 9 * ci; }
+  static __device__ __forceinline__ const int8_t* w(const Block& b, int i) {
+    return b.wt[i];
+  }
+  template <class Gather>
+  static __device__ __forceinline__ void item(const Gather& gather,
+                                              const int8_t* wt, int M, int K,
+                                              int N, const Split& s, int item,
+                                              Smem& sm, int* out) {
+    const int tile = item / s.slices, slice = item % s.slices;
+    const int c0 = slice * s.per_slice, c1 = min(s.chunks, c0 + s.per_slice);
+    const int m0 = (tile / s.nt) * TM, n0 = (tile % s.nt) * TN;
+    if (gather.C % 16 == 0) {
+      mma_tile<true>(gather, wt, M, K, N, m0, n0, c0, c1, s.slices == 1, sm, out);
+    } else {
+      mma_tile<false>(gather, wt, M, K, N, m0, n0, c0, c1, s.slices == 1, sm, out);
+    }
+  }
+};
+
 // One residual block, as the phases at the top of this file, over an H x W
 // input; the convolutions accumulate into p.acc / p.accd (zeroed in P0), and
 // each epilogue is an elementwise pass. `in` and `out` must not overlap.
 // Ends after its last phase without a barrier.
-template <bool DOWN>
+template <class Tile, bool DOWN>
 __device__ void run_block(const ChainParams& p, const Block& b, int H, int W,
                           const void* in, int in_bf16, void* out, int out_bf16,
-                          Smem& sm, cg::grid_group& grid) {
+                          typename Tile::Smem& sm, cg::grid_group& grid) {
   const size_t gtid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const size_t nthr = static_cast<size_t>(gridDim.x) * blockDim.x;
   const int ci = b.ci, co = b.co;
@@ -380,13 +654,15 @@ __device__ void run_block(const ChainParams& p, const Block& b, int H, int W,
   grid.sync();
 
   // P1: conv1 into acc
-  const int k1 = (DOWN ? 16 : 9) * ci;
-  const Split s1 = split(M, k1, co);
+  const int k1 = Tile::k1(DOWN, ci);
+  const Split s1 = Tile::split(M, k1, co);
   for (int it = blockIdx.x; it < s1.items; it += gridDim.x) {
     if (DOWN) {
-      gemm_item(Conv3x3S2{p.xs, H, W, ci}, b.w1, M, k1, co, s1, it, sm, p.acc);
+      Tile::item(typename Tile::Conv1S2{p.xs, H, W, ci}, Tile::w(b, 0), M, k1,
+                 co, s1, it, sm, p.acc);
     } else {
-      gemm_item(Conv3x3{p.xs, H, W, ci}, b.w1, M, k1, co, s1, it, sm, p.acc);
+      Tile::item(Conv3x3{p.xs, H, W, ci}, Tile::w(b, 0), M, k1, co, s1, it, sm,
+                 p.acc);
     }
   }
   grid.sync();
@@ -401,14 +677,16 @@ __device__ void run_block(const ChainParams& p, const Block& b, int H, int W,
   grid.sync();
 
   // P2: conv2 into acc and the shortcut's 1x1 into accd
-  const Split s2 = split(M, 9 * co, co);
-  const Split sd = split(M, DOWN ? ci : 4, co);
+  const Split s2 = Tile::split(M, 9 * co, co);
+  const Split sd = Tile::split(M, DOWN ? ci : 4, co);
   const int items = s2.items + (DOWN ? sd.items : 0);
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     if (it < s2.items) {
-      gemm_item(Conv3x3{p.hs, OH, OW, co}, b.w2, M, 9 * co, co, s2, it, sm, p.acc);
+      Tile::item(Conv3x3{p.hs, OH, OW, co}, Tile::w(b, 1), M, 9 * co, co, s2, it,
+                 sm, p.acc);
     } else {
-      gemm_item(Pointwise{p.ds, ci}, b.wd, M, ci, co, sd, it - s2.items, sm, p.accd);
+      Tile::item(Pointwise{p.ds, ci}, Tile::w(b, 2), M, ci, co, sd,
+                 it - s2.items, sm, p.accd);
     }
   }
   grid.sync();
@@ -437,17 +715,17 @@ inline int grid_capacity(const void* kernel, int* cache) {
 }
 
 // Fill `p` from the two flat host arrays every wrapper passes. Per block,
-// 3 + NROWS pointers (w1, w2, wd, the rows) and 3 + NROWS ints (down, ci, co,
-// the row lengths); then the pointers x, out, act0, act1, xs, hs, ds, acc,
-// accd, wfc, bfc, pooled and the ints n, h, w, act1, act2, pre,
-// zero_to_one, x_bf16, out_bf16, prm_bf16, classes.
+// BLOCK_PTRS pointers (w1, w2, wd, the K-major wt[0..2], the rows) and
+// BLOCK_INTS ints (down, ci, co, the row lengths); then the pointers x, out,
+// act0, act1, xs, hs, ds, acc, accd, wfc, bfc, pooled and the ints n, h, w,
+// act1, act2, pre, zero_to_one, x_bf16, out_bf16, prm_bf16, classes.
 inline int setup(ChainParams& p, int nblocks, const void* const* ptrs,
                  const int* ints) {
   if (nblocks < 1 || nblocks > MAX_BLOCKS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.nblocks = nblocks;
-  for (int i = 0; i < nblocks; ++i, ptrs += 3 + NROWS, ints += 3 + NROWS) {
+  for (int i = 0; i < nblocks; ++i, ptrs += BLOCK_PTRS, ints += BLOCK_INTS) {
     Block& b = p.blk[i];
     b.down = ints[0];
     b.ci = ints[1];
@@ -458,8 +736,9 @@ inline int setup(ChainParams& p, int nblocks, const void* const* ptrs,
     b.w1 = static_cast<const int8_t*>(ptrs[0]);
     b.w2 = static_cast<const int8_t*>(ptrs[1]);
     b.wd = static_cast<const int8_t*>(ptrs[2]);
+    for (int j = 0; j < 3; ++j) b.wt[j] = static_cast<const int8_t*>(ptrs[3 + j]);
     for (int r = 0; r < NROWS; ++r) {
-      b.ptr[r] = ptrs[3 + r];
+      b.ptr[r] = ptrs[6 + r];
       b.len[r] = ints[3 + r];
     }
   }

@@ -25,8 +25,8 @@ __global__ void __launch_bounds__(bnn::THREADS)
 fused_basic_block_kernel(const __grid_constant__ bnn::ChainParams p) {
   __shared__ bnn::Smem sm;
   bnn::cg::grid_group grid = bnn::cg::this_grid();
-  bnn::run_block<false>(p, p.blk[0], p.h, p.w, p.x, p.x_bf16, p.out,
-                        p.out_bf16, sm, grid);
+  bnn::run_block<bnn::Dp4aTile, false>(p, p.blk[0], p.h, p.w, p.x, p.x_bf16,
+                                       p.out, p.out_bf16, sm, grid);
 }
 
 int capacity = 0;

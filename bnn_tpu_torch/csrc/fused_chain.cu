@@ -17,12 +17,31 @@
 // order that the plain version repeats, each multiply and add rounded on
 // its own.
 //
-// Bound on an H100 at its serving shapes (ResNet-18 at batch 1 and 4): the
-// weights dominate the bytes (0.15 MB for layer1 up to 8.4 MB for layer4,
-// whose fc adds 1 MB in bf16, so 0.05 to 2.8 us at 3.35 TB/s; a down
-// block's w1 counts as its 9*Ci*Co taps, not the s2d form's 16*Ci*Co) and
-// each stage is bound by bytes at batch 1; chip_smoke.py prints the bound
-// of each measured shape.
+// The GEMM phases run bnn_common.cuh's MmaTile: mma.sync m16n8k32 s8 x s8 ->
+// s32 on the int8 tensor cores, fed by a 3-stage cp.async ring. A rows come
+// from the signed map as 16-byte copies, one per 16 K values of a tap (any
+// C % 16 == 0; other C % 4 == 0 widths copy word by word), and the weights,
+// through L1, from K-major (Co, K) int8 copies that the block descriptor
+// makes once per device, so no word is transposed on the card; a down
+// block's conv1 runs as its 9*Ci taps (the s2d form's 7*Ci zero taps are
+// skipped). A GEMM is split into about half an item per resident block; one
+// whose K is one slice stores its sums, a sliced one adds them with atomics.
+//
+// Bound on an H100 at its serving shapes, from chip_smoke.py's phase 4
+// (each input, weight and row read once, the output written once, against
+// the int8 operations at 1979 TOPS): at batch 1 the bytes set it, since the
+// weights dominate (0.15 MB for layer1 up to 8.4 MB for layer4, whose fc adds
+// 1 MB in bf16; a down block's w1 counts as its 9*Ci*Co taps), 4.4 us over
+// ResNet-18's four stages; at batch 4 layers 1-3 are bound by operations
+// (3.7 G int8 operations in layer1, 1.9 us) and layer4 + head by bytes
+// (2.9 us), 8.1 us over the four. What holds the kernel back is the rest of
+// each stage: its ten grid barriers and the elementwise phases between them,
+// which no tile changes, and in the GEMM phases the L2 traffic of a 32-row
+// tile, which reads each weight column once per 32 output pixels.
+//
+// fused_basic_block, fused_downsample_block, fused_stem_chain and
+// fused_bottleneck still run bnn_common.cuh's Dp4aTile: each moves onto the
+// tensor-core tile in its own change, measured against its own numbers.
 #include "bnn_common.cuh"
 
 namespace {
@@ -66,7 +85,7 @@ __device__ void run_head(const bnn::ChainParams& p, const float* a, int hw,
 
 __global__ void __launch_bounds__(bnn::THREADS)
 fused_chain_kernel(const __grid_constant__ bnn::ChainParams p) {
-  __shared__ bnn::Smem sm;
+  __shared__ bnn::MmaTile::Smem sm;
   bnn::cg::grid_group grid = bnn::cg::this_grid();
   int h = p.h, w = p.w;
   const void* in = p.x;
@@ -77,11 +96,13 @@ fused_chain_kernel(const __grid_constant__ bnn::ChainParams p) {
     void* out = final_out ? p.out : static_cast<void*>(p.act_buf[i & 1]);
     const int out_bf16 = final_out ? p.out_bf16 : 0;
     if (b.down) {
-      bnn::run_block<true>(p, b, h, w, in, in_bf16, out, out_bf16, sm, grid);
+      bnn::run_block<bnn::MmaTile, true>(p, b, h, w, in, in_bf16, out,
+                                         out_bf16, sm, grid);
       h /= 2;
       w /= 2;
     } else {
-      bnn::run_block<false>(p, b, h, w, in, in_bf16, out, out_bf16, sm, grid);
+      bnn::run_block<bnn::MmaTile, false>(p, b, h, w, in, in_bf16, out,
+                                          out_bf16, sm, grid);
     }
     grid.sync();
     in = out;
@@ -97,7 +118,8 @@ int capacity = 0;
 
 }  // namespace
 
-// A chain of blocks. Scratch: act0, act1 f32 of the largest block output
+// A chain of blocks, each with its K-major weight copies (Block::wt).
+// Scratch: act0, act1 f32 of the largest block output
 // each; xs, hs, ds int8 of the largest block input, conv1 output and pooled
 // shortcut input; with classes > 0, pooled (N*C_out f32), and out holds
 // (N, classes) f32 logits.
@@ -108,6 +130,12 @@ extern "C" int bnn_fused_chain(int nblocks, const void* const* ptrs,
   bnn::ChainParams p{};
   const int err = bnn::setup(p, nblocks, ptrs, ints);
   if (err) return err;
+  for (int i = 0; i < nblocks; ++i) {  // MmaTile reads the K-major copies
+    const bnn::Block& b = p.blk[i];
+    if (!b.wt[0] || !b.wt[1] || (b.down && !b.wt[2])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   return bnn::launch(reinterpret_cast<const void*>(&fused_chain_kernel),
                      &capacity, p, stream);
 }

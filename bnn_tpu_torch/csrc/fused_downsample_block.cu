@@ -30,8 +30,8 @@ __global__ void __launch_bounds__(bnn::THREADS)
 fused_downsample_block_kernel(const __grid_constant__ bnn::ChainParams p) {
   __shared__ bnn::Smem sm;
   bnn::cg::grid_group grid = bnn::cg::this_grid();
-  bnn::run_block<true>(p, p.blk[0], p.h, p.w, p.x, p.x_bf16, p.out,
-                       p.out_bf16, sm, grid);
+  bnn::run_block<bnn::Dp4aTile, true>(p, p.blk[0], p.h, p.w, p.x, p.x_bf16,
+                                      p.out, p.out_bf16, sm, grid);
 }
 
 int capacity = 0;

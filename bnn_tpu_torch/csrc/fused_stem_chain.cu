@@ -8,10 +8,12 @@
 // One cooperative launch: phase 0 computes the stem of every image into
 // scratch that stays in the 50 MB L2, rounded to the IO dtype where the
 // split pipeline (fused_stem, then fused_chain) rounds it at its kernel
-// boundary; after a grid barrier, layer1's blocks run as fused_chain.cu's
-// do (bnn_common.cuh's run_block), the last one writing the output. The
-// result equals fused_chain(fused_stem(x)) bit for bit: each stem output
-// takes stem_common.cuh's arithmetic, whatever the tile.
+// boundary; after a grid barrier, layer1's blocks run through
+// bnn_common.cuh's run_block on its Dp4aTile, the last one writing the
+// output. The result equals fused_chain(fused_stem(x)) bit for bit, though
+// fused_chain runs the tensor-core tile: each stem output takes
+// stem_common.cuh's arithmetic, whatever the tile, and the integer sums are
+// exact in any order.
 //
 // The stem's tile is not fused_stem.cu's: that kernel runs 512 threads with
 // about 112 KB of dynamic shared memory, while a cooperative grid here is
@@ -185,8 +187,8 @@ fused_stem_chain_kernel(const __grid_constant__ Params p) {
     const bool last = i == c.nblocks - 1;
     void* out = last ? c.out : static_cast<void*>(c.act_buf[i & 1]);
     const int out_bf16 = last ? c.out_bf16 : 0;
-    bnn::run_block<false>(c, c.blk[i], c.h, c.w, in, in_bf16, out, out_bf16,
-                          sm.gemm, grid);
+    bnn::run_block<bnn::Dp4aTile, false>(c, c.blk[i], c.h, c.w, in, in_bf16,
+                                         out, out_bf16, sm.gemm, grid);
     if (!last) grid.sync();
     in = out;
     in_bf16 = out_bf16;
@@ -208,8 +210,8 @@ extern "C" int bnn_fused_stem_chain(int nblocks, const void* const* ptrs,
   Params p{};
   const int err = bnn::setup(p.chain, nblocks, ptrs, ints);
   if (err) return err;
-  const void* const* sp = ptrs + nblocks * (3 + bnn::NROWS) + 12;
-  const int* si = ints + nblocks * (3 + bnn::NROWS) + 11;
+  const void* const* sp = ptrs + nblocks * bnn::BLOCK_PTRS + 12;
+  const int* si = ints + nblocks * bnn::BLOCK_INTS + 11;
   p.x = sp[0];
   p.w = static_cast<const float*>(sp[1]);
   p.bias = static_cast<const float*>(sp[2]);

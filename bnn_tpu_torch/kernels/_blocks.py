@@ -1,4 +1,4 @@
-"""What the three residual-block kernels share: the plain arithmetic their
+"""What the residual-block kernels share: the plain arithmetic their
 plain versions are built from, and the launcher that hands a chain of block
 descriptors to a kernel of ``bnn_tpu_torch/csrc`` (fused_basic_block,
 fused_downsample_block, fused_chain, fused_stem_chain; all built on
@@ -27,6 +27,14 @@ ROWS = ("scale1", "add1", "prelu1", "scale2", "add2", "prelu2", "scaled",
         "addd", "threshold2", "threshold1", "thresholdd")
 _IN_ROWS = ("threshold1", "thresholdd")  # per input channel; the rest per output
 MAX_BLOCKS = 8
+# a block's pointers and ints in a kernel's flat arrays, csrc/bnn_common.cuh's
+# BLOCK_PTRS and BLOCK_INTS: w1, w2, wd, their K-major copies, the rows; down,
+# ci, co, the row lengths
+BLOCK_PTRS = 6 + len(ROWS)
+BLOCK_INTS = 3 + len(ROWS)
+# the kernels whose GEMM phases run the tensor-core tile (bnn_common.cuh's
+# MmaTile), which reads the K-major weight copies; the others get nulls
+KMAJOR_KERNELS = ("fused_chain",)
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -87,6 +95,14 @@ def avgpool2x2(x: torch.Tensor) -> torch.Tensor:
                    + x[:, 1::2, 1::2])
 
 
+def untransform_w1(ws: torch.Tensor, ci: int) -> torch.Tensor:
+    """A down block's ``(16*C_in, C_out)`` s2d conv1, rows in (ki, kj, di,
+    dj, c) order, back to its ``(3, 3, C_in, C_out)`` taps."""
+    co = ws.shape[-1]
+    t = ws.reshape(2, 2, 2, 2, ci, co)                # (ki, kj, di, dj, c, o)
+    return t.permute(0, 2, 1, 3, 4, 5).reshape(4, 4, ci, co)[1:, 1:]
+
+
 def head(a: torch.Tensor, wfc: torch.Tensor,
          bfc: Optional[torch.Tensor]) -> torch.Tensor:
     """Global mean over H, W then ``pooled @ wfc + bfc`` in f32, summed in
@@ -127,38 +143,64 @@ class Desc:
         floats = [v[0] if isinstance(v, tuple) else v for v in self.rows]
         self.float_dtypes = {t.dtype for t in floats if isinstance(t, torch.Tensor)}
         self._flat = {}
+        self._kmajor = {}
+
+    def kmajor(self, device) -> tuple:
+        """``(conv1, conv2, shortcut)`` as K-major ``(C_out, K)`` int8 copies
+        on ``device`` (the shortcut None for a basic block): K in the (dy, dx,
+        c) tap order, a down block's conv1 as its 9*C_in taps. The tensor-core
+        tile reads them as 16-byte rows. Derived from the weights once per
+        device and kept, like :meth:`flat`'s arrays: the weights must not be
+        changed in place while the descriptor is in use."""
+        device = torch.device(device)
+        if device not in self._kmajor:
+            w1 = (untransform_w1(self.w1, self.ci).reshape(9 * self.ci, self.co)
+                  if self.down else self.w1)
+            self._kmajor[device] = tuple(
+                None if w is None else
+                w.to(device=device, dtype=torch.int8).t().contiguous()
+                for w in (w1, self.w2, self.wd if self.down else None))
+        return self._kmajor[device]
 
     def flat(self, name: str, dtype, device):
         """This block's ``(pointers, ints, converted copies)`` for the
         kernel's flat arrays, the rows in ``dtype``; the copies must live
-        until the launch. Checked and built once per dtype and device,
-        unless a tensor had to be converted (a copy would miss later
-        in-place updates of its source); the tensors must not be replaced
-        while the descriptor is in use."""
-        key = (dtype, device)
+        until the launch. Checked and built once per dtype, device and
+        weight layout (with or without the K-major copies), unless a tensor
+        had to be converted (a copy would miss later in-place updates of its
+        source); the tensors must not be replaced while the descriptor is in
+        use."""
+        key = (dtype, device, name in KMAJOR_KERNELS)
         if key in self._flat:
             return self._flat[key]
         tensors = [self.w1, self.w2, self.wd] + [
             v[0] if isinstance(v, tuple) else v for v in self.rows]
         _check_device(name, device, tensors)
-        if device.type != "cuda":
-            raise ValueError(f"{name} launches on CUDA tensors, got {device}")
+        _check_cuda(name, device)
         if self.ci % 4 or self.co % 4:
             raise ValueError(f"{name} needs channel counts divisible by 4, "
                              f"got {self.ci} -> {self.co}")
+        flat = self._layout(name, dtype, device)
+        if not flat[2]:  # converted copies serve one launch only
+            self._flat[key] = flat
+        return flat
+
+    def _layout(self, name: str, dtype, device):
+        """:meth:`flat`'s arrays, unchecked and uncached: BLOCK_PTRS pointers
+        (w1, w2, wd, the K-major copies where ``name`` reads them, else nulls,
+        the rows) and BLOCK_INTS ints (down, ci, co, the row lengths)."""
         weights = [self.w1, self.w2, self.wd if self.down else None]
         for w, shape in zip(weights, (((16 if self.down else 9) * self.ci, self.co),
                                       (9 * self.co, self.co), (self.ci, self.co))):
             if w is not None and tuple(w.shape) != shape:
                 raise ValueError(f"{name}: weights {tuple(w.shape)}, "
                                  f"expected {shape}")
+        weights += (list(self.kmajor(device)) if name in KMAJOR_KERNELS
+                    else [None] * 3)
         ptrs, lens, keep = flat_args(
             name, weights, zip(ROWS, self.rows),
             [self.ci if r in _IN_ROWS else self.co for r in ROWS], dtype, device)
-        flat = (ptrs, [int(self.down), self.ci, self.co] + lens, keep)
-        if not keep:  # converted copies serve one launch only
-            self._flat[key] = flat
-        return flat
+        return ptrs, [int(self.down), self.ci, self.co] + lens, keep
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,6 +229,11 @@ def _check_device(name: str, device, tensors) -> None:
         if isinstance(t, torch.Tensor) and t.device != device:
             raise ValueError(f"{name} needs every tensor on {device}, got one "
                              f"on {t.device}")
+
+
+def _check_cuda(name: str, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name} launches on CUDA tensors, got {device}")
 
 
 def flat_args(name: str, weights, rows, widths, dtype, device):

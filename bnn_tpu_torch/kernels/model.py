@@ -13,8 +13,12 @@ the JAX ones bit for bit.
 
 Bound on an H100: each stage moves its int8 weights once (0.15 MB for
 ResNet-18's layer1, 8.4 MB for layer4, whose 1000-class head adds 1 MB of
-bf16 weights), which bounds it at batches 1 to 4; the kernel runs a stage as
-one cooperative launch over the card (csrc/fused_chain.cu).
+bf16 weights), which bounds it at batch 1; at batch 4 layers 1-3 are bound
+by their int8 operations. The kernel runs a stage as one cooperative launch
+over the card, its convolutions on the int8 tensor cores
+(csrc/fused_chain.cu), which read K-major copies of the weights that each
+block's descriptor makes once per device (``_blocks.Desc.kmajor``);
+:meth:`BlockParams.arrays` stays the JAX layout.
 
 :func:`fused_stem_chain` runs the network entry, the float stem and then
 layer1's stride-1 blocks, as one launch of ``csrc/fused_stem_chain.cu``

@@ -41,11 +41,7 @@ def _transform_w1(w1: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 1, 3, 4, 5).reshape(16 * ci, co).contiguous()
 
 
-def _untransform_w1(ws: torch.Tensor, ci: int) -> torch.Tensor:
-    """Inverse of :func:`_transform_w1`."""
-    co = ws.shape[-1]
-    t = ws.reshape(2, 2, 2, 2, ci, co)                # (ki, kj, di, dj, c, o)
-    return t.permute(0, 2, 1, 3, 4, 5).reshape(4, 4, ci, co)[1:, 1:]
+_untransform_w1 = B.untransform_w1  # inverse of _transform_w1
 
 
 def _check(x, w1, w2, wd):

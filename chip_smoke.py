@@ -9,11 +9,16 @@ Phases, each reported on its own lines:
 1. device and build: the card's name and power limit, then every CUDA
    kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel),
    and the tensor-core, dot-product and popcount instructions in the SASS
-   of the three GEMM-shaped kernels;
+   of the three GEMM-shaped kernels and the five block kernels
+   (``fused_chain`` must show int8 tensor-core and no ``__dp4a``
+   instructions);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
-   points take; ``binary_gemm`` bit for bit at each of its tile and loader
-   instances and at ragged shapes, each case naming the instance it took;
+   points take; ``fused_chain`` at each of ResNet-18's four stage shapes at
+   batch 1 and 4, in bf16 and f32 with both option sets, and at widths that
+   its word loader takes (C % 16 != 0); ``binary_gemm`` bit for bit at each
+   of its tile and loader instances and at ragged shapes, each case naming
+   the instance it took;
    ``binary_conv2d_s1`` bit for bit at each of its tile, loader and K-split
    instances, at path B's shapes and at edges (N = 1, k = 1, 5 and 7, odd H
    and W, C and O off every multiple, x off 16 bytes, exact zeros);
@@ -51,7 +56,8 @@ Phases, each reported on its own lines:
    other tiles and splits; for ``popcount_gemm``, the same per distinct
    shape of path C's calls at batch 8 and at batch 1); the forward latency,
    images/s, device busy share and the kernels that take the time, of each
-   path;
+   path; ``fused_chain``'s four ResNet-18 stages summed at batch 1 and 4,
+   beside their bounds;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -69,6 +75,8 @@ import sys
 import time
 
 import torch
+
+from gemm_shapes import R18_STAGES
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {            # dense tensor-core peaks, NVIDIA data sheet
@@ -112,37 +120,44 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sass_counts(lib) -> str:
+# name: opcode prefix (__dp4a is IDP.4A in Hopper's SASS)
+SASS_OPS = {"IMMA": "IMMA", "BMMA": "BMMA", "IDP4A": "IDP", "POPC": "POPC"}
+
+
+def sass_counts(lib) -> tuple:
     """Int8 (IMMA) and 1-bit (BMMA) tensor-core, dot-product (IDP4A) and
     popcount (POPC) instructions in a built library's SASS, from
-    ``cuobjdump -sass``."""
+    ``cuobjdump -sass``: ``({opcode: count} or None, printable line)``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=120, check=True).stdout
     except (OSError, subprocess.SubprocessError) as e:
-        return f"SASS not read ({e})"
+        return None, f"SASS not read ({e})"
     ops = []  # the opcode of each instruction line, past any @predicate
     for line in sass.splitlines():
         words = line.split("*/", 1)[-1].split() if line.strip().startswith("/*") else []
         words = words[1:] if words and words[0].startswith("@") else words
         if words:
             ops.append(words[0])
-    counts = ", ".join(f"{sum(o.startswith(name) for o in ops)} {name}"
-                       for name in ("IMMA", "BMMA", "IDP4A", "POPC"))
-    return f"{counts} instructions in its SASS"
+    counts = {name: sum(o.startswith(op) for o in ops) for name, op in SASS_OPS.items()}
+    return counts, ", ".join(f"{v} {k}" for k, v in counts.items()) + \
+        " instructions in its SASS"
 
 
 # device_profile's key when every trace came back without device events
 EVENTS_ONLY = "all kernels (CUDA events: torch.profiler recorded no device time)"
 
 
-def device_profile(fn, iters: int = 20, attempts: int = 3):
+def device_profile(fn, iters: int = 20, attempts: int = 3, whole: bool = True):
     """``({kernel name: device ms per call}, wall ms per call)`` of ``fn``
     over ``iters`` calls under ``torch.profiler``, after a warm-up. A trace
-    that comes back without device events (CUPTI now and then delivers
-    none) is taken again, up to ``attempts`` times; then the CUDA-event time
-    per call stands in, under the key ``EVENTS_ONLY``."""
+    that comes back without device events, or (with ``whole``) with a
+    kernel whose events are not a whole number per call (CUPTI now and then
+    delivers none, or drops some, which reads low), is taken again, up to
+    ``attempts`` times; then the CUDA-event time per call stands in, under
+    the key ``EVENTS_ONLY``. A forward's breakdown takes ``whole=False``:
+    its long traces drop events too often."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,14 +171,15 @@ def device_profile(fn, iters: int = 20, attempts: int = 3):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        by_name = {}
+        by_name, count = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / iters)
-        if by_name:
+                count[e.name] = count.get(e.name, 0) + 1
+        if by_name and (not whole or all(c % iters == 0 for c in count.values())):
             return by_name, wall / iters * 1e3
-    print(f"phase 4: torch.profiler recorded no device time in {attempts} traces; "
+    print(f"phase 4: torch.profiler recorded no whole trace in {attempts}; "
           "CUDA-event time per call stands in for this one")
     return {EVENTS_ONLY: cuda_ms(fn, iters)}, wall / iters * 1e3
 
@@ -406,7 +422,43 @@ def check_blocks(kernels, gen, dev) -> dict:
              p[0], p[1], p[3], p[4], p[6], p[7]),
             dict(opts, prelu1=p[2], prelu2=p[5], threshold1=q[0, :256],
                  threshold2=p[8], thresholdd=q[1, :256]))
+
+    # fused_chain at ResNet-18's four stage shapes at batch 1 and 4, then at
+    # widths its word loader takes (C % 16 != 0); its own generator keeps
+    # the draws of the cases above and of the phases after this one
+    gen_c = torch.Generator().manual_seed(SEED + 3)
+    for dtype, opts, options in ((bf, torch_opts, False), (torch.float32, other_opts, True)):
+        tag = f"{str(dtype)[6:]} act={opts['act']} pre={opts['pre']} " \
+              f"zero_to_one={opts['zero_to_one']}"
+        for n in (1, 4):
+            for (h, ci), plan, co, head in R18_STAGES:
+                run("fused_chain", f"fused_chain R18 stage {'+'.join(plan)}"
+                    f"{'+head' if head else ''} ({n},{h},{h},{ci}) {tag}",
+                    chain_args(kernels, n, h, ci, plan, co, head, gen_c, dev, dtype,
+                               options), opts, head=head)
+    for (h, ci), plan, co in (((16, 20), ("down", "basic"), 40),
+                              ((16, 24), ("down", "basic", "basic"), 48),
+                              ((10, 20), ("basic", "basic"), 20)):
+        run("fused_chain", f"fused_chain {'+'.join(plan)} (2,{h},{h},{ci}) -> {co} "
+            f"(C % 16 != 0: the word loader) {tag}",
+            chain_args(kernels, 2, h, ci, plan, co, False, gen_c, dev, torch.float32,
+                       True), other_opts)
     return errs
+
+
+def chain_args(kernels, n, h, ci, plan, co, head, gen, dev, dtype, options):
+    """fused_chain's positional arguments for one stage: a random (n, h, h,
+    ci) input, the blocks of ``plan`` (``rand_block``) and, with ``head``, a
+    1000-class fc."""
+    blocks, c = [], ci
+    for kind in plan:
+        blocks.append(rand_block(kernels, kind, c, co, gen, dev, dtype, options=options))
+        c = co
+    args = (torch.randn((n, h, h, ci), generator=gen).to(dev, dtype), blocks)
+    if head:
+        args += ((torch.randn((co, 1000), generator=gen) / co ** 0.5).to(dev, dtype),
+                 (0.1 * torch.randn(1000, generator=gen)).to(dev, dtype))
+    return args
 
 
 # fused_bottleneck's phase-2 cases: (x shape, width, C_out, act, zero_to_one,
@@ -644,7 +696,7 @@ def host_ms(fn, iters: int = 50) -> float:
 
 def forward_times(pred, xb, card, name):
     fwd = fwd_ms(pred, xb)
-    by_kernel, _ = device_profile(lambda: pred(xb), iters=10)
+    by_kernel, _ = device_profile(lambda: pred(xb), iters=10, whole=False)
     busy = sum(by_kernel.values())
     n = xb.shape[0]
     print(f"phase 4: {name}: {fwd:.3f} ms per forward, "
@@ -1012,8 +1064,15 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1: {log.name.split('-')[0]}: {line.strip()}")
-    for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm"):
-        print(f"phase 1: lib{name}: {sass_counts(_build._target(name))}")
+    for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
+                 "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
+                 "fused_bottleneck"):
+        counts, line = sass_counts(_build._target(name))
+        print(f"phase 1: lib{name}: {line}")
+        if name == "fused_chain" and counts is not None and (
+                counts["IMMA"] == 0 or counts["IDP4A"] > 0):
+            raise AssertionError(f"libfused_chain: {line}; its GEMM phases run "
+                                 "on the int8 tensor cores, not __dp4a")
 
     gen = torch.Generator().manual_seed(SEED)
     gemm_err = check_gemm(kernels, BATCH * 7 * 7, 256, 512, torch.bfloat16,
@@ -1622,6 +1681,11 @@ def main() -> int:
                       "binary_gemm_impl='popcount') bf16")
 
     chain = summed("fused_chain@1")
+    chain4 = summed("fused_chain@4")
+    print(f"phase 4: fused_chain, ResNet-18's four stages: batch 1 {chain[0] * 1e3:.2f} "
+          f"us device (bound {chain[2] * 1e3:.3f} us, {chain[3]}); batch 4 "
+          f"{chain4[0] * 1e3:.2f} us device (bound {chain4[2] * 1e3:.3f} us, "
+          f"{chain4[3]}) | {card}")
     basic = summed("fused_basic_block")
     down = summed("fused_downsample_block")
     bneck = summed("fused_bottleneck@1")

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``, or with
-``--popcount``, ``popcount_gemm``) at the serving paths' shapes, for the
-checkout it is run from.
+"""Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``, with
+``--popcount``, ``popcount_gemm``, or with ``--chain``, ``fused_chain``) at
+the serving paths' shapes, for the checkout it is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
 this script times any checkout whose kernels have the public signatures:
@@ -29,9 +29,17 @@ copy included), the plan where the checkout has ``conv_plan``, and
 random x with 10% exact zeros, random weight words, f32 epilogue rows; the
 result held bit for bit against ``popcount_gemm_reference``; the kernel's
 own device time, the plan where the checkout has ``popcount_plan``, and
-``torch._int_mm`` on the same +/-1 int8 product. Prints the card line, one
-JSON line per shape, then one per path with the sums over a forward's calls.
-Exits 1 without CUDA.
+``torch._int_mm`` on the same +/-1 int8 product. With ``--chain``, for each
+``fused_chain`` call of ResNet-18's batch-1 and batch-4 forwards (its four
+stages, the head in layer4's), ResNet-34's batch-1 forward (layers 1-3) and
+path A's (``fuse_entry``: ResNet-18's layers 2-4) at batch 1 and 4: random
++/-1 blocks and bf16 epilogue rows from a seed (``chip_smoke.rand_block``),
+a random bf16 stage input, ReLU, torch-parity signs; the result held
+against ``fused_chain_reference`` (within one bf16 ulp, logits within 1e-5);
+the kernel's own device time per call beside its bound
+(``chip_smoke.chain_bound``). Prints the card line, one JSON line per shape
+(per call with ``--chain``), then one per path with the sums over a
+forward's calls. Exits 1 without CUDA.
 """
 from __future__ import annotations
 
@@ -63,10 +71,27 @@ CONVS = [
     ((8, 14, 14, 256), torch.bfloat16, 1), ((8, 14, 14, 256), torch.float32, 2),
     ((8, 7, 7, 512), torch.bfloat16, 1), ((8, 7, 7, 512), torch.float32, 2),
 ]
+# (first block's (H, C_in), plan, C_out, head) of each fused_chain call of a
+# forward: ResNet-18's four stages, ResNet-34's layers 1-3 (its layer4 runs
+# the per-block kernels), path A's layers 2-4 (its layer1 is fused_stem_chain)
+R18_STAGES = [((56, 64), ("basic",) * 2, 64, False),
+              ((56, 64), ("down", "basic"), 128, False),
+              ((28, 128), ("down", "basic"), 256, False),
+              ((14, 256), ("down", "basic"), 512, True)]
+CHAINS = {
+    "ResNet-18 batch 1": (1, R18_STAGES),
+    "ResNet-18 batch 4": (4, R18_STAGES),
+    "ResNet-34 batch 1": (1, [((56, 64), ("basic",) * 3, 64, False),
+                              ((56, 64), ("down",) + ("basic",) * 3, 128, False),
+                              ((28, 128), ("down",) + ("basic",) * 5, 256, False)]),
+    "path A batch 1": (1, R18_STAGES[1:]),
+    "path A batch 4": (4, R18_STAGES[1:]),
+}
 
 
-def device_us(fn, name: str = "", iters: int = 20) -> float:
-    """Device us per call of ``fn``'s kernels whose name holds ``name``."""
+def device_us(fn, name: str = "", iters: int = 20, per_call: int = 0) -> float:
+    """Device us per call of ``fn``'s kernels whose name holds ``name``; with
+    ``per_call``, a trace must hold that many such kernels per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,6 +105,10 @@ def device_us(fn, name: str = "", iters: int = 20) -> float:
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and name in e.name]
+        if per_call and len(us) != per_call * iters:
+            print(f"gemm_shapes: a trace holds {len(us)} of {per_call * iters} "
+                  f"{name} kernels; traced again", file=sys.stderr)
+            continue
         if us:
             return sum(us) / iters
     raise RuntimeError("torch.profiler recorded no device time")
@@ -93,6 +122,8 @@ def main() -> int:
                        help="time binary_conv2d_s1 at path B's shapes instead")
     which.add_argument("--popcount", action="store_true",
                        help="time popcount_gemm at path C's shapes instead")
+    which.add_argument("--chain", action="store_true",
+                       help="time fused_chain at its serving calls instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -111,6 +142,8 @@ def main() -> int:
         return time_convs(args.label, kernels, gen, dev, sms)
     if args.popcount:
         return time_popcounts(args.label, kernels, gen, dev, sms)
+    if args.chain:
+        return time_chains(args.label, kernels, gen, dev)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -215,6 +248,43 @@ def time_popcounts(label, kernels, gen, dev, sms) -> int:
             tot["int_mm_us"] += calls * row["int_mm_us"]
         print(json.dumps({"label": label, "path": f"path C batch {batch}",
                           "calls": sum(c for _, c in shapes), **tot}))
+    return 0
+
+
+def time_chains(label, kernels, gen, dev) -> int:
+    """fused_chain at each path's calls, beside each call's bound."""
+    from chip_smoke import chain_bound, check_exact, rand_block
+
+    bf = torch.bfloat16
+    opts = dict(act="relu", pre=False, zero_to_one=False)
+    for path, (n, stages) in CHAINS.items():
+        tot = {"kernel_us": 0.0, "bound_us": 0.0}
+        for (h, ci), plan, co, head in stages:
+            blocks, c = [], ci
+            for kind in plan:
+                blocks.append(rand_block(kernels, kind, c, co, gen, dev, bf,
+                                         options=False))
+                c = co
+            x = torch.randn((n, h, h, ci), generator=gen).to(dev, bf)
+            args = (x, blocks)
+            if head:
+                args += ((torch.randn((co, 1000), generator=gen) / co ** 0.5).to(dev, bf),
+                         (0.1 * torch.randn(1000, generator=gen)).to(dev, bf))
+            run = lambda: kernels.fused_chain(*args, **opts)
+            got = run()
+            name = f"fused_chain {'+'.join(plan)}{'+head' if head else ''} {tuple(x.shape)}"
+            check_exact(f"{label} {path} {name}", got,
+                        kernels.fused_chain_reference(*args, **opts), head,
+                        verbose=False)
+            bound, by = chain_bound(x, blocks, *(args[2:] if head else (None, None)),
+                                    got.numel(), got.element_size())
+            row = {"label": label, "path": path, "call": name, "exact": True,
+                   "kernel_us": device_us(run, "fused_chain_kernel", per_call=1),
+                   "bound_us": bound * 1e3, "bound_by": by}
+            print(json.dumps(row))
+            tot["kernel_us"] += row["kernel_us"]
+            tot["bound_us"] += row["bound_us"]
+        print(json.dumps({"label": label, "path": path, "calls": len(stages), **tot}))
     return 0
 
 
