@@ -28,7 +28,8 @@
 // weights read in the JAX (K, N) layout and transposed in registers), and
 // MmaTile, the int8 tensor-core form (mma.sync m16n8k32 over a cp.async ring,
 // 16-byte copies of A rows and of a K-major (N, K) weight copy). fused_chain
-// runs MmaTile; the other block kernels still run Dp4aTile.
+// runs MmaTile through run_block, fused_bottleneck through its own phases;
+// the other block kernels still run Dp4aTile.
 //
 // Numerics are those of the plain PyTorch versions bit for bit: the sums are
 // exact, every f32 multiply and add is rounded on its own (__fmul_rn,
@@ -493,12 +494,38 @@ __device__ __forceinline__ void mma_chunk(const MmaStage& st, int (&acc)[4][4]) 
   }
 }
 
+// Where mma_tile puts a lane's sums of one n8 block: v[0], v[1] at (m, n),
+// (m, n + 1) and, where `lower` (m + 8 < M), v[2], v[3] at (m + 8, n),
+// (m + 8, n + 1); m < M and n + 1 < N. SumSink writes them to an (M, N)
+// int32 buffer, stored where K is one slice, added with atomics otherwise;
+// a kernel may pass its own sink (an epilogue applied in registers) to a
+// one-slice GEMM.
+struct SumSink {
+  int* out;
+  int N;
+  bool store;
+  __device__ __forceinline__ void operator()(int m, int n, const int (&v)[4],
+                                             bool lower) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !lower) break;
+      int* o = out + static_cast<size_t>(m + 8 * h) * N + n;
+      if (store) {
+        *reinterpret_cast<int2*>(o) = make_int2(v[2 * h], v[2 * h + 1]);
+      } else {
+        if (v[2 * h] != 0) atomicAdd(o, v[2 * h]);
+        if (v[2 * h + 1] != 0) atomicAdd(o + 1, v[2 * h + 1]);
+      }
+    }
+  }
+};
+
 // gemm_tile's contract on the tensor cores, w given K-major as wt (N, K);
-// with `store` (K is one slice) the sums are stored, not added.
-template <bool VEC, class Gather>
+// the sums go to `sink`.
+template <bool VEC, class Gather, class Sink>
 __device__ void mma_tile(const Gather& gather, const int8_t* __restrict__ wt,
                          int M, int K, int N, int m0, int n0, int c0, int c1,
-                         bool store, MmaSmem& sm, int* __restrict__ out) {
+                         MmaSmem& sm, const Sink& sink) {
   typename Gather::Pix px[MMA_ROWS<VEC>];
 #pragma unroll
   for (int i = 0; i < MMA_ROWS<VEC>; ++i) {
@@ -528,35 +555,30 @@ __device__ void mma_tile(const Gather& gather, const int8_t* __restrict__ wt,
   const int n = n0 + (warp >> 1) * 32 + 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int mm = m + 8 * h, nn = n + 8 * j;  // N % 4 == 0: nn + 1 < N too
-      if (mm >= M || nn >= N) continue;
-      int* o = out + static_cast<size_t>(mm) * N + nn;
-      const int v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
-      if (store) {
-        *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
-      } else {
-        if (v0 != 0) atomicAdd(o, v0);
-        if (v1 != 0) atomicAdd(o + 1, v1);
-      }
-    }
+    const int nn = n + 8 * j;  // N % 4 == 0: nn + 1 < N too
+    if (m < M && nn < N) sink(m, nn, acc[j], m + 8 < M);
   }
 }
 
-// split() with half an item per resident block: slices only where the tiles
-// fill less than half the grid, so fewer K slices (and atomics) than split()
-__device__ __forceinline__ Split mma_split(int M, int K, int N) {
+// split() with half an item per resident block of a `grid`-block launch:
+// slices only where the tiles fill less than half the grid, so fewer K
+// slices (and atomics) than split(). Also on the host, for a kernel's plan.
+__host__ __device__ __forceinline__ Split mma_split_of(int grid, int M, int K,
+                                                       int N) {
   Split s;
   s.nt = (N + TN - 1) / TN;
   const int tiles = ((M + TM - 1) / TM) * s.nt;
   s.chunks = (K / 4 + KCW - 1) / KCW;
-  const int want = max(1, min(s.chunks, (static_cast<int>(gridDim.x) + 2 * tiles - 1) /
-                                            (2 * tiles)));
+  const int half = (grid + 2 * tiles - 1) / (2 * tiles);
+  const int want = half < 1 ? 1 : half > s.chunks ? s.chunks : half;
   s.per_slice = (s.chunks + want - 1) / want;
   s.slices = (s.chunks + s.per_slice - 1) / s.per_slice;
   s.items = tiles * s.slices;
   return s;
+}
+
+__device__ __forceinline__ Split mma_split(int M, int K, int N) {
+  return mma_split_of(static_cast<int>(gridDim.x), M, K, N);
 }
 
 // --- The two tiles of run_block ------------------------------------------
@@ -599,13 +621,22 @@ struct MmaTile {
                                               const int8_t* wt, int M, int K,
                                               int N, const Split& s, int item,
                                               Smem& sm, int* out) {
+    item_to(gather, wt, M, K, N, s, item, sm, SumSink{out, N, s.slices == 1});
+  }
+  // item() with the sums handed to `sink`, which sees whole sums only
+  // where s.slices == 1
+  template <class Gather, class Sink>
+  static __device__ __forceinline__ void item_to(const Gather& gather,
+                                                 const int8_t* wt, int M, int K,
+                                                 int N, const Split& s, int item,
+                                                 Smem& sm, const Sink& sink) {
     const int tile = item / s.slices, slice = item % s.slices;
     const int c0 = slice * s.per_slice, c1 = min(s.chunks, c0 + s.per_slice);
     const int m0 = (tile / s.nt) * TM, n0 = (tile % s.nt) * TN;
     if (gather.C % 16 == 0) {
-      mma_tile<true>(gather, wt, M, K, N, m0, n0, c0, c1, s.slices == 1, sm, out);
+      mma_tile<true>(gather, wt, M, K, N, m0, n0, c0, c1, sm, sink);
     } else {
-      mma_tile<false>(gather, wt, M, K, N, m0, n0, c0, c1, s.slices == 1, sm, out);
+      mma_tile<false>(gather, wt, M, K, N, m0, n0, c0, c1, sm, sink);
     }
   }
 };
@@ -769,17 +800,18 @@ inline int setup(ChainParams& p, int nblocks, const void* const* ptrs,
 }
 
 // One cooperative launch of `kernel(p)` over as many thread blocks as can
-// be resident; a plain launch of a kernel with grid barriers could
-// deadlock, so there is none. `Params` is the kernel's one argument (a
-// ChainParams, or a kernel's own struct). Returns the CUDA error code.
+// be resident, or `grid` where that is fewer; a plain launch of a kernel
+// with grid barriers could deadlock, so there is none. `Params` is the
+// kernel's one argument (a ChainParams, or a kernel's own struct). Returns
+// the CUDA error code.
 template <class Params>
 inline int launch(const void* kernel, int* capacity_cache, Params& p,
-                  void* stream) {
+                  void* stream, int grid = 0) {
   const int cap = grid_capacity(kernel, capacity_cache);
   if (cap <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel, dim3(cap), dim3(THREADS), args, 0,
+      kernel, dim3(grid > 0 && grid < cap ? grid : cap), dim3(THREADS), args, 0,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

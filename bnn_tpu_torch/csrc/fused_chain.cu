@@ -39,9 +39,10 @@
 // which no tile changes, and in the GEMM phases the L2 traffic of a 32-row
 // tile, which reads each weight column once per 32 output pixels.
 //
-// fused_basic_block, fused_downsample_block, fused_stem_chain and
-// fused_bottleneck still run bnn_common.cuh's Dp4aTile: each moves onto the
-// tensor-core tile in its own change, measured against its own numbers.
+// fused_bottleneck runs the same tile; fused_basic_block,
+// fused_downsample_block and fused_stem_chain still run bnn_common.cuh's
+// Dp4aTile: each moves onto the tensor-core tile in its own change, measured
+// against its own numbers.
 #include "bnn_common.cuh"
 
 namespace {

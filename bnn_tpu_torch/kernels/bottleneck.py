@@ -17,8 +17,10 @@ multiply and add rounds on its own.
 Bound on an H100 at batch 1: 69.6 KB of int8 weights per layer1 block and
 4.46 MB per layer4 block; with the bf16 activations, bytes bound each call
 to 0.6-1.5 us. The kernel is one cooperative launch whose phases are
-split by grid barriers, over ``bnn_common.cuh``'s gathers and exact int32
-partial sums.
+split by grid barriers; its four GEMMs run ``bnn_common.cuh``'s int8
+tensor-core tile over K-major weight copies that :class:`BottleneckDesc`
+keeps per device (:meth:`BottleneckDesc.kmajor`), and
+:meth:`BottleneckDesc.plan` reports how the kernel splits them on the card.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ ROWS = ("scale1", "add1", "prelu1", "threshold2", "scale2", "add2", "prelu2",
         "threshold1", "thresholdd")
 _MID_ROWS = ROWS[:8]                      # per conv1 / conv2 output channel
 _IN_ROWS = ("threshold1", "thresholdd")   # per input channel; the rest per C_out
+GEMMS = ("conv1", "projection", "conv2", "conv3")  # in the kernel's plan
 
 
 def split_act3(act):
@@ -75,10 +78,11 @@ class BottleneckDesc:
     ``w2 (9 * width, width)``, ``w3 (width, C_out)``, ``wd (C, C_out)`` or
     None, and the epilogue rows ``{name: None, a number or a tensor}`` (see
     :data:`ROWS`). Calling it runs the block: the kernel on CUDA tensors,
-    the plain version on CPU tensors. Its kernel arguments are built at the
-    first launch for each dtype and device, unless a tensor had to be
-    converted, so a caller that keeps it (``FusedBottleneck``) does not
-    rebuild them per call; the tensors must not be replaced meanwhile."""
+    the plain version on CPU tensors. Its kernel arguments (the K-major
+    weight copies among them) are built at the first launch for each dtype
+    and device, unless a tensor had to be converted, so a caller that keeps
+    it (``FusedBottleneck``) does not rebuild them per call; the tensors must
+    not be replaced or changed in place meanwhile."""
 
     def __init__(self, c: int, w1, w2, w3, wd=None, rows=None):
         rows = dict(rows or {})
@@ -92,6 +96,7 @@ class BottleneckDesc:
         self.w2 = w2.reshape(9 * self.width, self.width)
         self.float_dtypes = {v.dtype for v in self.rows if isinstance(v, torch.Tensor)}
         self._flat = {}
+        self._kmajor = {}
 
     def __call__(self, x: torch.Tensor, act="relu", zero_to_one: bool = True,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -114,6 +119,20 @@ class BottleneckDesc:
             wd=self.wd, act=act, zero_to_one=zero_to_one, out_dtype=out_dtype,
             **dict(zip(ROWS, self.rows)))
 
+    def kmajor(self, device) -> tuple:
+        """``(w1t, w2t, w3t, wdt)``: K-major ``(N, K)`` int8 copies of the
+        weights on ``device``, the GEMMs' B operands as the tensor-core tile
+        reads them: ``w1t (width, C)``, ``w2t (width, 9 * width)`` with K in
+        the (dy, dx, c) tap order, ``w3t (C_out, width)``, ``wdt (C_out, C)``
+        or None. Made once per device and kept."""
+        device = torch.device(device)
+        if device not in self._kmajor:
+            self._kmajor[device] = tuple(
+                None if w is None else
+                w.to(device=device, dtype=torch.int8).t().contiguous()
+                for w in (self.w1, self.w2, self.w3, self.wd))
+        return self._kmajor[device]
+
     def _row_width(self, r: str) -> int:
         if r in _IN_ROWS:
             return self.c
@@ -130,17 +149,31 @@ class BottleneckDesc:
         if self.c % 4 or self.width % 4 or self.cout % 4:
             raise ValueError(f"{_NAME} needs channel counts divisible by 4, got "
                              f"{self.c} -> {self.width} -> {self.cout}")
-        if device.type != "cuda":
-            raise ValueError(f"{_NAME} launches on CUDA tensors, got {device}")
-        flat = B.flat_args(_NAME, weights, zip(ROWS, self.rows),
+        B._check_cuda(_NAME, device)
+        flat = B.flat_args(_NAME, weights + list(self.kmajor(device)),
+                           zip(ROWS, self.rows),
                            [self._row_width(r) for r in ROWS], dtype, device)
         if not flat[2]:  # converted copies serve one launch only
             self._flat[key] = flat
         return flat
 
-    def _launch(self, x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool):
-        """One launch on CUDA tensors; raises on what the kernel does not
-        take and on a failed launch."""
+    def _ints(self, shape) -> list:
+        """The first ints of the flat array for an ``(N, H, W, C)`` input:
+        n, h, w, c, width, cout, projection; checked."""
+        n, h, w, c = shape
+        if c != self.c:
+            raise ValueError(f"{_NAME}: x has {c} channels, the weights take {self.c}")
+        if n * h * w * max(c, self.width, self.cout) >= 2 ** 31:
+            raise ValueError(f"{_NAME} indexes its maps in 32 bits: {n * h * w} "
+                             f"pixels of up to {max(c, self.width, self.cout)} "
+                             "channels are too many")
+        return [n, h, w, c, self.width, self.cout, int(self.wd is not None)]
+
+    def _args(self, x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool):
+        """``(pointers, ints, tensors to keep until the launch)``: the
+        kernel's flat arrays (x, out, the four weights, their K-major copies,
+        the rows, seven scratch buffers; 14 ints, then the row lengths);
+        raises on what the kernel does not take."""
         dev = x.device
         B._check_device(_NAME, dev, [out])
         if x.dtype not in B._FLOATS or out.dtype not in B._FLOATS:
@@ -150,32 +183,56 @@ class BottleneckDesc:
             raise ValueError(f"{_NAME} needs a contiguous NHWC x")
         prm = torch.bfloat16 if self.float_dtypes == {torch.bfloat16} else torch.float32
         wptrs, lens, keep = self._flat_args(prm, dev)
-        n, h, w, c = x.shape
-        if c != self.c:
-            raise ValueError(f"{_NAME}: x has {c} channels, the weights take {self.c}")
-        m, proj = n * h * w, self.wd is not None
+        ints = self._ints(x.shape)
+        m, c, proj = x.shape[0] * x.shape[1] * x.shape[2], self.c, self.wd is not None
         # xs, ds, hs1, hs2 (int8), then the int32 sums of conv1/conv2, conv3
         # and the projection
         scratch = B._carve(dev, [
             m * c, m * c if proj else 0, m * self.width, m * self.width,
             4 * m * self.width, 4 * m * self.cout, 4 * m * self.cout if proj else 0])
         ptrs = [x.data_ptr(), out.data_ptr()] + wptrs + scratch[1:]
-        ints = [n, h, w, c, self.width, self.cout, int(proj)]
         ints += [B.ACTS.index(a) for a in acts]
         ints += [int(zero_to_one), int(x.dtype == torch.bfloat16),
                  int(out.dtype == torch.bfloat16), int(prm == torch.bfloat16)] + lens
-        err = _entry()((ctypes.c_void_p * len(ptrs))(*ptrs),
-                       (ctypes.c_int * len(ints))(*ints),
-                       torch.cuda.current_stream(dev).cuda_stream)
+        return ptrs, ints, keep + [scratch[0]]
+
+    def _launch(self, x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool):
+        """One launch on CUDA tensors; raises on what the kernel does not
+        take and on a failed launch."""
+        ptrs, ints, keep = self._args(x, out, acts, zero_to_one)
+        err = _entry("bnn_fused_bottleneck")(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"{_NAME} kernel launch failed: CUDA error {err}")
 
+    def plan(self, x: torch.Tensor) -> dict:
+        """How the kernel splits this block's GEMMs for ``x`` (NHWC, on a
+        CUDA device): ``{"blocks": resident blocks of the launch, "conv1":
+        (tiles, K slices), "projection": ... or None, "conv2": ..., "conv3":
+        ...}``. A GEMM of one slice stores its sums (no zero pass, no
+        atomics); a one-slice conv3 also finishes the block in its tiles."""
+        B._check_cuda(_NAME, x.device)
+        out = (ctypes.c_int * 9)()
+        ints = self._ints(x.shape)
+        with torch.cuda.device(x.device):
+            err = _entry("bnn_fused_bottleneck_plan")((ctypes.c_int * len(ints))(*ints),
+                                                      out)
+        if err:
+            raise RuntimeError(f"{_NAME} plan failed: CUDA error {err}")
+        plan = {"blocks": out[0]}
+        for j, name in enumerate(GEMMS):
+            plan[name] = (out[1 + 2 * j], out[2 + 2 * j])
+        if self.wd is None:
+            plan["projection"] = None
+        return plan
+
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = load(_NAME).bnn_fused_bottleneck
+def _entry(symbol: str):
+    fn = getattr(load(_NAME), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (3 if symbol == "bnn_fused_bottleneck" else 2)
     return fn
 
 

@@ -8,15 +8,18 @@ Phases, each reported on its own lines:
 
 1. device and build: the card's name and power limit, then every CUDA
    kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel),
-   and the tensor-core, dot-product and popcount instructions in the SASS
-   of the three GEMM-shaped kernels and the five block kernels
-   (``fused_chain`` must show int8 tensor-core and no ``__dp4a``
-   instructions);
+   and the tensor-core, dot-product and popcount instructions (and all
+   instructions) in the SASS of the three GEMM-shaped kernels and the five
+   block kernels
+   (``fused_chain`` and ``fused_bottleneck`` must show int8 tensor-core and
+   no ``__dp4a`` instructions);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
    points take; ``fused_chain`` at each of ResNet-18's four stage shapes at
    batch 1 and 4, in bf16 and f32 with both option sets, and at widths that
-   its word loader takes (C % 16 != 0); ``binary_gemm`` bit for bit at each
+   its word loader takes (C % 16 != 0); ``fused_bottleneck`` at ResNet-50's
+   shapes, odd H and W, and widths where some of its GEMMs take the word
+   loader and others the 16-byte one; ``binary_gemm`` bit for bit at each
    of its tile and loader instances and at ragged shapes, each case naming
    the instance it took;
    ``binary_conv2d_s1`` bit for bit at each of its tile, loader and K-split
@@ -46,7 +49,9 @@ Phases, each reported on its own lines:
 4. every residual-block kernel call of the batch 1 and 4 serving paths
    (ResNet-18, ResNet-34 and ResNet-50), and every call of the three
    opt-in paths' kernels, captured with its own inputs and held against its
-   plain version as in phase 2; then times: each kernel's device time
+   plain version as in phase 2, with ``fused_bottleneck``'s launch plan
+   (tiles and K slices of each GEMM) at ResNet-50's 13 batch-4 calls; then
+   times: each kernel's device time
    (torch.profiler) and time per call (CUDA events) at the shapes the
    serving paths gave it, beside its plain version's, its bound and the
    one-call PyTorch yardstick where there is one (for ``binary_gemm``, a
@@ -56,8 +61,8 @@ Phases, each reported on its own lines:
    other tiles and splits; for ``popcount_gemm``, the same per distinct
    shape of path C's calls at batch 8 and at batch 1); the forward latency,
    images/s, device busy share and the kernels that take the time, of each
-   path; ``fused_chain``'s four ResNet-18 stages summed at batch 1 and 4,
-   beside their bounds;
+   path; ``fused_chain``'s four ResNet-18 stages and ``fused_bottleneck``'s
+   13 ResNet-50 calls summed at batch 1 and 4, beside their bounds;
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -126,8 +131,8 @@ SASS_OPS = {"IMMA": "IMMA", "BMMA": "BMMA", "IDP4A": "IDP", "POPC": "POPC"}
 
 def sass_counts(lib) -> tuple:
     """Int8 (IMMA) and 1-bit (BMMA) tensor-core, dot-product (IDP4A) and
-    popcount (POPC) instructions in a built library's SASS, from
-    ``cuobjdump -sass``: ``({opcode: count} or None, printable line)``."""
+    popcount (POPC) instructions in a built library's SASS, and the total,
+    from ``cuobjdump -sass``: ``({opcode: count} or None, printable line)``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -142,7 +147,7 @@ def sass_counts(lib) -> tuple:
             ops.append(words[0])
     counts = {name: sum(o.startswith(op) for o in ops) for name, op in SASS_OPS.items()}
     return counts, ", ".join(f"{v} {k}" for k, v in counts.items()) + \
-        " instructions in its SASS"
+        f" of {len(ops)} instructions in its SASS"
 
 
 # device_profile's key when every trace came back without device events
@@ -470,6 +475,12 @@ BOTTLENECKS = [
     ((1, 7, 7, 2048), 512, 2048, ("prelu", "identity", "relu"), True, True, True),
     ((2, 9, 11, 64), 32, 128, "prelu", False, True, False),          # odd H, W
 ]
+# channel counts off a multiple of 16, where a GEMM's rows load word by word:
+# conv1 on 16-byte rows, the 3x3 and conv3 on words; every GEMM on words
+WORD_BOTTLENECKS = [
+    ((1, 8, 8, 32), 12, 32, "relu", False, True, True),
+    ((2, 7, 9, 24), 20, 40, "prelu", True, True, False),
+]
 
 
 def rand_bottleneck(c, width, cout, gen, dev, dtype, *, prelu: bool,
@@ -504,14 +515,19 @@ def rand_bottleneck(c, width, cout, gen, dev, dtype, *, prelu: bool,
 
 def check_bottlenecks(kernels, gen, dev) -> float:
     """fused_bottleneck against its plain version on the card at
-    :data:`BOTTLENECKS`, in f32 and bf16."""
+    :data:`BOTTLENECKS` and :data:`WORD_BOTTLENECKS`, in f32 and bf16; the
+    word-loader cases draw from their own generator, so that the other
+    cases and the phases after this one draw what they drew before."""
     err = 0.0
-    for shape, width, cout, act, z21, thresholds, zeros in BOTTLENECKS:
+    gen_w = torch.Generator().manual_seed(SEED + 4)
+    for shape, width, cout, act, z21, thresholds, zeros, g in (
+            [case + (gen,) for case in BOTTLENECKS]
+            + [case + (gen_w,) for case in WORD_BOTTLENECKS]):
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=gen)
+            x = torch.randn(shape, generator=g)
             x = x.clamp_min(0.0) if zeros else x
             x = x.to(dev, dtype)
-            w1, w2, w3, kw = rand_bottleneck(shape[-1], width, cout, gen, dev,
+            w1, w2, w3, kw = rand_bottleneck(shape[-1], width, cout, g, dev,
                                              dtype, prelu="prelu" in act,
                                              thresholds=thresholds)
             kw.update(act=act, zero_to_one=z21)
@@ -1069,9 +1085,9 @@ def main() -> int:
                  "fused_bottleneck"):
         counts, line = sass_counts(_build._target(name))
         print(f"phase 1: lib{name}: {line}")
-        if name == "fused_chain" and counts is not None and (
+        if name in ("fused_chain", "fused_bottleneck") and counts is not None and (
                 counts["IMMA"] == 0 or counts["IDP4A"] > 0):
-            raise AssertionError(f"libfused_chain: {line}; its GEMM phases run "
+            raise AssertionError(f"lib{name}: {line}; its GEMM phases run "
                                  "on the int8 tensor cores, not __dp4a")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1366,6 +1382,12 @@ def main() -> int:
         for args, _ in capture_calls(kernels.BottleneckDesc, "__call__",
                                      lambda: pred50[b](xb)):
             desc, xh = args[0], args[1]
+            if b == 4:
+                plan = desc.plan(xh)
+                print(f"phase 4: ResNet-50 B=4 fused_bottleneck {tuple(xh.shape)} "
+                      f"-> {desc.cout} plan on {plan.pop('blocks')} resident "
+                      "blocks, (tiles, K slices) per GEMM: " + ", ".join(
+                          f"{k} {v}" for k, v in plan.items() if v is not None))
             record(f"fused_bottleneck@{b}",
                    f"ResNet-50 fused_bottleneck {tuple(xh.shape)} -> {desc.cout} bf16",
                    lambda a=args: a[0](*a[1:]),
@@ -1689,6 +1711,11 @@ def main() -> int:
     basic = summed("fused_basic_block")
     down = summed("fused_downsample_block")
     bneck = summed("fused_bottleneck@1")
+    bneck4 = summed("fused_bottleneck@4")
+    print(f"phase 4: fused_bottleneck, ResNet-50's 13 calls: batch 1 {bneck[0] * 1e3:.2f} "
+          f"us device (bound {bneck[2] * 1e3:.3f} us, {bneck[3]}); batch 4 "
+          f"{bneck4[0] * 1e3:.2f} us device (bound {bneck4[2] * 1e3:.3f} us, "
+          f"{bneck4[3]}) | {card}")
     print("phase 5: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``, with
-``--popcount``, ``popcount_gemm``, or with ``--chain``, ``fused_chain``) at
-the serving paths' shapes, for the checkout it is run from.
+``--popcount``, ``popcount_gemm``, with ``--chain``, ``fused_chain``, or with
+``--bottleneck``, ``fused_bottleneck``) at the serving paths' shapes, for the
+checkout it is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
 this script times any checkout whose kernels have the public signatures:
@@ -37,9 +38,20 @@ path A's (``fuse_entry``: ResNet-18's layers 2-4) at batch 1 and 4: random
 a random bf16 stage input, ReLU, torch-parity signs; the result held
 against ``fused_chain_reference`` (within one bf16 ulp, logits within 1e-5);
 the kernel's own device time per call beside its bound
-(``chip_smoke.chain_bound``). Prints the card line, one JSON line per shape
-(per call with ``--chain``), then one per path with the sums over a
-forward's calls. Exits 1 without CUDA.
+(``chip_smoke.chain_bound``). With ``--bottleneck``, for each distinct
+``fused_bottleneck`` call of ResNet-50's batch-1 and batch-4 forwards
+(layer1.0 with its projection, layer1.1-2, layer2.1-3, layer3.1-5,
+layer4.1-2): random +/-1 weights and bf16 epilogue rows from a seed
+(``chip_smoke.rand_bottleneck``), a random bf16 input, bf16 output, ReLU,
+torch-parity signs, through the public ``fused_bottleneck``; the result held
+against ``fused_bottleneck_reference`` (within one bf16 ulp); the kernel's
+own device time per call beside its bound (``chip_smoke.bottleneck_bound``)
+and, where the checkout has ``BottleneckDesc.plan``, the launch plan (tiles
+and K slices per GEMM). ``chip_smoke`` is imported from the checkout too, so
+a parent's run uses the parent's helpers. Prints the card line, one JSON
+line per shape (per call with ``--chain``), then one per path with the sums
+over a forward's calls (weighted by the calls per shape). Exits 1 without
+CUDA.
 """
 from __future__ import annotations
 
@@ -78,6 +90,11 @@ R18_STAGES = [((56, 64), ("basic",) * 2, 64, False),
               ((56, 64), ("down", "basic"), 128, False),
               ((28, 128), ("down", "basic"), 256, False),
               ((14, 256), ("down", "basic"), 512, True)]
+# (x shape at batch 1, width, C_out, calls per forward) of ResNet-50's 13
+# fused_bottleneck calls (its stride-1 blocks; a projection where C_out != C)
+BOTTLENECKS = [((56, 56, 64), 64, 256, 1), ((56, 56, 256), 64, 256, 2),
+               ((28, 28, 512), 128, 512, 3), ((14, 14, 1024), 256, 1024, 5),
+               ((7, 7, 2048), 512, 2048, 2)]
 CHAINS = {
     "ResNet-18 batch 1": (1, R18_STAGES),
     "ResNet-18 batch 4": (4, R18_STAGES),
@@ -124,6 +141,8 @@ def main() -> int:
                        help="time popcount_gemm at path C's shapes instead")
     which.add_argument("--chain", action="store_true",
                        help="time fused_chain at its serving calls instead")
+    which.add_argument("--bottleneck", action="store_true",
+                       help="time fused_bottleneck at ResNet-50's calls instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -144,6 +163,8 @@ def main() -> int:
         return time_popcounts(args.label, kernels, gen, dev, sms)
     if args.chain:
         return time_chains(args.label, kernels, gen, dev)
+    if args.bottleneck:
+        return time_bottlenecks(args.label, kernels, gen, dev)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -285,6 +306,41 @@ def time_chains(label, kernels, gen, dev) -> int:
             tot["kernel_us"] += row["kernel_us"]
             tot["bound_us"] += row["bound_us"]
         print(json.dumps({"label": label, "path": path, "calls": len(stages), **tot}))
+    return 0
+
+
+def time_bottlenecks(label, kernels, gen, dev) -> int:
+    """fused_bottleneck at ResNet-50's batch-1 and batch-4 calls, beside each
+    call's bound."""
+    from chip_smoke import bottleneck_bound, check_exact, rand_bottleneck
+
+    bf = torch.bfloat16
+    for n in (1, 4):
+        path = f"ResNet-50 batch {n}"
+        tot = {"kernel_us": 0.0, "bound_us": 0.0}
+        for (h, w, c), width, cout, calls in BOTTLENECKS:
+            w1, w2, w3, kw = rand_bottleneck(c, width, cout, gen, dev, bf, prelu=False,
+                                             thresholds=False)
+            x = torch.randn((n, h, w, c), generator=gen).to(dev, bf)
+            opts = dict(act="relu", zero_to_one=False)
+            run = lambda: kernels.fused_bottleneck(x, w1, w2, w3, **kw, **opts)
+            name = f"fused_bottleneck {tuple(x.shape)} width {width} -> {cout}"
+            check_exact(f"{label} {path} {name}", run(),
+                        kernels.fused_bottleneck_reference(x, w1, w2, w3, **kw, **opts),
+                        False, verbose=False)
+            rows = {k: v for k, v in kw.items() if k != "wd"}
+            desc = kernels.BottleneckDesc(c, w1, w2, w3, kw.get("wd"), rows)
+            bound, by = bottleneck_bound(x, desc)
+            row = {"label": label, "path": path, "call": name, "calls": calls,
+                   "exact": True,
+                   "plan": desc.plan(x) if hasattr(desc, "plan") else None,
+                   "kernel_us": device_us(run, "fused_bottleneck_kernel", per_call=1),
+                   "bound_us": bound * 1e3, "bound_by": by}
+            print(json.dumps(row))
+            tot["kernel_us"] += calls * row["kernel_us"]
+            tot["bound_us"] += calls * row["bound_us"]
+        print(json.dumps({"label": label, "path": path,
+                          "calls": sum(b[3] for b in BOTTLENECKS), **tot}))
     return 0
 
 
