@@ -4,200 +4,207 @@
 //
 // Replaces bnn_tpu/kernels/stem.py:fused_stem_v3 (and serves the v1 and v2
 // entry points, which compute the same function at other geometries). The
-// TPU kernels rearrange the image by space-to-depth so the conv becomes one
-// MXU contraction; here the conv is a direct convolution, because C <= 4
-// input channels give a 7x7xC = 196-deep dot per output that the CUDA cores
-// take as it is.
+// TPU kernels cast the weights to x's dtype and contract on the MXU with f32
+// sums; here the conv is an implicit GEMM on the bf16 tensor cores
+// (stem_common.cuh: mma.sync m16n8k16 over K = (ky, kx, c), channels padded
+// to 4), one pass for bf16 x and bf16 w, the serving dtype, and three or six
+// passes over exact bf16 pieces of f32 operands.
 //
-// x: (N, H, W, C) NHWC, bf16 or f32, C <= 4, H and W even; w: (7, 7, C, O)
-// HWIO f32; bias: (O,) f32; out: (N, H/4, W/4, O) in x's dtype. The sum is
-// f32 and the pool's padding is -inf.
+// x: (N, H, W, C) NHWC, bf16 or f32, C <= 4, H and W even; wk: the weights
+// as K-major bf16 pieces (pieces, o_pad, 208), kernels/stem.py's StemDesc;
+// bias: (o_pad,) f32; out: (N, H/4, W/4, O) in x's dtype.
 //
 // Bound on an H100 at (8, 224, 224, 3) bf16 -> (8, 56, 56, 64): 2.4 MB in and
 // 3.2 MB out (1.7 us at 3.35 TB/s) against 1.9 GFLOP (1.9 us at the bf16
-// tensor-core rate, 28 us at the 67 TFLOP/s f32 CUDA-core rate this kernel
-// uses). Design: one block computes a 7x7 tile of pooled outputs for 64
-// channels. It stages the 35x35 input window and the 7x7xCx64 weights in
-// shared memory, computes the 15x15 conv tile it needs with f32 FMAs (each
-// thread owns 4 positions x 8 channels in registers, so a weight load feeds
-// 4 FMAs and an input load 8), keeps relu(conv + bias) in shared memory and
-// pools from there. The 112x112x64 conv map never reaches device memory:
-// device traffic is one read of the input and one write of the output, plus
-// the 15/14 overlap of neighbouring tiles' input windows. The per-output
-// arithmetic is stem_common.cuh's, which fused_stem_chain.cu shares.
+// tensor-core rate). The padded K (208 for 147) and the tiles' overlap make
+// this design's own work about 3.1 GFLOP. Design: a block is two warps, one
+// work item at a time: `rows` pooled rows x 7 pooled columns x 64 channels
+// (the conv's 2 * rows + 1 rows x 16 columns). It stages the item's input
+// window in shared memory as bf16 pieces (4 channels a pixel, a pitch of 45
+// pixels: conflict-free 64-bit reads); each warp keeps the A fragments of
+// its 32 channels' weights in registers for the kernel's life (104 words a
+// lane, loaded once per block), streams the conv rows through the tensor
+// cores (2 window loads per 4 mma a k-step), and pools the sums as they
+// come: a running max down each pooled row's three conv rows in registers,
+// the 3-wide max across columns with one shuffle a value, then bias and
+// relu, stores from registers. The conv map never touches shared or device
+// memory. The grid is one block per item while they fit on the card at
+// once (each loops over items past that); `rows` is chosen per call
+// (stem::pick_rows): as many items in flight as the card holds, each as tall
+// as that allows. The arithmetic is stem_common.cuh's, which
+// fused_stem_chain.cu shares.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "stem_common.cuh"
 
 namespace {
 
-using stem::KS;                   // conv kernel extent
-constexpr int TP = 7;             // pooled rows / cols per block
-constexpr int CT = 2 * TP + 1;    // conv rows / cols per block
-constexpr int NPOS = CT * CT;     // conv positions per block
-constexpr int IT = 4 * TP + 7;    // input rows / cols per block
-constexpr int OCB = 64;           // output channels per block
-constexpr int THREADS = 512;
-constexpr int SLOTS = THREADS / 8;  // position slots (8 channel groups each)
-constexpr int PPT = 4;              // positions per thread
-static_assert(SLOTS * PPT >= NPOS, "conv tile does not fit the block");
+constexpr int WARPS = 2;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MT = 2;                  // m-tiles a warp: 32 channels
+constexpr int OCB = 16 * MT * WARPS;   // channels an item: 64
+constexpr int MAX_ROWS = 8;            // pooled rows an item, at most
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <typename T>
+__host__ __device__ constexpr int pieces() {
+  return sizeof(T) == 2 ? 1 : 3;
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <int C>
-constexpr size_t smem_bytes() {
-  return sizeof(float4) * IT * IT + sizeof(float) * KS * KS * C * OCB +
-         sizeof(float) * NPOS * OCB;
+size_t smem_bytes(int nx, int rows) {
+  return sizeof(uint2) * nx * (4 * rows + 7) * stem::WIN_W;
 }
 
-template <typename T, int C>
+template <typename T, int NW>
 __global__ void __launch_bounds__(THREADS)
-fused_stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, T* __restrict__ out, int H,
-                  int W, int O) {
-  extern __shared__ float4 smem[];
-  float4* s_in = smem;                                         // IT*IT
-  float* s_w = reinterpret_cast<float*>(s_in + IT * IT);       // 49*C*OCB
-  float* s_conv = s_w + KS * KS * C * OCB;                     // NPOS*OCB
+fused_stem_kernel(const T* __restrict__ x, const uint32_t* __restrict__ wk,
+                  const float* __restrict__ bias, T* __restrict__ out, int N,
+                  int H, int W, int C, int O, int o_pad, int rows) {
+  constexpr int NX = pieces<T>();
+  extern __shared__ uint2 win[];  // NX pieces of (4 * rows + 7) x WIN_W
+  const int hc = H / 2, wc = W / 2, hp = hc / 2, wp = wc / 2;
+  const int tiles_y = (hp + rows - 1) / rows;
+  const int tiles_x = (wp + stem::PC - 1) / stem::PC;
+  const int groups = o_pad / OCB;
+  const int items = N * tiles_y * tiles_x * groups;
+  const int piece_px = (4 * rows + 7) * stem::WIN_W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int hc = H / 2, wc = W / 2;    // conv map
-  const int hp = hc / 2, wpool = wc / 2;  // pooled map
-  const int p0 = blockIdx.y * TP, q0 = blockIdx.x * TP;
-  const int groups = (O + OCB - 1) / OCB;
-  const int n = blockIdx.z / groups;
-  const int oc0 = (blockIdx.z % groups) * OCB;
-  const int tid = threadIdx.x;
-
-  // input window: conv row 2*p0 - 1 + lr reads input rows 4*p0 - 5 + 2*lr + ky
-  const int r0 = 4 * p0 - 5, c0 = 4 * q0 - 5;
-  for (int i = tid; i < IT * IT; i += THREADS) {
-    const int rr = r0 + i / IT, cc = c0 + i % IT;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (rr >= 0 && rr < H && cc >= 0 && cc < W) {
-      const T* px = x + ((static_cast<size_t>(n) * H + rr) * W + cc) * C;
+  stem::Tile<NX, NW, MT> tile;
+  float brow[MT][2];
+  int loaded = -1;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int r = it;
+    const int grp = r % groups;
+    r /= groups;
+    const int q0 = (r % tiles_x) * stem::PC;
+    r /= tiles_x;
+    const int p0 = (r % tiles_y) * rows, n = r / tiles_y;
+    const int o0 = grp * OCB + warp * 16 * MT;
+    if (grp != loaded) {  // once per block where O <= 64
+      tile.load(wk, o_pad, o0);
 #pragma unroll
-      for (int c = 0; c < C; ++c) v[c] = to_float(px[c]);
-    }
-    s_in[i] = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  // weights: s_w[(tap * C + c) * OCB + o], zero past O
-  for (int i = tid; i < KS * KS * C * OCB; i += THREADS) {
-    const int o = i % OCB, tc = i / OCB;
-    const int oc = oc0 + o;
-    s_w[i] = oc < O ? w[static_cast<size_t>(tc) * O + oc] : 0.f;
-  }
-  __syncthreads();
-
-  const int g = tid & 7;      // channels g*8 .. g*8+7 of this block
-  const int slot = tid >> 3;  // positions slot + SLOTS * q
-  int lr[PPT], lc[PPT];
-  float acc[PPT][8];
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    const int pos = min(slot + SLOTS * q, NPOS - 1);
-    lr[q] = pos / CT;
-    lc[q] = pos % CT;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[q][j] = 0.f;
-  }
-  for (int ky = 0; ky < KS; ++ky) {
-#pragma unroll
-    for (int kx = 0; kx < KS; ++kx) {
-      float4 xin[PPT];
-#pragma unroll
-      for (int q = 0; q < PPT; ++q)
-        xin[q] = s_in[(2 * lr[q] + ky) * IT + 2 * lc[q] + kx];
-      const float* wt = s_w + (ky * KS + kx) * C * OCB + g * 8;
-      float wr[C][8];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 wa = *reinterpret_cast<const float4*>(wt + c * OCB);
-        const float4 wb = *reinterpret_cast<const float4*>(wt + c * OCB + 4);
-        wr[c][0] = wa.x; wr[c][1] = wa.y; wr[c][2] = wa.z; wr[c][3] = wa.w;
-        wr[c][4] = wb.x; wr[c][5] = wb.y; wr[c][6] = wb.z; wr[c][7] = wb.w;
+        for (int h = 0; h < 2; ++h) brow[m][h] = bias[o0 + 16 * m + 8 * h + (lane >> 2)];
       }
-      stem::tap<C, PPT, 8>(acc, xin, wr);
+      loaded = grp;
     }
-  }
-  // relu(conv + bias); conv positions outside the map are the pool's -inf pad
-#pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    const int pos = slot + SLOTS * q;
-    if (pos >= NPOS) continue;
-    const int cr = 2 * p0 - 1 + lr[q], cc = 2 * q0 - 1 + lc[q];
-    const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int oc = oc0 + g * 8 + j;
-      const float b = oc < O ? bias[oc] : 0.f;
-      s_conv[pos * OCB + g * 8 + j] =
-          inside ? stem::relu_bias(acc[q][j], b) : -CUDART_INF_F;
-    }
-  }
-  __syncthreads();
-
-  // pooled (p0 + pr, q0 + pc) takes local conv rows 2pr..2pr+2, cols 2pc..2pc+2
-  for (int i = tid; i < TP * TP * OCB; i += THREADS) {
-    const int o = i % OCB, pp = i / OCB;
-    const int pr = pp / TP, pc = pp % TP;
-    const int p = p0 + pr, qq = q0 + pc, oc = oc0 + o;
-    if (p >= hp || qq >= wpool || oc >= O) continue;
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        m = fmaxf(m, s_conv[((2 * pr + dy) * CT + 2 * pc + dx) * OCB + o]);
-    store(out + ((static_cast<size_t>(n) * hp + p) * wpool + qq) * O + oc, m);
+    const int prows = min(rows, hp - p0);
+    __syncthreads();  // the previous item is done with the window
+    // conv row 2*p0 - 1 + i reads input rows 4*p0 - 5 + 2*i + ky
+    stem::load_window<T, NX>(win, piece_px, x, n, H, W, C, 4 * p0 - 5,
+                             4 * q0 - 5, 4 * prows + 7);
+    __syncthreads();
+    auto store = [&](int k, int j, int ch, float v) {
+      const int p = p0 + k, q = q0 + j, o = o0 + ch;
+      if (p < hp && q < wp && o < O) {
+        store1(out + ((static_cast<size_t>(n) * hp + p) * wp + q) * O + o, v);
+      }
+    };
+    stem::pooled_rows(tile, win, piece_px, brow, p0, q0, prows, hc, wc, store);
   }
 }
 
-template <typename T, int C>
-int launch(const void* x, const void* w, const void* bias, void* out, int N,
-           int H, int W, int O, cudaStream_t stream) {
-  const size_t smem = smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_stem_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int hp = H / 4, wpool = W / 4;
-  const dim3 grid((wpool + TP - 1) / TP, (hp + TP - 1) / TP,
-                  N * ((O + OCB - 1) / OCB));
-  fused_stem_kernel<T, C><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(out), H, W, O);
+struct Plan {
+  int rows, items, grid, per_sm;
+};
+
+template <typename T, int NW>
+int plan_launch(int N, int H, int W, int o_pad, Plan& pl) {
+  static int sms = 0;
+  static int per_sm[MAX_ROWS + 1] = {};
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    for (int r = 1; r <= MAX_ROWS; ++r) {
+      cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[r], fused_stem_kernel<T, NW>, THREADS,
+          smem_bytes(pieces<T>(), r));
+      if (err != cudaSuccess) {
+        sms = 0;
+        return static_cast<int>(err);
+      }
+    }
+  }
+  const int hp = H / 4, wp = W / 4, groups = o_pad / OCB;
+  pl.rows = stem::pick_rows(N, hp, wp, groups, MAX_ROWS,
+                            [&](int r) { return per_sm[r] * sms; });
+  pl.per_sm = per_sm[pl.rows];
+  if (pl.per_sm <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  pl.items = N * ((hp + pl.rows - 1) / pl.rows) *
+             ((wp + stem::PC - 1) / stem::PC) * groups;
+  pl.grid = std::min(pl.items, pl.per_sm * sms);
+  return 0;
+}
+
+template <typename T, int NW>
+int launch(const void* x, const void* wk, const void* bias, void* out, int N,
+           int H, int W, int C, int O, int o_pad, cudaStream_t stream,
+           Plan* plan_only) {
+  Plan pl{};
+  const int err = plan_launch<T, NW>(N, H, W, o_pad, pl);
+  if (err || plan_only) {
+    if (plan_only) *plan_only = pl;
+    return err;
+  }
+  if (pl.items == 0) return 0;
+  fused_stem_kernel<T, NW><<<pl.grid, THREADS, smem_bytes(pieces<T>(), pl.rows),
+                             stream>>>(
+      static_cast<const T*>(x), static_cast<const uint32_t*>(wk),
+      static_cast<const float*>(bias), static_cast<T*>(out), N, H, W, C, O,
+      o_pad, pl.rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_c(const void* x, const void* w, const void* bias, void* out,
-               int N, int H, int W, int C, int O, cudaStream_t stream) {
-  switch (C) {
-    case 1: return launch<T, 1>(x, w, bias, out, N, H, W, O, stream);
-    case 2: return launch<T, 2>(x, w, bias, out, N, H, W, O, stream);
-    case 3: return launch<T, 3>(x, w, bias, out, N, H, W, O, stream);
-    case 4: return launch<T, 4>(x, w, bias, out, N, H, W, O, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(const void* x, int x_bf16, const void* wk, int w_pieces,
+             const void* bias, void* out, int N, int H, int W, int C, int O,
+             int o_pad, void* stream, Plan* plan_only) {
+  if (C < 1 || C > 4 || H % 4 || W % 4 || o_pad % OCB || O > o_pad ||
+      (w_pieces != 1 && w_pieces != 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    return w_pieces == 1
+               ? launch<__nv_bfloat16, 1>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only)
+               : launch<__nv_bfloat16, 3>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only);
+  }
+  return w_pieces == 1
+             ? launch<float, 1>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only)
+             : launch<float, 3>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only);
 }
 
 }  // namespace
 
 // Launches on `stream`; returns the CUDA error code (0 on success).
-extern "C" int bnn_fused_stem(const void* x, int x_bf16, const void* w,
-                              const void* bias, void* out, int N, int H, int W,
-                              int C, int O, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) return dispatch_c<__nv_bfloat16>(x, w, bias, out, N, H, W, C, O, s);
-  return dispatch_c<float>(x, w, bias, out, N, H, W, C, O, s);
+extern "C" int bnn_fused_stem(const void* x, int x_bf16, const void* wk,
+                              int w_pieces, const void* bias, void* out, int N,
+                              int H, int W, int C, int O, int o_pad,
+                              void* stream) {
+  return dispatch(x, x_bf16, wk, w_pieces, bias, out, N, H, W, C, O, o_pad,
+                  stream, nullptr);
+}
+
+// The launch bnn_fused_stem would make: plan = {pooled rows an item, items,
+// blocks, blocks an SM}. Returns the CUDA error code.
+extern "C" int bnn_fused_stem_plan(int x_bf16, int w_pieces, int N, int H,
+                                   int W, int C, int O, int o_pad, int* plan) {
+  Plan pl{};
+  const int err = dispatch(nullptr, x_bf16, nullptr, w_pieces, nullptr,
+                           nullptr, N, H, W, C, O, o_pad, nullptr, &pl);
+  plan[0] = pl.rows;
+  plan[1] = pl.items;
+  plan[2] = pl.grid;
+  plan[3] = pl.per_sm;
+  return err;
 }

@@ -15,13 +15,14 @@
 // stem_common.cuh's arithmetic, whatever the tile, and the integer sums are
 // exact in any order.
 //
-// The stem's tile is not fused_stem.cu's: that kernel runs 512 threads with
-// about 112 KB of dynamic shared memory, while a cooperative grid here is
-// sized for bnn::THREADS (128) threads and the blocks' static shared
-// memory. A stem work item is 4x4 pooled outputs (9x9 conv positions from a
-// 23x23 input window) for 16 channels: 26 KB of shared memory, in a union
-// with the block phases' GEMM tiles. Each thread owns 3 positions x 4
-// channels in registers.
+// The stem phase runs stem_common.cuh's tile, as fused_stem.cu does, on its
+// own tiling: the cooperative grid is sized for bnn::THREADS (128) threads,
+// the blocks' registers and their static shared memory. A stem work item is
+// `rows` (at most 4) pooled rows x 7 pooled columns x 64 channels; each of
+// the four warps takes 16 channels (their weights' A fragments in registers,
+// 52 words a lane) through the item's 2 * rows + 1 conv rows. The window (up
+// to three bf16 pieces of 23 rows at a pitch of 45 pixels, 24,840 bytes)
+// shares a union with the block phases' GEMM tiles.
 //
 // Bound on an H100 at (1, 224, 224, 3) bf16 with ResNet-18's layer1: 0.30 MB
 // in, 0.40 MB out, 0.15 MB of int8 weights (0.26 us at 3.35 TB/s) against
@@ -34,19 +35,13 @@
 
 namespace {
 
-constexpr int SP = 4;                                // pooled rows / cols per item
-constexpr int SCT = 2 * SP + 1;                      // conv rows / cols per item
-constexpr int SNPOS = SCT * SCT;                     // conv positions per item
-constexpr int SIT = 4 * SP + 7;                      // input rows / cols per item
-constexpr int SOC = 16;                              // output channels per item
-constexpr int SJ = 4;                                // channels per thread
-constexpr int SSLOTS = bnn::THREADS / (SOC / SJ);    // position slots
-constexpr int SPPT = (SNPOS + SSLOTS - 1) / SSLOTS;  // positions per thread
+constexpr int SMT = 1;                                // m-tiles a warp: 16 channels
+constexpr int SOCB = 16 * SMT * (bnn::THREADS / 32);  // channels an item: 64
+constexpr int SMAX_ROWS = 4;                          // pooled rows an item, at most
+constexpr int SPIECE_PX = (4 * SMAX_ROWS + 7) * stem::WIN_W;  // window pixels a piece
 
 struct StemSmem {
-  float4 in[SIT * SIT];                  // input window, channels in lanes
-  float w[stem::KS * stem::KS * 4 * SOC];  // [(tap * C + c) * SOC + o]
-  float conv[SNPOS * SOC];               // relu(conv + bias), -inf outside
+  uint2 win[3 * SPIECE_PX];  // up to three x pieces, 4 bf16 channels a pixel
 };
 
 union Shared {
@@ -57,124 +52,79 @@ union Shared {
 struct Params {
   bnn::ChainParams chain;  // chain.x is the stem's output (scratch)
   const void* x;           // (N, H, W, C) raw input, C <= 4
-  const float* w;          // (7, 7, C, O)
-  const float* bias;       // (O,)
-  int H, W, C, x_bf16;
+  const uint32_t* wk;      // K-major bf16 pieces (w_pieces, o_pad, 208)
+  const float* bias;       // (o_pad,)
+  int H, W, C, x_bf16, w_pieces, o_pad, rows;
 };
 
-// One stem item: pooled rows p0.., cols q0.. of image n, channels oc0..
-template <int C>
-__device__ void stem_item(const Params& p, int item, StemSmem& sm) {
+// Every stem item of the grid: pooled rows p0 .. p0 + rows - 1, columns
+// q0 .. q0 + 6 of image n, channels in groups of 64.
+template <typename T, int NW>
+__device__ void run_stem_t(const Params& p, StemSmem& sm) {
+  constexpr int NX = sizeof(T) == 2 ? 1 : 3;
   const int O = p.chain.blk[0].ci;
   const int hc = p.H / 2, wc = p.W / 2, hp = hc / 2, wp = wc / 2;
-  const int groups = (O + SOC - 1) / SOC;
-  const int tiles_x = (wp + SP - 1) / SP, tiles_y = (hp + SP - 1) / SP;
-  int r = item;
-  const int oc0 = (r % groups) * SOC;
-  r /= groups;
-  const int q0 = (r % tiles_x) * SP;
-  r /= tiles_x;
-  const int p0 = (r % tiles_y) * SP, n = r / tiles_y;
-  const int tid = threadIdx.x;
-
-  __syncthreads();  // the previous item is done with the shared memory
-  // conv row 2*p0 - 1 + lr reads input rows 4*p0 - 5 + 2*lr + ky
-  const int r0 = 4 * p0 - 5, c0 = 4 * q0 - 5;
-  for (int i = tid; i < SIT * SIT; i += bnn::THREADS) {
-    const int rr = r0 + i / SIT, cc = c0 + i % SIT;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (rr >= 0 && rr < p.H && cc >= 0 && cc < p.W) {
-      const size_t base = ((static_cast<size_t>(n) * p.H + rr) * p.W + cc) * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c) v[c] = bnn::ldf(p.x, base + c, p.x_bf16);
-    }
-    sm.in[i] = make_float4(v[0], v[1], v[2], v[3]);
-  }
-  for (int i = tid; i < stem::KS * stem::KS * C * SOC; i += bnn::THREADS) {
-    const int o = i % SOC, tc = i / SOC, oc = oc0 + o;
-    sm.w[i] = oc < O ? p.w[static_cast<size_t>(tc) * O + oc] : 0.f;
-  }
-  __syncthreads();
-
-  const int g = tid % (SOC / SJ);     // channels g*SJ .. g*SJ+SJ-1 of the item
-  const int slot = tid / (SOC / SJ);  // positions slot + SSLOTS * q
-  int lr[SPPT], lc[SPPT];
-  float acc[SPPT][SJ];
-#pragma unroll
-  for (int q = 0; q < SPPT; ++q) {
-    const int pos = min(slot + SSLOTS * q, SNPOS - 1);
-    lr[q] = pos / SCT;
-    lc[q] = pos % SCT;
-#pragma unroll
-    for (int j = 0; j < SJ; ++j) acc[q][j] = 0.f;
-  }
-  for (int ky = 0; ky < stem::KS; ++ky) {
-#pragma unroll
-    for (int kx = 0; kx < stem::KS; ++kx) {
-      float4 xin[SPPT];
-#pragma unroll
-      for (int q = 0; q < SPPT; ++q) {
-        xin[q] = sm.in[(2 * lr[q] + ky) * SIT + 2 * lc[q] + kx];
-      }
-      const float* wt = sm.w + (ky * stem::KS + kx) * C * SOC + g * SJ;
-      float wr[C][SJ];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 w4 = *reinterpret_cast<const float4*>(wt + c * SOC);
-        wr[c][0] = w4.x; wr[c][1] = w4.y; wr[c][2] = w4.z; wr[c][3] = w4.w;
-      }
-      stem::tap<C, SPPT, SJ>(acc, xin, wr);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < SPPT; ++q) {
-    const int pos = slot + SSLOTS * q;
-    if (pos >= SNPOS) continue;
-    const int cr = 2 * p0 - 1 + lr[q], cc = 2 * q0 - 1 + lc[q];
-    const bool inside = cr >= 0 && cr < hc && cc >= 0 && cc < wc;
-#pragma unroll
-    for (int j = 0; j < SJ; ++j) {
-      const int oc = oc0 + g * SJ + j;
-      const float b = oc < O ? p.bias[oc] : 0.f;
-      sm.conv[pos * SOC + g * SJ + j] =
-          inside ? stem::relu_bias(acc[q][j], b) : -CUDART_INF_F;
-    }
-  }
-  __syncthreads();
-
-  // pooled (p0 + pr, q0 + pc) takes local conv rows 2pr..2pr+2, cols 2pc..2pc+2
+  const int tiles_y = (hp + p.rows - 1) / p.rows;
+  const int tiles_x = (wp + stem::PC - 1) / stem::PC;
+  const int groups = p.o_pad / SOCB;
+  const int items = p.chain.n * tiles_y * tiles_x * groups;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* x = static_cast<const T*>(p.x);
   void* out = const_cast<void*>(p.chain.x);
-  for (int i = tid; i < SP * SP * SOC; i += bnn::THREADS) {
-    const int o = i % SOC, pp = i / SOC, pr = pp / SP, pc = pp % SP;
-    const int pq = p0 + pr, qq = q0 + pc, oc = oc0 + o;
-    if (pq >= hp || qq >= wp || oc >= O) continue;
-    float m = -CUDART_INF_F;
+
+  stem::Tile<NX, NW, SMT> tile;
+  float brow[SMT][2];
+  int loaded = -1;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int r = it;
+    const int grp = r % groups;
+    r /= groups;
+    const int q0 = (r % tiles_x) * stem::PC;
+    r /= tiles_x;
+    const int p0 = (r % tiles_y) * p.rows, n = r / tiles_y;
+    const int o0 = grp * SOCB + warp * 16 * SMT;
+    if (grp != loaded) {
+      tile.load(p.wk, p.o_pad, o0);
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
+      for (int m = 0; m < SMT; ++m) {
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        m = fmaxf(m, sm.conv[((2 * pr + dy) * SCT + 2 * pc + dx) * SOC + o]);
-    bnn::stf(out, ((static_cast<size_t>(n) * hp + pq) * wp + qq) * O + oc, m,
-             p.chain.x_bf16);
+        for (int h = 0; h < 2; ++h) brow[m][h] = p.bias[o0 + 16 * m + 8 * h + (lane >> 2)];
+      }
+      loaded = grp;
+    }
+    const int prows = min(p.rows, hp - p0);
+    __syncthreads();  // the previous item is done with the window
+    stem::load_window<T, NX>(sm.win, SPIECE_PX, x, n, p.H, p.W, p.C, 4 * p0 - 5,
+                             4 * q0 - 5, 4 * prows + 7);
+    __syncthreads();
+    auto store = [&](int k, int j, int ch, float v) {
+      const int pq = p0 + k, qq = q0 + j, o = o0 + ch;
+      if (pq < hp && qq < wp && o < O) {
+        bnn::stf(out, ((static_cast<size_t>(n) * hp + pq) * wp + qq) * O + o, v,
+                 p.chain.x_bf16);
+      }
+    };
+    stem::pooled_rows(tile, sm.win, SPIECE_PX, brow, p0, q0, prows, hc, wc, store);
   }
 }
 
 __device__ void run_stem(const Params& p, StemSmem& sm) {
-  const int O = p.chain.blk[0].ci;
-  const int hp = p.H / 4, wp = p.W / 4;
-  const int items = p.chain.n * ((hp + SP - 1) / SP) * ((wp + SP - 1) / SP) *
-                    ((O + SOC - 1) / SOC);
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    switch (p.C) {
-      case 1: stem_item<1>(p, it, sm); break;
-      case 2: stem_item<2>(p, it, sm); break;
-      case 3: stem_item<3>(p, it, sm); break;
-      default: stem_item<4>(p, it, sm); break;
+  if (p.x_bf16) {
+    if (p.w_pieces == 1) {
+      run_stem_t<__nv_bfloat16, 1>(p, sm);
+    } else {
+      run_stem_t<__nv_bfloat16, 3>(p, sm);
     }
+  } else if (p.w_pieces == 1) {
+    run_stem_t<float, 1>(p, sm);
+  } else {
+    run_stem_t<float, 3>(p, sm);
   }
 }
 
-__global__ void __launch_bounds__(bnn::THREADS)
+// At most 128 registers a thread, as the block phases take: four blocks an
+// SM, whatever the stem phase would ask for.
+__global__ void __launch_bounds__(bnn::THREADS, 4)
 fused_stem_chain_kernel(const __grid_constant__ Params p) {
   __shared__ Shared sm;
   bnn::cg::grid_group grid = bnn::cg::this_grid();
@@ -197,35 +147,80 @@ fused_stem_chain_kernel(const __grid_constant__ Params p) {
 
 int capacity = 0;
 
-}  // namespace
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
 
-// The stem and a chain of stride-1 basic blocks. The arguments are
-// bnn_common.cuh's flat arrays (see setup()), whose x is the stem's output
-// scratch ((N, H/4, W/4, O) in the IO dtype, x_bf16 its type), followed by
-// three more pointers (the raw input, the f32 (7, 7, C, O) stem weights, the
-// f32 (O,) bias) and four more ints (H, W, C, input_bf16). Returns the CUDA
-// error code.
-extern "C" int bnn_fused_stem_chain(int nblocks, const void* const* ptrs,
-                                    const int* ints, void* stream) {
-  Params p{};
+// The stem phase's work for n images of hp x wp pooled outputs into o_pad
+// channels: plan = {pooled rows an item, items, blocks (the cooperative
+// grid), blocks an SM}. The launch takes its rows from here, and so does
+// bnn_fused_stem_chain_plan. Returns the CUDA error code.
+int stem_plan(int n, int hp, int wp, int o_pad, int* plan) {
+  const int cap = bnn::grid_capacity(
+      reinterpret_cast<const void*>(&fused_stem_chain_kernel), &capacity);
+  plan[0] = stem::pick_rows(n, hp, wp, o_pad / SOCB, SMAX_ROWS,
+                            [&](int) { return cap; });
+  plan[1] = n * ((hp + plan[0] - 1) / plan[0]) *
+            ((wp + stem::PC - 1) / stem::PC) * (o_pad / SOCB);
+  plan[2] = cap;
+  plan[3] = cap / sm_count();
+  return cap > 0 ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
+}
+
+int setup_stem(Params& p, int nblocks, const void* const* ptrs,
+               const int* ints) {
   const int err = bnn::setup(p.chain, nblocks, ptrs, ints);
   if (err) return err;
   const void* const* sp = ptrs + nblocks * bnn::BLOCK_PTRS + 12;
   const int* si = ints + nblocks * bnn::BLOCK_INTS + 11;
   p.x = sp[0];
-  p.w = static_cast<const float*>(sp[1]);
+  p.wk = static_cast<const uint32_t*>(sp[1]);
   p.bias = static_cast<const float*>(sp[2]);
   p.H = si[0];
   p.W = si[1];
   p.C = si[2];
   p.x_bf16 = si[3];
+  p.w_pieces = si[4];
+  p.o_pad = si[5];
   if (p.C < 1 || p.C > 4 || p.H % 4 || p.W % 4 || p.H / 4 != p.chain.h ||
-      p.W / 4 != p.chain.w || p.chain.classes != 0) {
+      p.W / 4 != p.chain.w || p.chain.classes != 0 || p.o_pad % SOCB ||
+      p.chain.blk[0].ci > p.o_pad || (p.w_pieces != 1 && p.w_pieces != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int i = 0; i < nblocks; ++i) {
     if (p.chain.blk[i].down) return static_cast<int>(cudaErrorInvalidValue);
   }
+  int plan[4];
+  const int plan_err = stem_plan(p.chain.n, p.chain.h, p.chain.w, p.o_pad, plan);
+  p.rows = plan[0];
+  return plan_err;
+}
+
+}  // namespace
+
+// The stem and a chain of stride-1 basic blocks. The arguments are
+// bnn_common.cuh's flat arrays (see setup()), whose x is the stem's output
+// scratch ((N, H/4, W/4, O) in the IO dtype, x_bf16 its type), followed by
+// three more pointers (the raw input, the K-major bf16 stem weight pieces
+// (w_pieces, o_pad, 208), the f32 (o_pad,) bias) and six more ints (H, W, C,
+// input_bf16, w_pieces, o_pad). Returns the CUDA error code.
+extern "C" int bnn_fused_stem_chain(int nblocks, const void* const* ptrs,
+                                    const int* ints, void* stream) {
+  Params p{};
+  const int err = setup_stem(p, nblocks, ptrs, ints);
+  if (err) return err;
   return bnn::launch(reinterpret_cast<const void*>(&fused_stem_chain_kernel),
                      &capacity, p, stream);
+}
+
+// stem_plan for a batch of n images of H x W into o_pad channels.
+extern "C" int bnn_fused_stem_chain_plan(int n, int H, int W, int o_pad,
+                                         int* plan) {
+  return stem_plan(n, H / 4, W / 4, o_pad, plan);
 }

@@ -49,6 +49,7 @@ from ..ops.binarizers import (
     XNORScaleBinarizer,
     XNORWeightBinarizer,
 )
+from ..utils.padding import pad_same, static_same_pads
 
 __all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl"]
 
@@ -202,12 +203,18 @@ class DeployedConv(nn.Module):
         self.padding = layer.padding
         self.dilation = tuple(layer.dilation)
         self.groups = layer.groups
-        if isinstance(self.padding, str):
-            if self.padding != "valid" and any(k != 1 for k in self.kernel_size):
-                raise NotImplementedError(
-                    f"padding={self.padding!r} on a deployed conv")
+        # a string padding resolves as lax resolves it: 'valid' is zeros;
+        # 'same' is symmetric pads where they hold for every input size,
+        # else kept as 'same' and padded per call (_patches)
+        if self.padding == "valid":
             self.padding = (0,) * len(self.kernel_size)
-        self.padding = tuple(self.padding)
+        elif self.padding == "same":
+            self.padding = static_same_pads(self.kernel_size, self.stride,
+                                            self.dilation) or "same"
+        elif isinstance(self.padding, str):
+            raise ValueError(f"unknown padding {self.padding!r}")
+        if self.padding != "same":
+            self.padding = tuple(self.padding)
 
         with torch.no_grad():
             w_eff = _effective_weight(layer)
@@ -263,10 +270,15 @@ class DeployedConv(nn.Module):
         return _sign(x, thr, self.zero_to_one, dtype)
 
     def _patches(self, xs: torch.Tensor):
-        """``(N * L, K)`` patches in channel-major K order, plus the output
-        spatial shape."""
+        """``(N * L, K)`` patches of the signed ``xs`` in channel-major K
+        order, plus the output spatial shape. A per-call ``'same'`` pads the
+        signed values here, so that padded taps add 0, not sign(0)."""
+        padding = self.padding
+        if padding == "same":
+            xs = pad_same(xs, self.kernel_size, self.stride, self.dilation)
+            padding = (0,) * len(self.kernel_size)
         x4, ks, st, pd, dl = _as_2d(xs, self.kernel_size, self.stride,
-                                    self.padding, self.dilation)
+                                    padding, self.dilation)
         n, _, h, w = x4.shape
         oh = (h + 2 * pd[0] - dl[0] * (ks[0] - 1) - 1) // st[0] + 1
         ow = (w + 2 * pd[1] - dl[1] * (ks[1] - 1) - 1) // st[1] + 1

@@ -259,7 +259,8 @@ class FusedEntry(nn.Module):
     The kernel runs iff the batch is at most the stage's cap, H % 16 == 0
     and W % 8 == 0; otherwise ``stage(stem(x))``, the held
     :class:`~bnn_tpu_torch.inference.stem.FusedStem` and :class:`FusedStage`
-    (same arrays), runs. The kernel rounds the stem's output to the IO dtype
+    (same arrays), runs. The kernel reads the stem's descriptor that the
+    held ``FusedStem`` keeps, and rounds the stem's output to the IO dtype
     where the split pipeline's kernel boundary rounds it, so both give the
     same bits.
     """
@@ -273,11 +274,11 @@ class FusedEntry(nn.Module):
         n, _, h, w = x.shape
         if n > self.stage.max_fused_batch or h % 16 or w % 8:
             return self.stage(self.stem(x))
-        inner = _inner(self.stem.conv)
+        desc = self.stem.desc()
         y = fused_stem_chain(
-            x.permute(0, 2, 3, 1).contiguous(), inner.weight.permute(2, 3, 1, 0),
-            inner.bias, self.stage._params(), act=self.stage._acts,
-            pre=self.stage.pre, zero_to_one=self.stage._z21, out_dtype=x.dtype)
+            x.permute(0, 2, 3, 1).contiguous(), desc.w, desc.bias,
+            self.stage._params(), act=self.stage._acts, pre=self.stage.pre,
+            zero_to_one=self.stage._z21, out_dtype=x.dtype, stem=desc)
         return y.permute(0, 3, 1, 2)
 
 

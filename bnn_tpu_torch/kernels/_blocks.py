@@ -285,10 +285,11 @@ def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
            bfc: Optional[torch.Tensor] = None, stem=None) -> None:
     """One launch of kernel ``name`` on CUDA tensors; raises on what the
     kernel does not take and on a failed launch. ``stem``, for
-    fused_stem_chain: ``(raw NHWC input, f32 (7, 7, C, O) weights, f32 (O,)
-    bias)``, whose pooled output the kernel writes into ``x``."""
+    fused_stem_chain: ``(raw NHWC input, its StemDesc)``, whose pooled output
+    the kernel writes into ``x``."""
     dev = x.device
-    _check_device(name, dev, [out, wfc, bfc] + list(stem or []))
+    stem_tensors = [] if stem is None else [stem[0], stem[1].wk, stem[1].bias_f32]
+    _check_device(name, dev, [out, wfc, bfc] + stem_tensors)
     if x.dtype not in _FLOATS or out.dtype not in _FLOATS:
         raise TypeError(f"{name} takes f32/bf16 x and output, got {x.dtype} "
                         f"and {out.dtype}")
@@ -342,10 +343,10 @@ def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
              int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
              int(prm_dtype == torch.bfloat16), classes]
     if stem is not None:
-        sx, sw, sb = stem
-        ptrs += [sx.data_ptr(), sw.data_ptr(), sb.data_ptr()]
+        sx, sd = stem
+        ptrs += [sx.data_ptr(), sd.wk.data_ptr(), sd.bias_f32.data_ptr()]
         ints += [sx.shape[1], sx.shape[2], sx.shape[3],
-                 int(sx.dtype == torch.bfloat16)]
+                 int(sx.dtype == torch.bfloat16), sd.w_pieces, sd.o_pad]
     err = _entry(name)(len(descs), (ctypes.c_void_p * len(ptrs))(*ptrs),
                        (ctypes.c_int * len(ints))(*ints),
                        torch.cuda.current_stream(dev).cuda_stream)

@@ -27,13 +27,14 @@ layer1's stride-1 blocks, as one launch of ``csrc/fused_stem_chain.cu``
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
 
 from . import _blocks as B
 from .block import fused_basic_block_reference
-from .stem import _check_geometry, _f32_operands, fused_stem_reference
+from .stem import StemDesc, _check_geometry, fused_stem_reference, stem_key
 from .strided_block import (_transform_w1, _untransform_w1,
                             fused_downsample_block_reference)
 
@@ -277,6 +278,7 @@ def fused_stem_chain(
     pre: bool = False,
     zero_to_one: bool = True,
     out_dtype: Optional[torch.dtype] = None,
+    stem: Optional[StemDesc] = None,
 ) -> torch.Tensor:
     """The network entry in one kernel: ``maxpool3x3/s2/p1(relu(
     conv7x7/s2/p3(x, w) + bias))``, rounded to the IO dtype (``out_dtype``,
@@ -285,10 +287,16 @@ def fused_stem_chain(
 
     ``x``: ``(N, H, W, C)`` raw input, N <= 8, C <= 4, H % 16 == 0,
     W % 8 == 0; ``w``: ``(7, 7, C, O)`` HWIO stem kernel (BN folded);
-    ``blocks``: ``basic`` BlockParams with ``blocks[0].ci == O``. Returns
+    ``blocks``: ``basic`` BlockParams with ``blocks[0].ci == O``; ``stem``:
+    the :class:`~bnn_tpu_torch.kernels.stem.StemDesc` of ``w`` and ``bias``
+    where the caller keeps one (else one is made; a descriptor of other
+    tensors is refused). Returns
     ``(N, H/4, W/4, C_out)`` in the IO dtype.
     """
     _check_stem_chain(x, w, blocks)
+    if stem is not None and stem.key != stem_key(w, bias):
+        raise ValueError("fused_stem_chain's stem descriptor was built from other "
+                         "weights than w and bias")
     acts = B.split_act(act)
     if x.device.type == "cpu":
         return fused_stem_chain_reference(x, w, bias, blocks, act=acts, pre=pre,
@@ -297,24 +305,35 @@ def fused_stem_chain(
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"fused_stem_chain needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
-    if x.dtype not in B._FLOATS:
-        raise TypeError(f"fused_stem_chain takes f32/bf16 x, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fused_stem_chain needs a contiguous NHWC x")
+    stem = StemDesc(w, bias) if stem is None else stem
+    stem.check(x, "fused_stem_chain")
     io = x.dtype if out_dtype is None else out_dtype
     n, h, ws, _ = x.shape
     o = w.shape[-1]
-    wf, bf = _f32_operands(w, bias, x.device)
     stem_out = torch.empty((n, h // 4, ws // 4, o), dtype=io, device=x.device)
     out = torch.empty((n, h // 4, ws // 4, blocks[-1].co), dtype=io,
                       device=x.device)
     B.launch("fused_stem_chain", stem_out, [b.desc() for b in blocks], out,
-             acts=acts, pre=pre, zero_to_one=zero_to_one, stem=(x, wf, bf))
+             acts=acts, pre=pre, zero_to_one=zero_to_one, stem=(x, stem))
     fused_stem_chain.launches += 1
     return out
 
 
 fused_stem_chain.launches = 0
+
+
+def fused_stem_chain_plan(x: torch.Tensor, stem: StemDesc) -> dict:
+    """The stem phase of a :func:`fused_stem_chain` launch on ``x``: pooled
+    rows per work item, items, blocks of the cooperative grid and blocks
+    per SM (its registers and shared memory decide them)."""
+    fn = B.load("fused_stem_chain").bnn_fused_stem_chain_plan
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    n, h, w, _ = x.shape
+    err = fn(n, h, w, stem.o_pad, out)
+    if err:
+        raise RuntimeError(f"fused_stem_chain plan failed: CUDA error {err}")
+    return dict(zip(("rows", "items", "blocks", "blocks_per_sm"), out))
 
 
 def fused_stem_chain_reference(x, w, bias, blocks, *, act="relu", pre=False,

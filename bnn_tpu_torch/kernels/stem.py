@@ -9,11 +9,20 @@ JAX package has three TPU kernels for this one function (``fused_stem``,
 kernel accepts every geometry the widest of them (v1: H % 8, W % 4) does,
 so it serves all three.
 
+The kernel runs the conv on the bf16 tensor cores (``csrc/stem_common.cuh``),
+as the TPU kernels run it on the MXU: bf16 x times bf16 w, summed in f32,
+in one pass. An f32 operand is split exactly into three bf16 pieces
+(:func:`split_pieces`) and the products of the pieces run as 3 or 6 passes
+(:func:`stem_passes`), so f32 inputs keep f32-grade sums. :class:`StemDesc`
+holds the weights as the kernel reads them, K-major bf16 pieces, and the
+f32 bias; a caller that keeps one (``FusedStem``, ``FusedEntry``) builds
+them once.
+
 Bound on an H100 at (8, 224, 224, 3) bf16: 5.6 MB moved (1.7 us) against
 1.9 GFLOP (1.9 us at the bf16 tensor-core rate), so the bound is the
-arithmetic; the kernel runs it on the f32 CUDA cores (28 us at their peak)
-and keeps the 112x112x64 conv map on chip, so device traffic stays at one
-read of the input and one write of the pooled output.
+arithmetic; the 112x112x64 conv map stays in registers, so device traffic
+stays at one read of the input (and its tiles' overlap) and one write of the
+pooled output.
 """
 from __future__ import annotations
 
@@ -26,9 +35,17 @@ import torch.nn.functional as F
 
 from ._build import load
 
-__all__ = ["fused_stem", "fused_stem_reference"]
+__all__ = ["fused_stem", "fused_stem_reference", "StemDesc", "split_pieces",
+           "stem_passes", "stem_key", "k_tap_channel"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
+TAPS = 49          # 7 x 7
+K_TAPS = 52        # taps of a weight row: 49, and 3 of zeros (13 k-steps of 4)
+KP = 4 * K_TAPS    # 208: K of a weight row, channels padded to 4
+OCB = 64           # output channels of a kernel work item: o_pad's multiple
+# (x piece, w piece) of each pass in summation order: csrc/stem_common.cuh's
+# STEM_PASSES
+PASSES = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
 
 
 def _check_geometry(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -44,16 +61,49 @@ def _check_geometry(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(w.shape)}")
 
 
-def _f32_operands(w: torch.Tensor, bias: Optional[torch.Tensor], device):
-    """The stem's weights and bias as the kernels take them: contiguous f32,
-    a zero bias where there is none."""
-    o = w.shape[-1]
-    wf = w.to(torch.float32).contiguous()
-    bf = (torch.zeros(o, dtype=torch.float32, device=device) if bias is None
-          else bias.to(device=device, dtype=torch.float32).reshape(-1).contiguous())
-    if bf.shape != (o,):
-        raise ValueError(f"bias must have shape ({o},), got {tuple(bf.shape)}")
-    return wf, bf
+def k_tap_channel(k: int) -> tuple:
+    """``(tap, channel)`` at K index ``k`` of a weight row: k-step ``k // 16``
+    holds taps ``4s .. 4s + 3``, channels 0-1 of each in its first half and
+    2-3 in its second (``k = 16s + 8h + 2u + e`` is tap ``4s + u``, channel
+    ``2h + e``), the tensor-core fragments' order in ``csrc/stem_common.cuh``.
+    Taps 49-51 are padding."""
+    s, r = divmod(k, 16)
+    h, r = divmod(r, 8)
+    u, e = divmod(r, 2)
+    return 4 * s + u, 2 * h + e
+
+
+def pieces(dtype: torch.dtype) -> int:
+    """Exact bf16 pieces of an operand of ``dtype``: 1 for bf16, else 3."""
+    return 1 if dtype == torch.bfloat16 else 3
+
+
+def split_pieces(v: torch.Tensor) -> torch.Tensor:
+    """``(3, *v.shape)`` bf16: ``hi = bf16(v)``, ``mid = bf16(v - hi)``,
+    ``lo = bf16(v - hi - mid)``, the differences in f32; their sum is ``v``
+    (as f32) exactly over f32's normal range. The kernel splits its f32
+    inputs the same way."""
+    v = v.to(torch.float32)
+    hi = v.to(torch.bfloat16)
+    r1 = v - hi.to(torch.float32)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
+def stem_passes(x_dtype: torch.dtype, w_dtype: torch.dtype) -> tuple:
+    """The (x piece, w piece) products the kernel sums, in order: 1 pass for
+    bf16 x and w, 3 where one is f32, 6 where both are."""
+    nx, nw = pieces(x_dtype), pieces(w_dtype)
+    return tuple(p for p in PASSES if p[0] < nx and p[1] < nw)
+
+
+def stem_key(w: torch.Tensor, bias: Optional[torch.Tensor]) -> tuple:
+    """What a :class:`StemDesc` was built from: each tensor's dtype, device,
+    data pointer, version (in-place updates), shape and strides (layout)."""
+    return tuple(None if t is None else
+                 (t.dtype, t.device, t.data_ptr(), t._version, tuple(t.shape),
+                  t.stride()) for t in (w, bias))
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,10 +111,105 @@ def _kernel():
     """The C entry point of ``csrc/fused_stem.cu``, built at first use."""
     fn = load("fused_stem").bnn_fused_stem
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_fn():
+    fn = load("fused_stem").bnn_fused_stem_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    return fn
+
+
+class StemDesc:
+    """The stem's weights as the kernels take them, built once.
+
+    ``w``: ``(7, 7, C, O)`` HWIO (BN folded), any float dtype; ``bias``:
+    ``(O,)`` or None. ``wk``: the K-major bf16 pieces ``(P, O_pad, 208)``
+    (P = 1 for bf16 weights, else the 3 exact pieces of :func:`split_pieces`),
+    element ``(o, k)`` holding piece p of ``w[ky, kx, c, o]`` where
+    :func:`k_tap_channel` of ``k`` is ``(7 * ky + kx, c)``, zero in the padded
+    channels (c >= C), taps (49-51) and output channels (o >= O);
+    ``bias_f32``: ``(O_pad,)`` f32, zero past
+    O. ``key`` is :func:`stem_key` of the tensors it was built from: a holder
+    rebuilds it when that changes (it keeps ``w`` and ``bias``, so no other
+    tensor takes their addresses meanwhile). Calling it runs the stem: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+
+    def __init__(self, w: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        if w.ndim != 4 or tuple(w.shape[:2]) != (7, 7) or w.shape[2] > 4:
+            raise ValueError(f"fused_stem needs a (7, 7, C <= 4, O) kernel, got "
+                             f"{tuple(w.shape)}")
+        c, o = w.shape[2], w.shape[3]
+        if bias is not None and bias.numel() != o:
+            raise ValueError(f"bias must have {o} values, got {tuple(bias.shape)}")
+        self.key = stem_key(w, bias)
+        self.w, self.bias = w, bias
+        self.c, self.o = c, o
+        self.o_pad = -(-o // OCB) * OCB
+        with torch.no_grad():
+            p = pieces(w.dtype)
+            split = split_pieces(w.detach())[:p].reshape(p, TAPS, c, o)
+            wk = torch.zeros((p, self.o_pad, K_TAPS, 4), dtype=torch.bfloat16,
+                             device=w.device)
+            wk[:, :o, :TAPS, :c] = split.permute(0, 3, 1, 2)
+            # (tap 4s + u, channel 2h + e) -> K index 16s + 8h + 2u + e
+            self.wk = (wk.reshape(p, self.o_pad, K_TAPS // 4, 4, 2, 2)
+                       .permute(0, 1, 2, 4, 3, 5).reshape(p, self.o_pad, KP)
+                       .contiguous())
+            self.bias_f32 = torch.zeros(self.o_pad, dtype=torch.float32,
+                                        device=w.device)
+            if bias is not None:
+                self.bias_f32[:o] = bias.detach().reshape(-1).to(
+                    device=w.device, dtype=torch.float32)
+
+    @property
+    def w_pieces(self) -> int:
+        return self.wk.shape[0]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        _check_geometry(x, self.w)
+        if x.device.type == "cpu":
+            return fused_stem_reference(x, self.w, self.bias)
+        self.check(x, "fused_stem")
+        n, h, ws, c = x.shape
+        out = torch.empty((n, h // 4, ws // 4, self.o), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        err = _kernel()(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), self.wk.data_ptr(),
+            self.w_pieces, self.bias_f32.data_ptr(), out.data_ptr(), n, h, ws, c,
+            self.o, self.o_pad, torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
+        fused_stem.launches += 1
+        return out
+
+    def check(self, x: torch.Tensor, name: str) -> None:
+        """Raise unless ``x`` is a contiguous f32/bf16 tensor on this
+        descriptor's CUDA device."""
+        if x.device.type != "cuda" or self.wk.device != x.device:
+            raise ValueError(f"{name} needs x and w on one CUDA device, got "
+                             f"{x.device} and {self.wk.device}")
+        if x.dtype not in _X_DTYPES:
+            raise TypeError(f"{name} takes f32/bf16 x, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous NHWC x")
+
+    def plan(self, x: torch.Tensor) -> dict:
+        """The launch the kernel makes for ``x``: pooled rows per work item,
+        items, blocks and blocks per SM."""
+        n, h, ws, c = x.shape
+        out = (ctypes.c_int * 4)()
+        err = _plan_fn()(int(x.dtype == torch.bfloat16), self.w_pieces, n, h, ws,
+                         c, self.o, self.o_pad, out)
+        if err:
+            raise RuntimeError(f"fused_stem plan failed: CUDA error {err}")
+        return dict(zip(("rows", "items", "blocks", "blocks_per_sm"), out))
 
 
 def fused_stem(x: torch.Tensor, w: torch.Tensor,
@@ -77,7 +222,8 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor,
         w: ``(7, 7, C, O)`` HWIO kernel (BN already folded).
         bias: ``(O,)`` folded bias, or None.
     Returns:
-        ``(N, H/4, W/4, O)`` in x's dtype.
+        ``(N, H/4, W/4, O)`` in x's dtype. A caller that runs the same
+        weights again keeps a :class:`StemDesc` and calls it instead.
     """
     _check_geometry(x, w)
     if x.device.type == "cpu":
@@ -85,24 +231,7 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"fused_stem needs x and w on one CUDA device, got "
                          f"{x.device} and {w.device}")
-    if x.dtype not in _X_DTYPES:
-        raise TypeError(f"fused_stem takes f32/bf16 x, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fused_stem needs a contiguous NHWC x")
-    n, h, ws, c = x.shape
-    o = w.shape[-1]
-    wf, bf = _f32_operands(w, bias, x.device)
-    out = torch.empty((n, h // 4, ws // 4, o), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    err = _kernel()(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), wf.data_ptr(),
-        bf.data_ptr(), out.data_ptr(), n, h, ws, c, o,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
-    fused_stem.launches += 1
-    return out
+    return StemDesc(w, bias)(x)
 
 
 fused_stem.launches = 0

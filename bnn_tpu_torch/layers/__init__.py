@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..bconfig import BConfig
+from ..utils.padding import conv_nd
 from .helpers import copy_parameters
 
 __all__ = ["Linear", "Conv1d", "Conv2d", "BinaryLinear", "BinaryConv1d",
@@ -75,8 +76,30 @@ class Linear(nn.Linear):
         return _adopt(mod, bconfig, update, new)
 
 
+def _strided_same(padding, stride) -> bool:
+    """``padding='same'`` at a stride torch's conv layers refuse it at."""
+    st = (stride,) if isinstance(stride, int) else tuple(stride)
+    return padding == "same" and any(s != 1 for s in st)
+
+
 class _BinaryConvNd:
-    """Mixin: the binary conv forward and ``from_module`` adoption."""
+    """Mixin: the binary conv forward and ``from_module`` adoption.
+    ``padding='same'`` is taken at any stride, as ``lax`` resolves it
+    (:mod:`bnn_tpu_torch.utils.padding`)."""
+
+    def _init_conv(self, base, *args, padding, stride, **kwargs):
+        # torch refuses 'same' at stride > 1: build with 0 and keep 'same'
+        strided = _strided_same(padding, stride)
+        base.__init__(self, *args, stride=stride,
+                      padding=0 if strided else padding, **kwargs)
+        if strided:
+            self.padding = "same"
+
+    def _conv_forward(self, x, weight, bias):
+        if _strided_same(self.padding, self.stride):
+            return conv_nd(x, weight, bias, self.stride, "same", self.dilation,
+                           self.groups)
+        return super()._conv_forward(x, weight, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xq = self.activation_pre_process(x)
@@ -104,9 +127,9 @@ class Conv1d(_BinaryConvNd, nn.Conv1d):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, bias=True, *,
                  bconfig: BConfig = None, device=None, dtype=None):
-        nn.Conv1d.__init__(self, in_channels, out_channels, kernel_size,
-                           stride, padding, dilation, groups, bias,
-                           device=device, dtype=dtype)
+        self._init_conv(nn.Conv1d, in_channels, out_channels, kernel_size,
+                        stride=stride, padding=padding, dilation=dilation,
+                        groups=groups, bias=bias, device=device, dtype=dtype)
         _attach_binarizers(self, bconfig)
 
 
@@ -118,9 +141,9 @@ class Conv2d(_BinaryConvNd, nn.Conv2d):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, bias=True, *,
                  bconfig: BConfig = None, device=None, dtype=None):
-        nn.Conv2d.__init__(self, in_channels, out_channels, kernel_size,
-                           stride, padding, dilation, groups, bias,
-                           device=device, dtype=dtype)
+        self._init_conv(nn.Conv2d, in_channels, out_channels, kernel_size,
+                        stride=stride, padding=padding, dilation=dilation,
+                        groups=groups, bias=bias, device=device, dtype=dtype)
         _attach_binarizers(self, bconfig)
 
 

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.padding import conv_nd
 from .registry import register
 from .ste import (resolve_surrogate, sign_pm1_ste, sign_ste,
                   stochastic_sign_ste, surrogate_sign)
@@ -188,7 +189,5 @@ class XNORScaleBinarizer(BinarizerBase):
         k = torch.full((1, 1) + self.kernel_size,
                        1.0 / math.prod(self.kernel_size),
                        dtype=layer_in.dtype, device=layer_in.device)
-        conv = F.conv1d if len(self.kernel_size) == 1 else F.conv2d
-        scale = conv(a, k, stride=self.stride, padding=self.padding,
-                     dilation=self.dilation)
+        scale = conv_nd(a, k, None, self.stride, self.padding, self.dilation)
         return layer_out * scale

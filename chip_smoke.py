@@ -9,13 +9,15 @@ Phases, each reported on its own lines:
 1. device and build: the card's name and power limit, then every CUDA
    kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel),
    and the tensor-core, dot-product and popcount instructions (and all
-   instructions) in the SASS of the three GEMM-shaped kernels and the five
-   block kernels
+   instructions) in the SASS of the three GEMM-shaped kernels, the five
+   block kernels and the stem
    (``fused_chain`` and ``fused_bottleneck`` must show int8 tensor-core and
-   no ``__dp4a`` instructions);
+   no ``__dp4a`` instructions, ``fused_stem`` and ``fused_stem_chain`` bf16
+   tensor-core instructions);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
-   points take; ``fused_chain`` at each of ResNet-18's four stage shapes at
+   points take; the stem at its three entry points' geometries in bf16, with
+   f32 weights (3 passes) and in f32 (6 passes); ``fused_chain`` at each of ResNet-18's four stage shapes at
    batch 1 and 4, in bf16 and f32 with both option sets, and at widths that
    its word loader takes (C % 16 != 0); ``fused_bottleneck`` at ResNet-50's
    shapes, odd H and W, and widths where some of its GEMMs take the word
@@ -51,7 +53,9 @@ Phases, each reported on its own lines:
    opt-in paths' kernels, captured with its own inputs and held against its
    plain version as in phase 2, with ``fused_bottleneck``'s launch plan
    (tiles and K slices of each GEMM) at ResNet-50's 13 batch-4 calls; then
-   times: each kernel's device time
+   times (the stem at batch 1, 4 and 8 and the v1 and v2 geometries, with
+   its launch plan, beside cuDNN's conv + relu + max_pool): each kernel's
+   device time
    (torch.profiler) and time per call (CUDA events) at the shapes the
    serving paths gave it, beside its plain version's, its bound and the
    one-call PyTorch yardstick where there is one (for ``binary_gemm``, a
@@ -126,12 +130,14 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 # name: opcode prefix (__dp4a is IDP.4A in Hopper's SASS)
-SASS_OPS = {"IMMA": "IMMA", "BMMA": "BMMA", "IDP4A": "IDP", "POPC": "POPC"}
+SASS_OPS = {"IMMA": "IMMA", "BMMA": "BMMA", "HMMA": "HMMA", "IDP4A": "IDP",
+            "POPC": "POPC"}
 
 
 def sass_counts(lib) -> tuple:
-    """Int8 (IMMA) and 1-bit (BMMA) tensor-core, dot-product (IDP4A) and
-    popcount (POPC) instructions in a built library's SASS, and the total,
+    """Int8 (IMMA), 1-bit (BMMA) and bf16 (HMMA) tensor-core, dot-product
+    (IDP4A) and popcount (POPC) instructions in a built library's SASS, and
+    the total,
     from ``cuobjdump -sass``: ``({opcode: count} or None, printable line)``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
@@ -208,23 +214,56 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def check_stem(kernels, shape, gen, dev) -> float:
-    """The stem kernel at ``shape`` in bf16 against the plain version
-    computed in f32 from the same bf16 inputs: within one bf16 ulp, plus
-    1e-5 absolute for the f32 sums' own rounding next to zero."""
+def stem_plan_text(plan, hp: int) -> str:
+    """A stem launch plan in words, with the pooled rows of the last item
+    of each column of items where they are fewer than the plan's."""
+    last = hp % plan["rows"]
+    return (f"items of {plan['rows']} pooled row(s) x 7 columns"
+            f"{f' (the last band of items {last})' if last else ''}, {plan['items']} items "
+            f"on {plan['blocks']} blocks ({plan['blocks_per_sm']} an SM)")
+
+
+def partial_stem_shape(kernels, dev) -> tuple:
+    """The first of a few bf16 stem geometries whose launch plan leaves a
+    partial last item (hp % rows != 0), so that phase 2 runs one."""
+    desc = kernels.StemDesc(torch.zeros((7, 7, 3, 64), dtype=torch.bfloat16,
+                                        device=dev))
+    for shape in ((8, 208, 208, 3), (4, 216, 216, 3), (8, 200, 200, 3),
+                  (4, 200, 208, 3), (2, 216, 200, 3)):
+        plan = desc.plan(torch.empty(shape, dtype=torch.bfloat16, device=dev))
+        if (shape[1] // 4) % plan["rows"]:
+            return shape
+    raise AssertionError("no stem geometry tried leaves a partial last item")
+
+
+def check_stem(kernels, shape, gen, dev, x_dtype=torch.bfloat16,
+               w_dtype=torch.bfloat16) -> float:
+    """The stem kernel at ``shape`` against the plain version computed in
+    f32 from the same inputs. A bf16 output (bf16 x; bf16 or f32 weights,
+    1 or 3 passes) is within one bf16 ulp, plus 1e-5 absolute for the f32
+    sums' own rounding next to zero; an f32 output (f32 x and weights, 6
+    passes) within 1e-5."""
     n, h, w, c = shape
-    x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
-    wk = (0.1 * torch.randn((7, 7, c, 64), generator=gen)).to(dev, torch.bfloat16)
+    x = torch.randn(shape, generator=gen).to(dev, x_dtype)
+    wk = (0.1 * torch.randn((7, 7, c, 64), generator=gen)).to(dev, w_dtype)
     b = (0.1 * torch.randn(64, generator=gen)).to(dev)
     got = kernels.fused_stem(x, wk, b).float()
     ref = kernels.fused_stem_reference(x.float(), wk, b)
     torch.cuda.synchronize()
     err = (got - ref).abs()
+    passes = len(kernels.stem.stem_passes(x_dtype, w_dtype))
+    label = (f"fused_stem {tuple(shape)} x {str(x_dtype)[6:]}, w {str(w_dtype)[6:]} "
+             f"({passes} pass{'es' if passes > 1 else ''}) -> {tuple(got.shape)}, "
+             f"{stem_plan_text(kernels.StemDesc(wk, b).plan(x), h // 4)}")
+    if x_dtype == torch.float32:
+        if not err.max().item() <= 1e-5:
+            raise AssertionError(f"{label}: max |err| {err.max().item():.3g} > 1e-5")
+        print(f"phase 2: {label}: max |err| {err.max().item():.3g} (limit 1e-5)")
+        return err.max().item()
     ulps = (err / bf16_ulp(ref)).max().item()
     if not bool((err <= bf16_ulp(ref) + 1e-5).all()):
-        raise AssertionError(f"fused_stem {shape}: {ulps:.2f} bf16 ulp off")
-    print(f"phase 2: fused_stem {tuple(shape)} bf16 -> {tuple(got.shape)}: "
-          f"max |err| {err.max().item():.3g} ({ulps:.2f} bf16 ulp)")
+        raise AssertionError(f"{label}: {ulps:.2f} bf16 ulp off")
+    print(f"phase 2: {label}: max |err| {err.max().item():.3g} ({ulps:.2f} bf16 ulp)")
     return err.max().item()
 
 
@@ -1082,13 +1121,17 @@ def main() -> int:
                 print(f"phase 1: {log.name.split('-')[0]}: {line.strip()}")
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
-                 "fused_bottleneck"):
+                 "fused_bottleneck", "fused_stem"):
         counts, line = sass_counts(_build._target(name))
         print(f"phase 1: lib{name}: {line}")
         if name in ("fused_chain", "fused_bottleneck") and counts is not None and (
                 counts["IMMA"] == 0 or counts["IDP4A"] > 0):
             raise AssertionError(f"lib{name}: {line}; its GEMM phases run "
                                  "on the int8 tensor cores, not __dp4a")
+        if name in ("fused_stem", "fused_stem_chain") and (
+                counts is None or counts["HMMA"] == 0):
+            raise AssertionError(f"lib{name}: {line}; the stem's conv runs on "
+                                 "the bf16 tensor cores")
 
     gen = torch.Generator().manual_seed(SEED)
     gemm_err = check_gemm(kernels, BATCH * 7 * 7, 256, 512, torch.bfloat16,
@@ -1102,6 +1145,18 @@ def main() -> int:
     stem_err = check_stem(kernels, (BATCH, SIZE, SIZE, 3), gen, dev)  # v3
     check_stem(kernels, (1, SIZE, SIZE - 4, 3), gen, dev)     # v2: B=1, W%8
     check_stem(kernels, (2, 200, 196, 3), gen, dev)           # v1: H%16
+    # f32 weights (3 passes) and f32 x and weights (6 passes), on their own
+    # generator so that every other case draws as before
+    gen_stem = torch.Generator().manual_seed(SEED + 5)
+    stem_err = max(stem_err, check_stem(kernels, (BATCH, SIZE, SIZE, 3), gen_stem, dev,
+                                        w_dtype=torch.float32))
+    check_stem(kernels, (BATCH, SIZE, SIZE, 3), gen_stem, dev, torch.float32,
+               torch.float32)
+    # the batches R18, R50 and path A feed the stem besides 8, and a
+    # geometry whose last item has fewer pooled rows than the plan's
+    for shape in ((4, SIZE, SIZE, 3), (1, SIZE, SIZE, 3),
+                  partial_stem_shape(kernels, dev)):
+        stem_err = max(stem_err, check_stem(kernels, shape, gen_stem, dev))
     block_errs = check_blocks(kernels, gen, dev)
     block_errs["fused_bottleneck"] = check_bottlenecks(kernels, gen, dev)
     # the opt-in paths' kernels draw from their own generator, so that the
@@ -1299,38 +1354,48 @@ def main() -> int:
     xs = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen).to(dev, torch.bfloat16)
     ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, torch.bfloat16)
     bs = (0.1 * torch.randn(64, generator=gen)).to(dev, torch.bfloat16)
-    xn, wn = xs.permute(0, 3, 1, 2).contiguous(), ws.permute(3, 2, 0, 1).contiguous()
+    stem_desc = kernels.StemDesc(ws, bs)  # kept, as FusedStem keeps it
 
-    def stem():
-        return kernels.fused_stem(xs, ws, bs)
+    def time_stem(x):
+        """The stem at x's shape: the kernel (its kept descriptor, the
+        kernels line's ``ms``), the public call (which builds the descriptor
+        each call), its plain version and cuDNN's conv + relu + max_pool,
+        three calls."""
+        xn, wn = x.permute(0, 3, 1, 2).contiguous(), ws.permute(3, 2, 0, 1).contiguous()
 
-    def stem_plain():
-        return kernels.fused_stem_reference(xs, ws, bs)
+        def stem():
+            return stem_desc(x)
 
-    def stem_cudnn_3_calls():
-        return torch.nn.functional.max_pool2d(
-            torch.relu(torch.nn.functional.conv2d(xn, wn, bs, 2, 3)), 3, 2, 1)
+        def stem_public():
+            return kernels.fused_stem(x, ws, bs)
 
-    stem_t = {f.__name__: (device_ms(f), cuda_ms(f))
-              for f in (stem, stem_plain, stem_cudnn_3_calls)}
-    stem_out = BATCH * (SIZE // 4) * (SIZE // 4) * 64 * 2
-    stem_bound, stem_by = bound_ms(
-        nbytes(xs, ws, bs) + stem_out,
-        2 * BATCH * (SIZE // 2) * (SIZE // 2) * 64 * 7 * 7 * 3, torch.bfloat16)
+        def stem_plain():
+            return kernels.fused_stem_reference(x, ws, bs)
+
+        def stem_cudnn_3_calls():
+            return torch.nn.functional.max_pool2d(
+                torch.relu(torch.nn.functional.conv2d(xn, wn, bs, 2, 3)), 3, 2, 1)
+
+        nb, h, w, _ = x.shape
+        print(f"phase 4: fused_stem {tuple(x.shape)}: "
+              f"{stem_plan_text(stem_desc.plan(x), h // 4)}")
+        return ({f.__name__: (device_ms(f), cuda_ms(f))
+                 for f in (stem, stem_public, stem_plain, stem_cudnn_3_calls)},
+                *bound_ms(nbytes(x, ws, bs) + nb * (h // 4) * (w // 4) * 64 * 2,
+                          2 * nb * (h // 2) * (w // 2) * 64 * 7 * 7 * 3, torch.bfloat16))
+
+    stem_t, stem_bound, stem_by = time_stem(xs)
     timed = [(f"binary_gemm M={m} K={k} N={n} bf16", gemm_t, gemm_bound, gemm_by),
              ("ResNet-50 binary_gemm M={} K={} N={} bf16".format(*m50), *time_gemm(*m50)),
              (f"fused_stem ({BATCH},{SIZE},{SIZE},3) bf16", stem_t, stem_bound, stem_by)]
-    # the geometries of the v2 and v1 entry points, which the same kernel serves
-    for shape in ((1, SIZE, SIZE - 4, 3), (2, 200, 196, 3)):
-        xo = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
-        t = {"stem": (device_ms(lambda: kernels.fused_stem(xo, ws, bs)),
-                      cuda_ms(lambda: kernels.fused_stem(xo, ws, bs))),
-             "stem_plain": (device_ms(lambda: kernels.fused_stem_reference(xo, ws, bs)),
-                            cuda_ms(lambda: kernels.fused_stem_reference(xo, ws, bs)))}
-        nb, h, w, _ = shape
-        timed.append((f"fused_stem {shape} bf16", t, *bound_ms(
-            nbytes(xo, ws, bs) + nb * (h // 4) * (w // 4) * 64 * 2,
-            2 * nb * (h // 2) * (w // 2) * 64 * 7 * 7 * 3, torch.bfloat16)))
+    # batches 4 and 1 of the serving paths, and the geometries of the v2 and
+    # v1 entry points, which the same kernel serves
+    # (the batches on a generator of their own: the draws from gen stay)
+    gen_b = torch.Generator().manual_seed(SEED + 6)
+    for shape, g in (((4, SIZE, SIZE, 3), gen_b), ((1, SIZE, SIZE, 3), gen_b),
+                     ((1, SIZE, SIZE - 4, 3), gen), ((2, 200, 196, 3), gen)):
+        xo = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        timed.append((f"fused_stem {shape} bf16", *time_stem(xo)))
     for name, times, bound, by in timed:
         parts = ", ".join(f"{f} {d * 1e3:.2f} us device / {c * 1e3:.2f} us per call"
                           for f, (d, c) in times.items())
@@ -1511,10 +1576,18 @@ def main() -> int:
         xb = images[:b].to(dev)
         (args, kw), = capture_calls(stages, "fused_stem_chain", lambda: pred_a[b](xb))
         xh, w, bias, blocks = args
+        # the plain version and the split pair take the stem's weights, not
+        # the kernel's descriptor: the split pair as the unmerged predictor
+        # runs it, the stem's kept descriptor, then fused_chain
+        chain_kw = {k: v for k, v in kw.items() if k != "stem"}
         fn = lambda a=args, k=kw: kernels.fused_stem_chain(*a, **k)
-        plain = lambda a=args, k=kw: kernels.fused_stem_chain_reference(*a, **k)
-        split = lambda a=args, k=kw: kernels.fused_chain(
-            kernels.fused_stem(*a[:3]), a[3], **k)
+        plain = lambda a=args, k=chain_kw: kernels.fused_stem_chain_reference(*a, **k)
+        split = lambda a=args, k=chain_kw: kernels.fused_chain(
+            kw["stem"](a[0]), a[3], **k)
+        plan = kernels.model.fused_stem_chain_plan(xh, kw["stem"])
+        print(f"phase 4: path A batch {b} fused_stem_chain's stem phase: items of "
+              f"{plan['rows']} pooled row(s) x 7 columns, {plan['items']} items on a "
+              f"cooperative grid of {plan['blocks']} blocks ({plan['blocks_per_sm']} an SM)")
         got, ref, two = fn(), plain(), split()
         torch.cuda.synchronize()
         if not torch.equal(got, two):

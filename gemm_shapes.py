@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``, with
-``--popcount``, ``popcount_gemm``, with ``--chain``, ``fused_chain``, or with
-``--bottleneck``, ``fused_bottleneck``) at the serving paths' shapes, for the
-checkout it is run from.
+``--popcount``, ``popcount_gemm``, with ``--chain``, ``fused_chain``, with
+``--bottleneck``, ``fused_bottleneck``, or with ``--stem``, ``fused_stem``
+and ``fused_stem_chain``) at the serving paths' shapes, for the checkout it
+is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck | --stem]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
 this script times any checkout whose kernels have the public signatures:
@@ -47,7 +48,20 @@ torch-parity signs, through the public ``fused_bottleneck``; the result held
 against ``fused_bottleneck_reference`` (within one bf16 ulp); the kernel's
 own device time per call beside its bound (``chip_smoke.bottleneck_bound``)
 and, where the checkout has ``BottleneckDesc.plan``, the launch plan (tiles
-and K slices per GEMM). ``chip_smoke`` is imported from the checkout too, so
+and K slices per GEMM). With ``--stem``, ``fused_stem`` through its public
+call at (8, 224, 224, 3), (4, 224, 224, 3) and (1, 224, 224, 3) (the serving
+batches) and at the v2 and v1 entry points' geometries (1, 224, 220, 3) and
+(2, 200, 196, 3): random bf16 x, 0.1 x N(0, 1) bf16 weights and bias from a
+seed; the result held against ``fused_stem_reference`` (within one bf16 ulp
+plus 1e-5); the kernel's own device time, the whole public call's (its
+weight preparation included), cuDNN's conv + relu + max_pool (three calls)
+and the bound, and the launch plan where the checkout has ``StemDesc.plan``;
+then ``fused_stem_chain`` at batch 1 and 4 with two random layer1 blocks
+(``chip_smoke.rand_block``): bit-identical to ``fused_chain(fused_stem(x))``,
+its kernel's device time beside the split pair's two kernels and its bound
+(``chip_smoke.stem_chain_bound``), and its stem phase's plan (blocks an SM
+included) where the checkout has ``fused_stem_chain_plan``.
+``chip_smoke`` is imported from the checkout too, so
 a parent's run uses the parent's helpers. Prints the card line, one JSON
 line per shape (per call with ``--chain``), then one per path with the sums
 over a forward's calls (weighted by the calls per shape). Exits 1 without
@@ -95,6 +109,10 @@ R18_STAGES = [((56, 64), ("basic",) * 2, 64, False),
 BOTTLENECKS = [((56, 56, 64), 64, 256, 1), ((56, 56, 256), 64, 256, 2),
                ((28, 28, 512), 128, 512, 3), ((14, 14, 1024), 256, 1024, 5),
                ((7, 7, 2048), 512, 2048, 2)]
+# fused_stem's x shapes: the serving batches at 224x224, then the geometries
+# of the v2 and v1 entry points
+STEMS = [(8, 224, 224, 3), (4, 224, 224, 3), (1, 224, 224, 3), (1, 224, 220, 3),
+         (2, 200, 196, 3)]
 CHAINS = {
     "ResNet-18 batch 1": (1, R18_STAGES),
     "ResNet-18 batch 4": (4, R18_STAGES),
@@ -143,6 +161,8 @@ def main() -> int:
                        help="time fused_chain at its serving calls instead")
     which.add_argument("--bottleneck", action="store_true",
                        help="time fused_bottleneck at ResNet-50's calls instead")
+    which.add_argument("--stem", action="store_true",
+                       help="time fused_stem and fused_stem_chain instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -165,6 +185,8 @@ def main() -> int:
         return time_chains(args.label, kernels, gen, dev)
     if args.bottleneck:
         return time_bottlenecks(args.label, kernels, gen, dev)
+    if args.stem:
+        return time_stems(args.label, kernels, gen, dev)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -341,6 +363,61 @@ def time_bottlenecks(label, kernels, gen, dev) -> int:
             tot["bound_us"] += calls * row["bound_us"]
         print(json.dumps({"label": label, "path": path,
                           "calls": sum(b[3] for b in BOTTLENECKS), **tot}))
+    return 0
+
+
+def time_stems(label, kernels, gen, dev) -> int:
+    """fused_stem at STEMS and fused_stem_chain at batch 1 and 4, through
+    their public calls, beside cuDNN and the bounds."""
+    from chip_smoke import PEAK_OPS_PER_S, bf16_ulp, rand_block, stem_chain_bound
+
+    bf = torch.bfloat16
+    ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, bf)
+    bs = (0.1 * torch.randn(64, generator=gen)).to(dev, bf)
+    wn = ws.permute(3, 2, 0, 1).contiguous()
+    desc = kernels.StemDesc(ws, bs) if hasattr(kernels, "StemDesc") else None
+    for shape in STEMS:
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=gen).to(dev, bf)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        run = lambda: kernels.fused_stem(x, ws, bs)
+        got, ref = run().float(), kernels.fused_stem_reference(x.float(), ws, bs)
+        ok = bool(((got - ref).abs() <= bf16_ulp(ref) + 1e-5).all())
+        ops = 2 * n * (h // 2) * (w // 2) * 64 * 49 * c
+        moved = x.numel() * 2 + ws.numel() * 2 + bs.numel() * 2 + got.numel() * 2
+        bound_us = max(ops / PEAK_OPS_PER_S[bf], moved / 3.35e12) * 1e6
+        row = {"label": label, "call": f"fused_stem {shape} bf16", "ok": ok,
+               "plan": desc.plan(x) if desc is not None else None,
+               "kernel_us": device_us(run, "fused_stem_kernel", per_call=1),
+               "call_us": device_us(run),
+               "cudnn_3_calls_us": device_us(lambda: torch.nn.functional.max_pool2d(
+                   torch.relu(torch.nn.functional.conv2d(xn, wn, bs, 2, 3)), 3, 2, 1)),
+               "bound_us": bound_us}
+        print(json.dumps(row))
+        if not ok:
+            raise AssertionError(f"fused_stem {shape} is off its plain version")
+    opts = dict(act="relu", zero_to_one=False)
+    for n in (1, 4):
+        x = torch.randn((n, 224, 224, 3), generator=gen).to(dev, bf)
+        blocks = [rand_block(kernels, "basic", 64, 64, gen, dev, bf, options=False)
+                  for _ in range(2)]
+        run = lambda: kernels.fused_stem_chain(x, ws, bs, blocks, **opts)
+        split = lambda: kernels.fused_chain(kernels.fused_stem(x, ws, bs), blocks, **opts)
+        got = run()
+        exact = bool(torch.equal(got, split()))
+        planner = getattr(kernels.model, "fused_stem_chain_plan", None)
+        bound, by = stem_chain_bound(x, ws, bs, blocks, got.numel(), got.element_size())
+        row = {"label": label, "call": f"fused_stem_chain ({n}, 224, 224, 3) bf16",
+               "exact": exact,
+               "plan": planner(x, desc) if planner is not None else None,
+               "kernel_us": device_us(run, "fused_stem_chain_kernel", per_call=1),
+               "split_kernels_us": (device_us(split, "fused_stem_kernel", per_call=1)
+                                    + device_us(split, "fused_chain_kernel", per_call=1)),
+               "bound_us": bound * 1e3, "bound_by": by}
+        print(json.dumps(row))
+        if not exact:
+            raise AssertionError(f"fused_stem_chain batch {n} differs from "
+                                 "fused_chain(fused_stem(x))")
     return 0
 
 

@@ -24,7 +24,7 @@ from bnn_tpu.kernels import model as jmodel
 from bnn_tpu_torch.inference import (FusedEntry, FusedStage, FusedStem,
                                      Predictor, fuse_entry)
 from bnn_tpu_torch.inference import stages as tstages
-from bnn_tpu_torch.kernels import (fused_stem_chain,
+from bnn_tpu_torch.kernels import (StemDesc, fused_stem_chain,
                                    fused_stem_chain_reference)
 from test_torch_megakernels import _block_pair, _vec
 from test_torch_small_batch import _IMAGES, _jax_logits, _models, _nchw
@@ -101,12 +101,13 @@ def test_fused_stem_chain_is_the_split_pair():
 
 
 @pytest.mark.parametrize("bad", ["batch", "height", "width", "channels",
-                                 "down", "kernel"])
+                                 "down", "kernel", "stale_desc"])
 def test_fused_stem_chain_rejects(bad):
     rng = np.random.RandomState(11)
     _, basic = _block_pair(rng, "basic", 16, 16, "relu", False)
     _, down = _block_pair(rng, "down", 16, 32, "relu", False)
     x, w, blocks = torch.zeros(1, 64, 64, 3), torch.zeros(7, 7, 3, 16), [basic]
+    kw = {}
     if bad == "batch":
         x = torch.zeros(9, 64, 64, 3)
     elif bad == "height":
@@ -117,10 +118,12 @@ def test_fused_stem_chain_rejects(bad):
         w = torch.zeros(7, 7, 3, 8)
     elif bad == "down":
         blocks = [down]
+    elif bad == "stale_desc":  # a descriptor of other weights than w
+        kw["stem"] = StemDesc(torch.zeros(7, 7, 3, 16))
     else:
         w = torch.zeros(5, 5, 3, 16)
     with pytest.raises(ValueError):
-        fused_stem_chain(x, w, None, blocks)
+        fused_stem_chain(x, w, None, blocks, **kw)
 
 
 def _predictor(batch, dtype=torch.bfloat16):
