@@ -27,9 +27,10 @@
 // Dp4aTile, the first form (__dp4a on CUDA cores, word-by-word gathers,
 // weights read in the JAX (K, N) layout and transposed in registers), and
 // MmaTile, the int8 tensor-core form (mma.sync m16n8k32 over a cp.async ring,
-// 16-byte copies of A rows and of a K-major (N, K) weight copy). fused_chain
-// runs MmaTile through run_block, fused_bottleneck through its own phases;
-// the other block kernels still run Dp4aTile.
+// 16-byte copies of A rows and of a K-major (N, K) weight copy). fused_chain,
+// fused_stem_chain and fused_basic_block run MmaTile through run_block,
+// fused_bottleneck through its own phases; fused_downsample_block is the
+// one kernel left on Dp4aTile.
 //
 // Numerics are those of the plain PyTorch versions bit for bit: the sums are
 // exact, every f32 multiply and add is rounded on its own (__fmul_rn,

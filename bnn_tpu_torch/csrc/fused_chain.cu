@@ -39,10 +39,9 @@
 // which no tile changes, and in the GEMM phases the L2 traffic of a 32-row
 // tile, which reads each weight column once per 32 output pixels.
 //
-// fused_bottleneck runs the same tile; fused_basic_block,
-// fused_downsample_block and fused_stem_chain still run bnn_common.cuh's
-// Dp4aTile: each moves onto the tensor-core tile in its own change, measured
-// against its own numbers.
+// fused_bottleneck, fused_basic_block and fused_stem_chain's block phases
+// run the same tile; fused_downsample_block still runs bnn_common.cuh's
+// Dp4aTile.
 #include "bnn_common.cuh"
 
 namespace {

@@ -9,25 +9,29 @@
 // scratch that stays in the 50 MB L2, rounded to the IO dtype where the
 // split pipeline (fused_stem, then fused_chain) rounds it at its kernel
 // boundary; after a grid barrier, layer1's blocks run through
-// bnn_common.cuh's run_block on its Dp4aTile, the last one writing the
-// output. The result equals fused_chain(fused_stem(x)) bit for bit, though
-// fused_chain runs the tensor-core tile: each stem output takes
-// stem_common.cuh's arithmetic, whatever the tile, and the integer sums are
-// exact in any order.
+// bnn_common.cuh's run_block on MmaTile, fused_chain's tile (mma.sync
+// m16n8k32 s8 over a 3-stage cp.async ring, reading the blocks' K-major
+// weight copies), the last one writing the output. The result equals
+// fused_chain(fused_stem(x)) bit for bit: each stem output takes
+// stem_common.cuh's arithmetic, whatever the tiling, and the integer sums
+// are exact in any order.
 //
 // The stem phase runs stem_common.cuh's tile, as fused_stem.cu does, on its
 // own tiling: the cooperative grid is sized for bnn::THREADS (128) threads,
-// the blocks' registers and their static shared memory. A stem work item is
-// `rows` (at most 4) pooled rows x 7 pooled columns x 64 channels; each of
-// the four warps takes 16 channels (their weights' A fragments in registers,
-// 52 words a lane) through the item's 2 * rows + 1 conv rows. The window (up
-// to three bf16 pieces of 23 rows at a pitch of 45 pixels, 24,840 bytes)
-// shares a union with the block phases' GEMM tiles.
+// at most 128 registers (four blocks an SM) and the static shared memory of
+// the larger phase. A stem work item is `rows` (at most 4) pooled rows x 7
+// pooled columns x 64 channels; each of the four warps takes 16 channels
+// (their weights' A fragments in registers, 52 words a lane) through the
+// item's 2 * rows + 1 conv rows. The window (up to three bf16 pieces of 23
+// rows at a pitch of 45 pixels, 24,840 bytes) shares a union with the block
+// phases' cp.async ring (23,040 bytes), so the ring costs no residency.
 //
 // Bound on an H100 at (1, 224, 224, 3) bf16 with ResNet-18's layer1: 0.30 MB
 // in, 0.40 MB out, 0.15 MB of int8 weights (0.26 us at 3.35 TB/s) against
 // 0.24 GFLOP of stem and 0.92 G int8 operations; chip_smoke.py prints the
-// bound of each measured shape.
+// bound of each measured shape. What holds the kernel back is the blocks'
+// phases: layer1's two blocks take nine grid barriers over the full grid,
+// which the stem phase needs, and elementwise passes between them.
 #include <math_constants.h>
 
 #include "bnn_common.cuh"
@@ -45,7 +49,7 @@ struct StemSmem {
 };
 
 union Shared {
-  bnn::Smem gemm;
+  bnn::MmaSmem gemm;
   StemSmem stem;
 };
 
@@ -137,8 +141,8 @@ fused_stem_chain_kernel(const __grid_constant__ Params p) {
     const bool last = i == c.nblocks - 1;
     void* out = last ? c.out : static_cast<void*>(c.act_buf[i & 1]);
     const int out_bf16 = last ? c.out_bf16 : 0;
-    bnn::run_block<bnn::Dp4aTile, false>(c, c.blk[i], c.h, c.w, in, in_bf16,
-                                         out, out_bf16, sm.gemm, grid);
+    bnn::run_block<bnn::MmaTile, false>(c, c.blk[i], c.h, c.w, in, in_bf16,
+                                        out, out_bf16, sm.gemm, grid);
     if (!last) grid.sync();
     in = out;
     in_bf16 = out_bf16;
@@ -193,8 +197,11 @@ int setup_stem(Params& p, int nblocks, const void* const* ptrs,
       p.chain.blk[0].ci > p.o_pad || (p.w_pieces != 1 && p.w_pieces != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int i = 0; i < nblocks; ++i) {
-    if (p.chain.blk[i].down) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < nblocks; ++i) {  // MmaTile reads the K-major copies
+    const bnn::Block& b = p.chain.blk[i];
+    if (b.down || !b.wt[0] || !b.wt[1]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   int plan[4];
   const int plan_err = stem_plan(p.chain.n, p.chain.h, p.chain.w, p.o_pad, plan);
@@ -204,7 +211,8 @@ int setup_stem(Params& p, int nblocks, const void* const* ptrs,
 
 }  // namespace
 
-// The stem and a chain of stride-1 basic blocks. The arguments are
+// The stem and a chain of stride-1 basic blocks, each with its K-major
+// weight copies (Block::wt). The arguments are
 // bnn_common.cuh's flat arrays (see setup()), whose x is the stem's output
 // scratch ((N, H/4, W/4, O) in the IO dtype, x_bf16 its type), followed by
 // three more pointers (the raw input, the K-major bf16 stem weight pieces

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..binarize import set_module_by_name
-from ..kernels.block import fused_basic_block
+from ..kernels.block import basic_block_desc, desc_key, fused_basic_block
 from ..kernels.bottleneck import BottleneckDesc
 from ..kernels.packing import unpack_bits
 from ..kernels.strided_block import _transform_w1, fused_downsample_block
@@ -241,7 +241,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class FusedBlock(nn.Module):
     """Kernel execution of a deployed stride-1 BasicBlock (``pre=True``: a
-    PreBasicBlock). Holds the original block for larger batches."""
+    PreBasicBlock). Holds the original block for larger batches. Its kernel
+    descriptor (:func:`~bnn_tpu_torch.kernels.block.basic_block_desc`, with
+    the K-major weight copies) is made at the first fused forward and runs
+    every later one, until ``.to()``, a cast or an in-place update (such as
+    ``load_state_dict``) changes a tensor it was made from."""
 
     def __init__(self, block, *, max_fused_batch: int = 4, fuse_when=None,
                  pre: bool = False):
@@ -252,6 +256,7 @@ class FusedBlock(nn.Module):
         self.pre = pre
         self.register_buffer("w1", _conv_weight_int8(block.conv1))
         self.register_buffer("w2", _conv_weight_int8(block.conv2))
+        self._desc = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.block
@@ -260,11 +265,16 @@ class FusedBlock(nn.Module):
             return b(x)
         a1, p1 = _act_kind(b.act1)
         a2, p2 = _act_kind(b.act2)
+        rows = dict(prelu1=p1, prelu2=p2, threshold=b.conv1.threshold,
+                    threshold2=b.conv2.threshold)
+        weights = (self.w1, self.w2, b.conv1.scale, b.conv1.add,
+                   b.conv2.scale, b.conv2.add)
+        if self._desc is None or self._desc.key != desc_key(*weights, **rows):
+            self._desc = basic_block_desc(*weights, **rows)
         y = fused_basic_block(
-            _nhwc(x), self.w1, self.w2, b.conv1.scale, b.conv1.add,
-            b.conv2.scale, b.conv2.add, act=(a1, a2), prelu1=p1, prelu2=p2,
-            threshold=b.conv1.threshold, threshold2=b.conv2.threshold,
-            pre=self.pre, zero_to_one=_z21(b.conv1), out_dtype=x.dtype)
+            _nhwc(x), *weights, act=(a1, a2), pre=self.pre,
+            zero_to_one=_z21(b.conv1), out_dtype=x.dtype, desc=self._desc,
+            **rows)
         return y.permute(0, 3, 1, 2)
 
 

@@ -33,8 +33,9 @@ MAX_BLOCKS = 8
 BLOCK_PTRS = 6 + len(ROWS)
 BLOCK_INTS = 3 + len(ROWS)
 # the kernels whose GEMM phases run the tensor-core tile (bnn_common.cuh's
-# MmaTile), which reads the K-major weight copies; the others get nulls
-KMAJOR_KERNELS = ("fused_chain",)
+# MmaTile), which reads the K-major weight copies and refuses nulls; the
+# other (fused_downsample_block, on the __dp4a tile) gets nulls
+KMAJOR_KERNELS = ("fused_chain", "fused_stem_chain", "fused_basic_block")
 _FLOATS = (torch.float32, torch.bfloat16)
 
 

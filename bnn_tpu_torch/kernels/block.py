@@ -14,19 +14,24 @@ exact integer sums, and the zero padding is added after the sign, so padded
 taps contribute exactly 0.
 
 Bound on an H100 at ResNet-34 layer4.1's shape (1, 7, 7, 512): 4.7 MB of
-int8 weights against 0.46 G int8 operations, so bytes bound it (1.4 us);
-the kernel keeps both signed maps in L2-resident int8 scratch and runs the
-block as one cooperative launch over the card.
+int8 weights against 0.46 G int8 operations, so bytes bound it (1.4 us).
+The kernel keeps both signed maps in L2-resident int8 scratch and runs the
+block as one cooperative launch whose convs run on the int8 tensor cores
+over K-major weight copies; :func:`basic_block_desc` makes the descriptor
+that keeps them, and :func:`fused_basic_block_plan` reports the launch.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import ctypes
+
 import torch
 
 from . import _blocks as B
 
-__all__ = ["fused_basic_block", "fused_basic_block_reference"]
+__all__ = ["basic_block_desc", "desc_key", "fused_basic_block",
+           "fused_basic_block_plan", "fused_basic_block_reference"]
 
 
 def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> int:
@@ -37,6 +42,40 @@ def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> int:
         raise ValueError(f"fused_basic_block needs (3, 3, {c}, {c}) kernels, "
                          f"got {tuple(w1.shape)} and {tuple(w2.shape)}")
     return c
+
+
+def _rows(scale1, add1, scale2, add2, prelu1, prelu2, threshold, threshold2):
+    """The epilogue rows in the descriptor's order (``_blocks.ROWS``)."""
+    return [scale1, add1, prelu1, scale2, add2, prelu2, None, None, threshold2,
+            threshold, None]
+
+
+def desc_key(w1, w2, scale1, add1, scale2, add2, *, prelu1=None,
+             prelu2=None, threshold=None, threshold2=None) -> tuple:
+    """What :func:`basic_block_desc` of these arguments is built from: each
+    tensor's data pointer, version (in-place updates) and shape; other rows
+    as given."""
+    rows = _rows(scale1, add1, scale2, add2, prelu1, prelu2, threshold,
+                 threshold2)
+    return tuple((t.data_ptr(), t._version, tuple(t.shape))
+                 if isinstance(t, torch.Tensor) else t for t in (w1, w2, *rows))
+
+
+def basic_block_desc(w1, w2, scale1, add1, scale2, add2, *, prelu1=None,
+                     prelu2=None, threshold=None, threshold2=None) -> B.Desc:
+    """The kernel's descriptor of one block, for :func:`fused_basic_block`'s
+    ``desc``: a caller that runs the block again keeps it, and with it the
+    K-major weight copies and flat arrays that it makes once per device.
+    Its ``key`` is :func:`desc_key` of the tensors it was built from: a call
+    whose weights or rows differ, or were changed in place since, refuses
+    it, and a holder rebuilds it."""
+    c = w1.shape[-1]
+    rows = dict(prelu1=prelu1, prelu2=prelu2, threshold=threshold,
+                threshold2=threshold2)
+    desc = B.Desc(False, c, c, w1.reshape(9 * c, c), w2.reshape(9 * c, c),
+                  None, _rows(scale1, add1, scale2, add2, **rows))
+    desc.key = desc_key(w1, w2, scale1, add1, scale2, add2, **rows)
+    return desc
 
 
 def fused_basic_block(
@@ -53,6 +92,7 @@ def fused_basic_block(
     pre: bool = False,
     zero_to_one: bool = True,
     out_dtype: Optional[torch.dtype] = None,
+    desc: Optional[B.Desc] = None,
 ) -> torch.Tensor:
     """One binary BasicBlock (see the module docstring).
 
@@ -68,19 +108,29 @@ def fused_basic_block(
         pre: pre-activation order, ``act2(y2) + x``.
         zero_to_one: sign(0) convention of both signs (False: sign(0) = 0).
         out_dtype: default x's dtype.
+        desc: :func:`basic_block_desc` of these weights and rows where the
+            caller keeps one (else one is made per call; a descriptor of
+            other tensors, or of tensors changed in place since, is refused).
     """
     c = _check(x, w1, w2)
     acts = B.split_act(act)
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    if desc is not None and desc.key != desc_key(
+            w1, w2, scale1, add1, scale2, add2, prelu1=prelu1, prelu2=prelu2,
+            threshold=threshold, threshold2=threshold2):
+        raise ValueError("fused_basic_block's descriptor was built from other "
+                         "weights or rows than the call's, or from these "
+                         "before an in-place change")
     if x.device.type == "cpu":
         return fused_basic_block_reference(
             x, w1, w2, scale1, add1, scale2, add2, act=acts, prelu1=prelu1,
             prelu2=prelu2, threshold=threshold, threshold2=threshold2, pre=pre,
             zero_to_one=zero_to_one, out_dtype=out_dtype)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    desc = B.Desc(False, c, c, w1.reshape(9 * c, c), w2.reshape(9 * c, c),
-                  None, [scale1, add1, prelu1, scale2, add2, prelu2,
-                         None, None, threshold2, threshold, None])
+    if desc is None:
+        desc = basic_block_desc(w1, w2, scale1, add1, scale2, add2,
+                                prelu1=prelu1, prelu2=prelu2,
+                                threshold=threshold, threshold2=threshold2)
     B.launch("fused_basic_block", x, [desc], out, acts=acts, pre=pre,
              zero_to_one=zero_to_one)
     fused_basic_block.launches += 1
@@ -88,6 +138,21 @@ def fused_basic_block(
 
 
 fused_basic_block.launches = 0
+
+
+def fused_basic_block_plan(x: torch.Tensor) -> dict:
+    """The launch of :func:`fused_basic_block` on ``x`` (NHWC, on the
+    current CUDA device), one block per output tile of a conv, 2 to 4 an
+    SM: its blocks, the blocks that can be resident an SM, and a conv's
+    output tiles and K slices."""
+    fn = B.load("fused_basic_block").bnn_fused_basic_block_plan
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    n, h, w, c = x.shape
+    err = fn(n * h * w, c, out)
+    if err:
+        raise RuntimeError(f"fused_basic_block plan failed: CUDA error {err}")
+    return dict(zip(("blocks", "resident_per_sm", "tiles", "k_slices"), out))
 
 
 def fused_basic_block_reference(

@@ -11,15 +11,18 @@ Phases, each reported on its own lines:
    and the tensor-core, dot-product and popcount instructions (and all
    instructions) in the SASS of the three GEMM-shaped kernels, the five
    block kernels and the stem
-   (``fused_chain`` and ``fused_bottleneck`` must show int8 tensor-core and
-   no ``__dp4a`` instructions, ``fused_stem`` and ``fused_stem_chain`` bf16
-   tensor-core instructions);
+   (``fused_chain``, ``fused_bottleneck``, ``fused_basic_block`` and
+   ``fused_stem_chain`` must show int8 tensor-core and no ``__dp4a``
+   instructions, ``fused_stem`` and ``fused_stem_chain`` bf16 tensor-core
+   instructions; ``fused_downsample_block``'s are printed);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
    points take; the stem at its three entry points' geometries in bf16, with
    f32 weights (3 passes) and in f32 (6 passes); ``fused_chain`` at each of ResNet-18's four stage shapes at
    batch 1 and 4, in bf16 and f32 with both option sets, and at widths that
-   its word loader takes (C % 16 != 0); ``fused_bottleneck`` at ResNet-50's
+   its word loader takes (C % 16 != 0), as ``fused_basic_block`` and
+   ``fused_stem_chain`` (layer1 20 channels wide); ``fused_stem_chain``
+   bit-identical to ``fused_chain(fused_stem(x))``; ``fused_bottleneck`` at ResNet-50's
    shapes, odd H and W, and widths where some of its GEMMs take the word
    loader and others the 16-byte one; ``binary_gemm`` bit for bit at each
    of its tile and loader instances and at ragged shapes, each case naming
@@ -52,7 +55,8 @@ Phases, each reported on its own lines:
    (ResNet-18, ResNet-34 and ResNet-50), and every call of the three
    opt-in paths' kernels, captured with its own inputs and held against its
    plain version as in phase 2, with ``fused_bottleneck``'s launch plan
-   (tiles and K slices of each GEMM) at ResNet-50's 13 batch-4 calls; then
+   (tiles and K slices of each GEMM) at ResNet-50's 13 batch-4 calls and
+   ``fused_basic_block``'s and ``fused_stem_chain``'s grids; then
    times (the stem at batch 1, 4 and 8 and the v1 and v2 geometries, with
    its launch plan, beside cuDNN's conv + relu + max_pool): each kernel's
    device time
@@ -85,7 +89,7 @@ import time
 
 import torch
 
-from gemm_shapes import R18_STAGES
+from gemm_shapes import R18_STAGES, block_bound
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {            # dense tensor-core peaks, NVIDIA data sheet
@@ -432,6 +436,15 @@ def check_blocks(kernels, gen, dev) -> dict:
         ref = getattr(kernels, kernel + "_reference")(*args, **kw)
         errs[kernel] = max(errs[kernel], check_exact(name, got, ref, head))
 
+    def basic_case(shape, dtype, opts, options, g, tag, note=""):
+        c = shape[-1]
+        b = rand_block(kernels, "basic", c, c, g, dev, dtype, options=options)
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        p = b.prm
+        run("fused_basic_block", f"fused_basic_block ({','.join(map(str, shape))}){note} {tag}",
+            (x, b.w1.reshape(3, 3, c, c), b.w2.reshape(3, 3, c, c), p[0], p[1], p[3], p[4]),
+            dict(opts, prelu1=p[2], prelu2=p[5], threshold=p[6], threshold2=p[7]))
+
     bf = torch.bfloat16
     torch_opts = dict(act="relu", pre=False, zero_to_one=False)
     other_opts = dict(act="prelu", pre=True, zero_to_one=True)
@@ -451,13 +464,7 @@ def check_blocks(kernels, gen, dev) -> dict:
             (x, down, wfc, bfc), opts, head=True)
         run("fused_chain", f"fused_chain down+basic (4,14,14,256) {tag}", (x, down), opts)
 
-        b = rand_block(kernels, "basic", 512, 512, gen, dev, dtype, options=options)
-        c = 512
-        x = torch.randn((1, 7, 7, c), generator=gen).to(dev, dtype)
-        p = b.prm
-        run("fused_basic_block", f"fused_basic_block (1,7,7,512) {tag}",
-            (x, b.w1.reshape(3, 3, c, c), b.w2.reshape(3, 3, c, c), p[0], p[1], p[3], p[4]),
-            dict(opts, prelu1=p[2], prelu2=p[5], threshold=p[6], threshold2=p[7]))
+        basic_case((1, 7, 7, 512), dtype, opts, options, gen, tag)
         d = down[0]
         x = torch.randn((4, 14, 14, 256), generator=gen).to(dev, dtype)
         p, q = d.po, d.pi
@@ -487,6 +494,12 @@ def check_blocks(kernels, gen, dev) -> dict:
             f"(C % 16 != 0: the word loader) {tag}",
             chain_args(kernels, 2, h, ci, plan, co, False, gen_c, dev, torch.float32,
                        True), other_opts)
+    # fused_basic_block at a width its word loader takes, in both dtypes
+    for dtype, opts, options in ((bf, torch_opts, False), (torch.float32, other_opts, True)):
+        tag = f"{str(dtype)[6:]} act={opts['act']} pre={opts['pre']} " \
+              f"zero_to_one={opts['zero_to_one']}"
+        basic_case((2, 9, 9, 20), dtype, opts, options, gen_c, tag,
+                   " (C % 16 != 0: the word loader)")
     return errs
 
 
@@ -955,22 +968,28 @@ def check_stem_chains(kernels, gen, dev) -> float:
     ulp, not identical, so that difference is printed. Returns its max."""
     err = 0.0
     bf = torch.bfloat16
-    for n, dtype, act, z21, options in ((1, bf, "relu", False, False),
-                                        (4, bf, "prelu", True, True),
-                                        (1, torch.float32, "prelu", False, True),
-                                        (4, torch.float32, "relu", True, False)):
-        x = torch.randn((n, SIZE, SIZE, 3), generator=gen).to(dev, dtype)
-        ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, dtype)
-        bs = (0.1 * torch.randn(64, generator=gen)).to(dev, dtype)
-        blocks = [rand_block(kernels, "basic", 64, 64, gen, dev, dtype, options=options)
+    # the last two: a layer1 of 20 channels, which the block phases load word
+    # by word, on their own generator (the draws above stay as they were)
+    gen_w = torch.Generator().manual_seed(SEED + 7)
+    for n, dtype, act, z21, options, c, g in (
+            (1, bf, "relu", False, False, 64, gen),
+            (4, bf, "prelu", True, True, 64, gen),
+            (1, torch.float32, "prelu", False, True, 64, gen),
+            (4, torch.float32, "relu", True, False, 64, gen),
+            (2, bf, "relu", False, True, 20, gen_w),
+            (1, torch.float32, "prelu", True, True, 20, gen_w)):
+        x = torch.randn((n, SIZE, SIZE, 3), generator=g).to(dev, dtype)
+        ws = (0.1 * torch.randn((7, 7, 3, c), generator=g)).to(dev, dtype)
+        bs = (0.1 * torch.randn(c, generator=g)).to(dev, dtype)
+        blocks = [rand_block(kernels, "basic", c, c, g, dev, dtype, options=options)
                   for _ in range(2)]
         opts = dict(act=act, zero_to_one=z21)
         got = kernels.fused_stem_chain(x, ws, bs, blocks, **opts)
         split = kernels.fused_chain(kernels.fused_stem(x, ws, bs), blocks, **opts)
         ref = kernels.fused_stem_chain_reference(x, ws, bs, blocks, **opts)
         torch.cuda.synchronize()
-        label = (f"fused_stem_chain ({n},{SIZE},{SIZE},3) {str(dtype)[6:]} act={act} "
-                 f"zero_to_one={z21} thresholds={options}")
+        label = (f"fused_stem_chain ({n},{SIZE},{SIZE},3) -> {c} {str(dtype)[6:]} "
+                 f"act={act} zero_to_one={z21} thresholds={options}")
         if got.shape != split.shape or not torch.equal(got, split):
             raise AssertionError(f"{label}: differs from fused_chain(fused_stem(x)) "
                                  f"in {int((got != split).sum())} values")
@@ -1124,8 +1143,9 @@ def main() -> int:
                  "fused_bottleneck", "fused_stem"):
         counts, line = sass_counts(_build._target(name))
         print(f"phase 1: lib{name}: {line}")
-        if name in ("fused_chain", "fused_bottleneck") and counts is not None and (
-                counts["IMMA"] == 0 or counts["IDP4A"] > 0):
+        if name in ("fused_chain", "fused_bottleneck", "fused_basic_block",
+                    "fused_stem_chain") and (
+                counts is None or counts["IMMA"] == 0 or counts["IDP4A"] > 0):
             raise AssertionError(f"lib{name}: {line}; its GEMM phases run "
                                  "on the int8 tensor cores, not __dp4a")
         if name in ("fused_stem", "fused_stem_chain") and (
@@ -1542,26 +1562,21 @@ def main() -> int:
     for kname in ("fused_downsample_block", "fused_basic_block"):
         for args, kw in capture_calls(megablock, kname, lambda: pred34(x1)):
             xh = args[0]
-            n, h, w, ci = xh.shape
-            co = args[2].shape[-1]
-            if kname == "fused_downsample_block":
-                out_numel = n * (h // 2) * (w // 2) * co
-                ops = 2 * out_numel * (9 * ci + 9 * co + ci)
-            else:
-                out_numel = n * h * w * co
-                ops = 2 * 2 * out_numel * 9 * ci
-            # conv1's weights as their 9*Ci*Co int8 taps (a down block's
-            # come in the s2d form, which pads 7*Ci*Co zeros); the rest once
-            params = [a for a in args[2:] if isinstance(a, torch.Tensor)]
-            params += [v for v in kw.values() if isinstance(v, torch.Tensor)]
-            moved = (nbytes(xh, *params) + 9 * ci * co
-                     + out_numel * xh.element_size())
             fn = getattr(kernels, kname)
             plain = getattr(kernels, kname + "_reference")
+            if kname == "fused_basic_block":
+                plan = kernels.block.fused_basic_block_plan(xh)
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                print(f"phase 4: ResNet-34 fused_basic_block {tuple(xh.shape)}: "
+                      f"a grid of {plan['blocks']} blocks ({plan['blocks'] / sms:g} an "
+                      f"SM, {plan['resident_per_sm']} resident), each conv "
+                      f"{plan['tiles']} tiles x {plan['k_slices']} K slices")
+            # the plain version takes the block's tensors, not its kept descriptor
+            plain_kw = {k: v for k, v in kw.items() if k != "desc"}
             record(kname, f"{kname} {tuple(xh.shape)} bf16",
                    lambda a=args, k=kw: fn(*a, **k),
-                   lambda a=args, k=kw: plain(*a, **k),
-                   bound_ms(moved, ops, torch.int8))
+                   lambda a=args, k=plain_kw: plain(*a, **k),
+                   block_bound(kname, args, plain_kw, bound_ms))
     for kname, rows in block_t.items():
         for label, (d, c), (pd, pc), bound, by in rows:
             print(f"phase 4: {label}: kernel {d * 1e3:.2f} us device / "

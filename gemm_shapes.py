@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time ``binary_gemm`` (or, with ``--conv``, ``binary_conv2d_s1``, with
 ``--popcount``, ``popcount_gemm``, with ``--chain``, ``fused_chain``, with
-``--bottleneck``, ``fused_bottleneck``, or with ``--stem``, ``fused_stem``
-and ``fused_stem_chain``) at the serving paths' shapes, for the checkout it
-is run from.
+``--bottleneck``, ``fused_bottleneck``, with ``--stem``, ``fused_stem``
+and ``fused_stem_chain``, or with ``--blocks``, ``fused_basic_block`` and
+``fused_downsample_block``) at the serving paths' shapes, for the checkout
+it is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck | --stem]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck | --stem | --blocks]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
 this script times any checkout whose kernels have the public signatures:
@@ -60,7 +61,16 @@ then ``fused_stem_chain`` at batch 1 and 4 with two random layer1 blocks
 (``chip_smoke.rand_block``): bit-identical to ``fused_chain(fused_stem(x))``,
 its kernel's device time beside the split pair's two kernels and its bound
 (``chip_smoke.stem_chain_bound``), and its stem phase's plan (blocks an SM
-included) where the checkout has ``fused_stem_chain_plan``.
+included) where the checkout has ``fused_stem_chain_plan``. With
+``--blocks``, ResNet-34 layer4's per-block kernels at batch 1: two
+``fused_basic_block`` calls at (1, 7, 7, 512) (layer4.1-2) and one
+``fused_downsample_block`` at (1, 14, 14, 256) -> 512 (layer4.0), on random
++/-1 blocks with bf16 epilogue rows (``chip_smoke.rand_block``), a random
+bf16 input, ReLU, torch-parity signs, through the public calls; each result
+held against its plain version (within one bf16 ulp); each kernel's own
+device time beside its bound (:func:`block_bound`), and
+``fused_basic_block``'s launch plan where the checkout has
+``fused_basic_block_plan``.
 ``chip_smoke`` is imported from the checkout too, so
 a parent's run uses the parent's helpers. Prints the card line, one JSON
 line per shape (per call with ``--chain``), then one per path with the sums
@@ -163,6 +173,9 @@ def main() -> int:
                        help="time fused_bottleneck at ResNet-50's calls instead")
     which.add_argument("--stem", action="store_true",
                        help="time fused_stem and fused_stem_chain instead")
+    which.add_argument("--blocks", action="store_true",
+                       help="time fused_basic_block and fused_downsample_block "
+                            "at ResNet-34 layer4's calls instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -187,6 +200,8 @@ def main() -> int:
         return time_bottlenecks(args.label, kernels, gen, dev)
     if args.stem:
         return time_stems(args.label, kernels, gen, dev)
+    if args.blocks:
+        return time_blocks(args.label, kernels, gen, dev)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -418,6 +433,76 @@ def time_stems(label, kernels, gen, dev) -> int:
         if not exact:
             raise AssertionError(f"fused_stem_chain batch {n} differs from "
                                  "fused_chain(fused_stem(x))")
+    return 0
+
+
+def block_bound(kname, args, kw, bound_ms):
+    """``(ms, 'bytes' or 'operations')``: the least time of a
+    ``fused_basic_block`` or ``fused_downsample_block`` call on these
+    arguments: x, the weights and the rows read once (conv1's weights as
+    their 9*Ci*Co int8 taps; a down block's come in the s2d form, which pads
+    7*Ci*Co zeros) and the output written once, against the int8
+    operations, through ``bound_ms(bytes, ops, torch.int8)`` (chip_smoke's,
+    with the card's rates)."""
+    xh = args[0]
+    n, h, w, ci = xh.shape
+    co = args[2].shape[-1]
+    if kname == "fused_downsample_block":
+        out_numel = n * (h // 2) * (w // 2) * co
+        ops = 2 * out_numel * (9 * ci + 9 * co + ci)
+    else:
+        out_numel = n * h * w * co
+        ops = 2 * 2 * out_numel * 9 * ci
+    params = [a for a in args[2:] if isinstance(a, torch.Tensor)]
+    params += [v for v in kw.values() if isinstance(v, torch.Tensor)]
+    moved = (sum(t.numel() * t.element_size() for t in [xh] + params)
+             + 9 * ci * co + out_numel * xh.element_size())
+    return bound_ms(moved, ops, torch.int8)
+
+
+def time_blocks(label, kernels, gen, dev) -> int:
+    """ResNet-34 layer4's fused_basic_block and fused_downsample_block calls
+    at batch 1, each held against its plain version and timed beside its
+    bound; fused_basic_block's launch plan where the checkout reports it."""
+    from chip_smoke import bound_ms, check_exact, rand_block
+
+    bf = torch.bfloat16
+    opts = dict(act="relu", pre=False, zero_to_one=False)
+    calls = []  # (kernel, call name, args)
+    d = rand_block(kernels, "down", 256, 512, gen, dev, bf, options=False)
+    p = d.po
+    calls.append(("fused_downsample_block", "fused_downsample_block (1, 14, 14, 256) -> 512",
+                  (torch.randn((1, 14, 14, 256), generator=gen).to(dev, bf), d.w1,
+                   d.w2.reshape(3, 3, 512, 512), d.wd, p[0], p[1], p[3], p[4], p[6], p[7])))
+    for i in (1, 2):
+        b = rand_block(kernels, "basic", 512, 512, gen, dev, bf, options=False)
+        p = b.prm
+        calls.append(("fused_basic_block", f"fused_basic_block (1, 7, 7, 512) layer4.{i}",
+                      (torch.randn((1, 7, 7, 512), generator=gen).to(dev, bf),
+                       b.w1.reshape(3, 3, 512, 512), b.w2.reshape(3, 3, 512, 512),
+                       p[0], p[1], p[3], p[4])))
+    planner = getattr(kernels.block, "fused_basic_block_plan", None)
+    tot = {}
+    for kname, name, args in calls:
+        fn = getattr(kernels, kname)
+        err = check_exact(f"{label} {name}", fn(*args, **opts),
+                          getattr(kernels, kname + "_reference")(*args, **opts),
+                          False, verbose=False)
+        bound, by = block_bound(kname, args, opts, bound_ms)
+        row = {"label": label, "call": name,
+               "plan": (planner(args[0]) if planner is not None
+                        and kname == "fused_basic_block" else None),
+               "max_abs_err": err,
+               "kernel_us": device_us(lambda: fn(*args, **opts), kname + "_kernel",
+                                      per_call=1),
+               "bound_us": bound * 1e3, "bound_by": by}
+        print(json.dumps(row))
+        t = tot.setdefault(kname, {"kernel_us": 0.0, "bound_us": 0.0, "calls": 0})
+        t["kernel_us"] += row["kernel_us"]
+        t["bound_us"] += row["bound_us"]
+        t["calls"] += 1
+    for kname, t in tot.items():
+        print(json.dumps({"label": label, "kernel": kname, **t}))
     return 0
 
 

@@ -123,24 +123,27 @@ def test_flat_layout_matches_what_setup_reads():
         assert ints[:3] == [1, 8, 16] and not keep
         assert ptrs[6 + _blocks.ROWS.index("scale1")] == tbp.po[0].data_ptr()
         assert ints[3 + _blocks.ROWS.index("threshold1")] == 8
-    assert _blocks.KMAJOR_KERNELS == ("fused_chain",)
+    assert _blocks.KMAJOR_KERNELS == ("fused_chain", "fused_stem_chain",
+                                      "fused_basic_block")
 
 
 def test_flat_arrays_are_kept_per_weight_layout(monkeypatch):
-    """One descriptor serves kernels of both tiles (fused_stem_chain, then
-    fused_chain on layer1's blocks): the flat arrays kept for a __dp4a
-    kernel carry null K-major pointers, and must not be handed to
-    fused_chain, which refuses nulls. Each layout is built once."""
+    """One descriptor serves kernels of both tiles (fused_downsample_block,
+    the one __dp4a kernel left, then fused_chain on the same block): the
+    flat arrays kept for the __dp4a kernel carry null K-major pointers, and
+    must not be handed to fused_chain, which refuses nulls. Each layout is
+    built once, and the tensor-core kernels share theirs."""
     monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
-    _, _, tbp = _pair(np.random.RandomState(2), "basic", 8, 8)
+    _, _, tbp = _pair(np.random.RandomState(2), "down", 8, 16)
     desc, cpu = tbp.desc(), torch.device("cpu")
-    dp4a = desc.flat("fused_stem_chain", torch.float32, cpu)
+    dp4a = desc.flat("fused_downsample_block", torch.float32, cpu)
     mma = desc.flat("fused_chain", torch.float32, cpu)
     assert dp4a[0][3:6] == [0, 0, 0]
-    assert mma[0][3:5] == [t.data_ptr() for t in desc.kmajor(cpu)[:2]]
-    assert mma[0][5] == 0  # a basic block has no shortcut
+    assert mma[0][3:6] == [t.data_ptr() for t in desc.kmajor(cpu)]
+    assert 0 not in mma[0][3:6]  # a down block's shortcut has its copy too
     assert desc.flat("fused_chain", torch.float32, cpu) is mma
-    assert desc.flat("fused_basic_block", torch.float32, cpu) is dp4a
+    assert desc.flat("fused_stem_chain", torch.float32, cpu) is mma
+    assert desc.flat("fused_downsample_block", torch.float32, cpu) is dp4a
 
 
 @pytest.mark.parametrize("plan,c", [(("basic", "basic"), 20),
