@@ -23,14 +23,11 @@
 // of ternary values need int8: a 1-bit XNOR form cannot hold the zeros of
 // the torch-parity sign.
 //
-// Two tiles run a work item, picked by run_block's Tile parameter:
-// Dp4aTile, the first form (__dp4a on CUDA cores, word-by-word gathers,
-// weights read in the JAX (K, N) layout and transposed in registers), and
-// MmaTile, the int8 tensor-core form (mma.sync m16n8k32 over a cp.async ring,
-// 16-byte copies of A rows and of a K-major (N, K) weight copy). fused_chain,
-// fused_stem_chain and fused_basic_block run MmaTile through run_block,
-// fused_bottleneck through its own phases; fused_downsample_block is the
-// one kernel left on Dp4aTile.
+// A work item runs on MmaTile, the int8 tensor-core tile (mma.sync m16n8k32
+// over a cp.async ring, 16-byte copies of A rows and of a K-major (N, K)
+// weight copy). fused_chain, fused_stem_chain, fused_basic_block and
+// fused_downsample_block run it through run_block, fused_bottleneck through
+// its own phases.
 //
 // Numerics are those of the plain PyTorch versions bit for bit: the sums are
 // exact, every f32 multiply and add is rounded on its own (__fmul_rn,
@@ -97,12 +94,13 @@ __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
                           ((static_cast<uint32_t>(d) & 0xffu) << 24));
 }
 
-// One block of a chain. Weights are int8 in the JAX kernels' layouts: basic
-// w1/w2 (9C, C) tap-major; down w1 (16Ci, Co) in _transform_w1's s2d order,
-// w2 (9Co, Co), wd (Ci, Co). wt holds the K-major copies (Co, K) of conv1,
-// conv2 and the shortcut that MmaTile reads (a down block's conv1 as its
-// 9*Ci taps in (dy, dx, c) order), or nulls for a kernel on Dp4aTile. A row
-// of length 0 takes its default value, of length 1 is broadcast.
+// One block of a chain. w1, w2 and wd are the int8 weights in the JAX
+// kernels' layouts (basic w1/w2 (9C, C) tap-major; down w1 (16Ci, Co) in
+// _transform_w1's s2d order, w2 (9Co, Co), wd (Ci, Co)); no phase reads
+// them. wt holds the K-major copies (Co, K) of conv1, conv2 and the shortcut
+// that MmaTile reads (a down block's conv1 as its 9*Ci taps in (dy, dx, c)
+// order). A row of length 0 takes its default value, of length 1 is
+// broadcast.
 struct Block {
   int down, ci, co;
   const int8_t* w1;
@@ -144,11 +142,11 @@ __device__ __forceinline__ float row(const ChainParams& p, const Block& b,
   return ldf(b.ptr[r], b.len[r] == 1 ? 0 : c, p.prm_bf16);
 }
 
-// --- K-word gathers: four consecutive K values of an output pixel -------
+// --- Gathers: the K values of an output pixel ---------------------------
 // pixel(m) resolves output pixel m once per tile (out of range: a pixel
-// whose every load is 0); load(pixel, kw) reads K word kw (Dp4aTile);
-// src(pixel, k) is the address of K value k, from which the C - k % C values
-// of its tap are consecutive, or null where the tap is padding (MmaTile).
+// whose every tap is padding); src(pixel, k) is the address of K value k,
+// from which the C - k % C values of its tap are consecutive, or null where
+// the tap is padding.
 
 // 3x3 / stride 1 / pad 1 over an (N, H, W, C) map; K order (dy, dx, c)
 struct Conv3x3 {
@@ -163,12 +161,6 @@ struct Conv3x3 {
     if (m >= M) return {s, -4, -4};
     return {s + static_cast<size_t>(n) * hw * C, y, r - y * W};
   }
-  __device__ __forceinline__ int load(const Pix& p, int kw) const {
-    const int k = 4 * kw, tap = k / C, c = k - tap * C;
-    const int yy = p.y + tap / 3 - 1, xx = p.x + tap % 3 - 1;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) return 0;
-    return *reinterpret_cast<const int*>(p.img + (yy * W + xx) * C + c);
-  }
   __device__ __forceinline__ const int8_t* src(const Pix& p, int k) const {
     const int tap = k / C, c = k - tap * C, dy = tap / 3;
     const int yy = p.y + dy - 1, xx = p.x + tap - 3 * dy - 1;
@@ -177,37 +169,10 @@ struct Conv3x3 {
   }
 };
 
-// 3x3 / stride 2 / pad 1 over an (N, H, W, C) map, with the weights in the
-// 2x2 space-to-depth form: K order (ki, kj, di, dj, c); tap (ki, kj) of s2d
-// phase (di, dj) reads input row 2 * (i - 1 + ki) + di. Only the top and left
-// edges pad; the taps that land there carry zero weights.
-struct Conv3x3S2 {
-  const int8_t* s;
-  int H, W, C;
-  struct Pix {
-    const int8_t* img;
-    int y0, x0;  // 2 * (i - 1), 2 * (j - 1)
-  };
-  __device__ __forceinline__ Pix pixel(int m, int M) const {
-    const int ow = W / 2, hw = (H / 2) * ow, n = m / hw, r = m - n * hw;
-    const int i = r / ow;
-    if (m >= M) return {s, -1 << 20, -1 << 20};
-    return {s + static_cast<size_t>(n) * H * W * C, 2 * (i - 1),
-            2 * (r - i * ow - 1)};
-  }
-  __device__ __forceinline__ int load(const Pix& p, int kw) const {
-    const int k = 4 * kw, g = k / C, c = k - g * C;
-    const int yy = p.y0 + 2 * (g >> 3) + ((g >> 1) & 1);
-    const int xx = p.x0 + 2 * ((g >> 2) & 1) + (g & 1);
-    if (yy < 0 || xx < 0) return 0;
-    return *reinterpret_cast<const int*>(p.img + (yy * W + xx) * C + c);
-  }
-};
-
 // 3x3 / stride 2 / pad 1 over an (N, H, W, C) map with even H, W, K order
 // (dy, dx, c): output pixel (i, j) reads input (2i - 1 + dy, 2j - 1 + dx).
-// MmaTile's form of a down block's conv1: 9*C taps, where the s2d form above
-// has 16*C, 7*C of them against zero weights.
+// A down block's conv1 as its 9*C taps (the JAX kernel's s2d form has 16*C,
+// 7*C of them against zero weights).
 struct Conv3x3S2Taps {
   const int8_t* s;
   int H, W, C;
@@ -239,159 +204,19 @@ struct Pointwise {
   __device__ __forceinline__ Pix pixel(int m, int M) const {
     return {m < M ? s + static_cast<size_t>(m) * C : nullptr};
   }
-  __device__ __forceinline__ int load(const Pix& p, int kw) const {
-    return p.row ? *reinterpret_cast<const int*>(p.row + 4 * kw) : 0;
-  }
   __device__ __forceinline__ const int8_t* src(const Pix& p, int k) const {
     return p.row ? p.row + k : nullptr;
   }
 };
 
-struct Smem {
-  int a[TM][KCW + 1];  // +1 word of padding: conflict-free column reads
-  int w[TN][KCW + 1];
-};
-
-// Work items per thread and chunk: A words, and (K word, 4 columns) groups
-// of w, each four 32-bit rows read at once and transposed with byte_perm.
-constexpr int A_PER = TM * KCW / THREADS;
-constexpr int W_PER = KCW * (TN / 4) / THREADS;
-static_assert(A_PER * THREADS == TM * KCW && W_PER * THREADS == KCW * TN / 4,
-              "tile shape");
-
-// This thread's A words of a chunk are K word kw0 + tid % KCW of the
-// pixels px (rows tid / KCW + i * THREADS / KCW of the tile).
-template <class Gather>
-__device__ __forceinline__ void load_chunk(
-    const Gather& gather, const typename Gather::Pix (&px)[A_PER],
-    const int8_t* __restrict__ w, int N, int kwords, int n0, int kw0,
-    int (&ra)[A_PER], int (&rw)[W_PER][4]) {
-  const int tid = threadIdx.x, kw = kw0 + tid % KCW;
-#pragma unroll
-  for (int i = 0; i < A_PER; ++i) ra[i] = kw < kwords ? gather.load(px[i], kw) : 0;
-#pragma unroll
-  for (int i = 0; i < W_PER; ++i) {
-    const int e = tid + i * THREADS, n = n0 + 4 * (e % (TN / 4));
-    const int kwi = kw0 + e / (TN / 4);
-    const bool ok = n < N && kwi < kwords;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      rw[i][t] = ok ? *reinterpret_cast<const int*>(
-                          w + static_cast<size_t>(4 * kwi + t) * N + n)
-                    : 0;
-    }
-  }
-}
-
-__device__ __forceinline__ void store_chunk(Smem& sm, const int (&ra)[A_PER],
-                                            const int (&rw)[W_PER][4]) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < A_PER; ++i) {
-    const int e = tid + i * THREADS;
-    sm.a[e / KCW][e % KCW] = ra[i];
-  }
-#pragma unroll
-  for (int i = 0; i < W_PER; ++i) {
-    const int e = tid + i * THREADS, c = 4 * (e % (TN / 4)), q = e / (TN / 4);
-    // rows k..k+3 of columns c..c+3 -> one word of four k per column
-    const int lo01 = __byte_perm(rw[i][0], rw[i][1], 0x5140);
-    const int lo23 = __byte_perm(rw[i][2], rw[i][3], 0x5140);
-    const int hi01 = __byte_perm(rw[i][0], rw[i][1], 0x7362);
-    const int hi23 = __byte_perm(rw[i][2], rw[i][3], 0x7362);
-    sm.w[c + 0][q] = __byte_perm(lo01, lo23, 0x5410);
-    sm.w[c + 1][q] = __byte_perm(lo01, lo23, 0x7632);
-    sm.w[c + 2][q] = __byte_perm(hi01, hi23, 0x5410);
-    sm.w[c + 3][q] = __byte_perm(hi01, hi23, 0x7632);
-  }
-}
-
-// out[m, n] += sum over K chunks [c0, c1) of A[m, k] * w[k, n] for the
-// TM x TN tile at (m0, n0): exact int32 partial sums, added with atomics, so
-// any split of K gives the same integers. w is (K, N) int8 row-major; K and
-// N are multiples of 4. The next chunk's loads are issued before the
-// current chunk's products.
-template <class Gather>
-__device__ void gemm_tile(const Gather& gather, const int8_t* __restrict__ w,
-                          int M, int K, int N, int m0, int n0, int c0, int c1,
-                          Smem& sm, int* __restrict__ out) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int kwords = K / 4;
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  typename Gather::Pix px[A_PER];
-#pragma unroll
-  for (int i = 0; i < A_PER; ++i) {
-    px[i] = gather.pixel(m0 + tid / KCW + i * (THREADS / KCW), M);
-  }
-  int ra[A_PER], rw[W_PER][4];
-  load_chunk(gather, px, w, N, kwords, n0, c0 * KCW, ra, rw);
-  for (int c = c0; c < c1; ++c) {
-    store_chunk(sm, ra, rw);
-    __syncthreads();
-    if (c + 1 < c1) {
-      load_chunk(gather, px, w, N, kwords, n0, (c + 1) * KCW, ra, rw);
-    }
-#pragma unroll
-    for (int q = 0; q < KCW; ++q) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.a[ty * 4 + i][q];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sm.w[tx + 16 * j][q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N && acc[i][j] != 0) {
-        atomicAdd(out + static_cast<size_t>(m) * N + n, acc[i][j]);
-      }
-    }
-  }
-}
-
-// A GEMM's work items: output tiles times slices of K, about one item per
-// resident thread block, so that a small M still fills the card.
+// A GEMM's work items: output tiles times slices of K (mma_split_of), so
+// that a small M still fills the card.
 struct Split {
   int nt, slices, per_slice, chunks, items;
 };
 
-__device__ __forceinline__ Split split(int M, int K, int N) {
-  Split s;
-  s.nt = (N + TN - 1) / TN;
-  const int tiles = ((M + TM - 1) / TM) * s.nt;
-  s.chunks = (K / 4 + KCW - 1) / KCW;
-  const int want = max(1, min(s.chunks, (static_cast<int>(gridDim.x) + tiles - 1) / tiles));
-  s.per_slice = (s.chunks + want - 1) / want;
-  s.slices = (s.chunks + s.per_slice - 1) / s.per_slice;
-  s.items = tiles * s.slices;
-  return s;
-}
-
-template <class Gather>
-__device__ __forceinline__ void gemm_item(const Gather& gather, const int8_t* w,
-                                          int M, int K, int N, const Split& s,
-                                          int item, Smem& sm, int* out) {
-  const int tile = item / s.slices, slice = item % s.slices;
-  const int c0 = slice * s.per_slice;
-  gemm_tile(gather, w, M, K, N, (tile / s.nt) * TM, (tile % s.nt) * TN, c0,
-            min(s.chunks, c0 + s.per_slice), sm, out);
-}
-
 // --- MmaTile: the int8 tensor-core tile --------------------------------
-// The work item is gemm_tile's: a TM x TN output tile and a slice of K.
+// A work item is a TM x TN output tile and a slice of K.
 // A chunk of 64 K values lands in one stage of a cp.async ring: A as TM rows
 // of KCW words (four int8 each, row-major) and the weights as TN rows of KCW
 // words from the K-major copy, which is mma.sync's .col layout of B, so no
@@ -433,7 +258,7 @@ __device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
 // The A rows this thread copies, i < MMA_ROWS: segment tid % SEGS of row
 // tid / SEGS (VEC), or word tid % KCW of rows tid / KCW + i * THREADS / KCW
 template <bool VEC>
-constexpr int MMA_ROWS = VEC ? 1 : A_PER;
+constexpr int MMA_ROWS = VEC ? 1 : TM * KCW / THREADS;
 
 template <bool VEC>
 __device__ __forceinline__ int mma_row(int i) {
@@ -462,7 +287,7 @@ __device__ __forceinline__ void mma_load(
   } else {
     const int kw = tid % KCW, k = k0 + 4 * kw;
 #pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
+    for (int i = 0; i < MMA_ROWS<false>; ++i) {
       const int8_t* a = k < K ? gather.src(px[i], k) : nullptr;
       cp_async_ca<4>(&st.a[mma_row<false>(i)][kw], a ? a : wt, a ? 4 : 0);
     }
@@ -521,8 +346,9 @@ struct SumSink {
   }
 };
 
-// gemm_tile's contract on the tensor cores, w given K-major as wt (N, K);
-// the sums go to `sink`.
+// out[m, n] = sum over K chunks [c0, c1) of A[m, k] * wt[n, k] for the
+// TM x TN tile at (m0, n0): exact int32 sums of the K-major (N, K) weights,
+// handed to `sink`. K and N are multiples of 4.
 template <bool VEC, class Gather, class Sink>
 __device__ void mma_tile(const Gather& gather, const int8_t* __restrict__ wt,
                          int M, int K, int N, int m0, int n0, int c0, int c1,
@@ -561,9 +387,10 @@ __device__ void mma_tile(const Gather& gather, const int8_t* __restrict__ wt,
   }
 }
 
-// split() with half an item per resident block of a `grid`-block launch:
-// slices only where the tiles fill less than half the grid, so fewer K
-// slices (and atomics) than split(). Also on the host, for a kernel's plan.
+// The work items of a GEMM in a `grid`-block launch, half an item per
+// resident block: K is sliced only where the tiles fill less than half the
+// grid (each slice adds its sums with atomics). Also on the host, for a
+// kernel's plan.
 __host__ __device__ __forceinline__ Split mma_split_of(int grid, int M, int K,
                                                        int N) {
   Split s;
@@ -582,31 +409,10 @@ __device__ __forceinline__ Split mma_split(int M, int K, int N) {
   return mma_split_of(static_cast<int>(gridDim.x), M, K, N);
 }
 
-// --- The two tiles of run_block ------------------------------------------
-// Each names its shared memory, the gather and K of a down block's conv1 and
-// the weights it reads (i = 0, 1, 2: conv1, conv2, the shortcut), splits a
-// GEMM into work items and runs one of them.
-struct Dp4aTile {
-  using Smem = bnn::Smem;
-  using Conv1S2 = Conv3x3S2;
-  static __device__ __forceinline__ Split split(int M, int K, int N) {
-    return bnn::split(M, K, N);
-  }
-  static __device__ __forceinline__ int k1(bool down, int ci) {
-    return (down ? 16 : 9) * ci;
-  }
-  static __device__ __forceinline__ const int8_t* w(const Block& b, int i) {
-    return i == 0 ? b.w1 : i == 1 ? b.w2 : b.wd;
-  }
-  template <class Gather>
-  static __device__ __forceinline__ void item(const Gather& gather,
-                                              const int8_t* w, int M, int K,
-                                              int N, const Split& s, int item,
-                                              Smem& sm, int* out) {
-    gemm_item(gather, w, M, K, N, s, item, sm, out);
-  }
-};
-
+// --- run_block's tile -----------------------------------------------------
+// Names its shared memory, the gather and K of a down block's conv1 and the
+// weights it reads (i = 0, 1, 2: conv1, conv2, the shortcut), splits a GEMM
+// into work items and runs one of them.
 struct MmaTile {
   using Smem = MmaSmem;
   using Conv1S2 = Conv3x3S2Taps;
@@ -735,15 +541,55 @@ __device__ void run_block(const ChainParams& p, const Block& b, int H, int W,
   }
 }
 
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
 // Thread blocks of a cooperative launch that can be resident at once.
 inline int grid_capacity(const void* kernel, int* cache) {
   if (*cache > 0) return *cache;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-  *cache = sms * per_sm;
+  *cache = sm_count() * per_sm;
   return *cache;
+}
+
+// The blocks of a launch of `kernel` whose widest GEMM has M rows and N
+// columns: one per output tile, in whole SMs, 2 to 4 an SM, and at most what
+// can be resident. Each block makes every grid barrier dearer (about 2.7 ns
+// a block on an H100), and blocks beyond the tiles only slice K more finely.
+inline int grid_for(const void* kernel, int* capacity, int M, int N) {
+  const int cap = grid_capacity(kernel, capacity);
+  if (cap <= 0) return cap;
+  const int sms = sm_count();
+  const int tiles = (M + TM - 1) / TM * ((N + TN - 1) / TN);
+  const int per_sm = (tiles + sms - 1) / sms;
+  const int grid = (per_sm < 2 ? 2 : per_sm > 4 ? 4 : per_sm) * sms;
+  return grid < cap ? grid : cap;
+}
+
+// A block kernel's launch over M output pixels of N channels on the current
+// device (grid_for), for a kernel's plan entry: out = {blocks, resident
+// blocks an SM, output tiles, then the K slices of each of the nk GEMMs of
+// depth ks[i]}. Returns the CUDA error code.
+inline int block_plan(const void* kernel, int* capacity, int M, int N,
+                      const int* ks, int nk, int* out) {
+  const int blocks = grid_for(kernel, capacity, M, N);
+  if (blocks <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  out[0] = blocks;
+  out[1] = *capacity / sm_count();
+  for (int i = 0; i < nk; ++i) {
+    const Split s = mma_split_of(blocks, M, ks[i], N);
+    out[2] = s.items / s.slices;
+    out[3 + i] = s.slices;
+  }
+  return 0;
 }
 
 // Fill `p` from the two flat host arrays every wrapper passes. Per block,

@@ -20,8 +20,8 @@
 // conv has only 2 x 8 output tiles of K = 4608 (72 chunks), so mma_split
 // slices K over the launch: what holds the kernel back is its four grid
 // barriers and the elementwise passes between them, whose cost grows with
-// the blocks of the launch, and the atomics of a sliced K. grid_for sizes
-// the launch by the conv's tiles, as fused_bottleneck.cu does.
+// the blocks of the launch, and the atomics of a sliced K. bnn::grid_for sizes
+// the launch by the conv's tiles, as for the other block kernels.
 #include "bnn_common.cuh"
 
 namespace {
@@ -35,26 +35,6 @@ fused_basic_block_kernel(const __grid_constant__ bnn::ChainParams p) {
 }
 
 int capacity = 0;  // resident blocks
-int sms = 0;
-
-// The blocks of a launch over M pixels of C channels: one per output tile
-// of a conv, in whole SMs, 2 to 4 an SM; at most what can be resident. Each
-// block makes every grid barrier dearer (about 2.7 ns a block on an H100),
-// and blocks beyond the tiles only slice K more finely.
-int grid_for(int M, int C) {
-  const int cap = bnn::grid_capacity(
-      reinterpret_cast<const void*>(&fused_basic_block_kernel), &capacity);
-  if (cap <= 0) return cap;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int tiles = (M + bnn::TM - 1) / bnn::TM * ((C + bnn::TN - 1) / bnn::TN);
-  const int per_sm = (tiles + sms - 1) / sms;
-  const int grid = (per_sm < 2 ? 2 : per_sm > 4 ? 4 : per_sm) * sms;
-  return grid < cap ? grid : cap;
-}
 
 }  // namespace
 
@@ -70,22 +50,17 @@ extern "C" int bnn_fused_basic_block(int nblocks, const void* const* ptrs,
   if (nblocks != 1 || b.down || p.classes || !b.wt[0] || !b.wt[1]) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = grid_for(p.n * p.h * p.w, b.co);
+  const void* kernel = reinterpret_cast<const void*>(&fused_basic_block_kernel);
+  const int grid = bnn::grid_for(kernel, &capacity, p.n * p.h * p.w, b.co);
   if (grid <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  return bnn::launch(reinterpret_cast<const void*>(&fused_basic_block_kernel),
-                     &capacity, p, stream, grid);
+  return bnn::launch(kernel, &capacity, p, stream, grid);
 }
 
-// The launch on the current device of a block over m pixels of c channels:
-// out = {blocks, resident blocks an SM, a conv's output tiles, its K
-// slices}. Returns the CUDA error code.
+// The launch on the current device of a block over m pixels of c channels
+// (bnn::block_plan): out = {blocks, resident blocks an SM, a conv's output
+// tiles, its K slices}. Returns the CUDA error code.
 extern "C" int bnn_fused_basic_block_plan(int m, int c, int* out) {
-  const int blocks = grid_for(m, c);
-  if (blocks <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  const bnn::Split s = bnn::mma_split_of(blocks, m, 9 * c, c);
-  out[0] = blocks;
-  out[1] = capacity / sms;
-  out[2] = s.items / s.slices;
-  out[3] = s.slices;
-  return 0;
+  const int k = 9 * c;
+  return bnn::block_plan(reinterpret_cast<const void*>(&fused_basic_block_kernel),
+                         &capacity, m, c, &k, 1, out);
 }

@@ -335,26 +335,12 @@ fused_bottleneck_kernel(const __grid_constant__ Params p) {
 }
 
 int capacity = 0;  // resident blocks
-int sms = 0;
 
-// The blocks of a launch over M pixels: one per output tile of the widest
-// GEMM, in whole SMs, 2 to 4 an SM and at most what can be resident. Each
-// block makes every grid barrier dearer (about 2.7 ns a block on an H100),
-// and blocks beyond the tiles of the GEMMs only split K more finely.
+// The blocks of a launch over M pixels, by the tiles of the widest GEMM
+// (bnn::grid_for)
 int grid_for(int M, int width, int cout) {
-  const int cap = bnn::grid_capacity(reinterpret_cast<const void*>(&fused_bottleneck_kernel),
-                                     &capacity);
-  if (cap <= 0) return cap;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int widest = width > cout ? width : cout;
-  const int tiles = (M + bnn::TM - 1) / bnn::TM * ((widest + bnn::TN - 1) / bnn::TN);
-  const int per_sm = (tiles + sms - 1) / sms;
-  const int grid = (per_sm < 2 ? 2 : per_sm > 4 ? 4 : per_sm) * sms;
-  return grid < cap ? grid : cap;
+  return bnn::grid_for(reinterpret_cast<const void*>(&fused_bottleneck_kernel),
+                       &capacity, M, width > cout ? width : cout);
 }
 
 // Params from the flat arrays (see PTR_WT); returns the CUDA error code

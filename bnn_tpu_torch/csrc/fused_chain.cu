@@ -39,9 +39,8 @@
 // which no tile changes, and in the GEMM phases the L2 traffic of a 32-row
 // tile, which reads each weight column once per 32 output pixels.
 //
-// fused_bottleneck, fused_basic_block and fused_stem_chain's block phases
-// run the same tile; fused_downsample_block still runs bnn_common.cuh's
-// Dp4aTile.
+// fused_bottleneck, fused_basic_block, fused_downsample_block and
+// fused_stem_chain's block phases run the same tile.
 #include "bnn_common.cuh"
 
 namespace {

@@ -151,16 +151,6 @@ fused_stem_chain_kernel(const __grid_constant__ Params p) {
 
 int capacity = 0;
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 // The stem phase's work for n images of hp x wp pooled outputs into o_pad
 // channels: plan = {pooled rows an item, items, blocks (the cooperative
 // grid), blocks an SM}. The launch takes its rows from here, and so does
@@ -173,7 +163,7 @@ int stem_plan(int n, int hp, int wp, int o_pad, int* plan) {
   plan[1] = n * ((hp + plan[0] - 1) / plan[0]) *
             ((wp + stem::PC - 1) / stem::PC) * (o_pad / SOCB);
   plan[2] = cap;
-  plan[3] = cap / sm_count();
+  plan[3] = cap / bnn::sm_count();
   return cap > 0 ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
 }
 

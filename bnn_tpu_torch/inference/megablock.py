@@ -31,8 +31,11 @@ from torch import nn
 from ..binarize import set_module_by_name
 from ..kernels.block import basic_block_desc, desc_key, fused_basic_block
 from ..kernels.bottleneck import BottleneckDesc
+from ..kernels.bottleneck import desc_key as bottleneck_key
 from ..kernels.packing import unpack_bits
-from ..kernels.strided_block import _transform_w1, fused_downsample_block
+from ..kernels.strided_block import (_transform_w1, downsample_block_desc,
+                                     fused_downsample_block)
+from ..kernels.strided_block import desc_key as downsample_key
 from ..models.layers import BasicBlock, Bottleneck, PreBasicBlock
 from .deploy import DeployedConv
 from .optimize import fold_bn_after, fold_bn_before
@@ -281,7 +284,11 @@ class FusedBlock(nn.Module):
 class FusedDownBlock(nn.Module):
     """Kernel execution of a deployed stride-2 block with the BNN
     AvgPool -> 1x1 shortcut. Holds the original block for larger batches and
-    odd H or W."""
+    odd H or W. Its kernel descriptor (:func:`~bnn_tpu_torch.kernels.
+    strided_block.downsample_block_desc`, with the K-major weight copies) is
+    made at the first fused forward and runs every later one, until
+    ``.to()``, a cast or an in-place update (such as ``load_state_dict``)
+    changes a tensor it was made from."""
 
     def __init__(self, block, *, max_fused_batch: int = 4, pre: bool = False):
         super().__init__()
@@ -293,6 +300,7 @@ class FusedDownBlock(nn.Module):
         self.register_buffer("w2", _conv_weight_int8(block.conv2))
         self.register_buffer("wd", _conv_weight_int8(block.downsample[1])
                              .reshape(ci, -1).contiguous())
+        self._desc = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.block
@@ -302,13 +310,16 @@ class FusedDownBlock(nn.Module):
         dconv = b.downsample[1]
         a1, p1 = _act_kind(b.act1)
         a2, p2 = _act_kind(b.act2)
+        rows = dict(prelu1=p1, prelu2=p2, threshold1=b.conv1.threshold,
+                    threshold2=b.conv2.threshold, thresholdd=dconv.threshold)
+        weights = (self.w1, self.w2, self.wd, b.conv1.scale, b.conv1.add,
+                   b.conv2.scale, b.conv2.add, dconv.scale, dconv.add)
+        if self._desc is None or self._desc.key != downsample_key(*weights, **rows):
+            self._desc = downsample_block_desc(*weights, **rows)
         y = fused_downsample_block(
-            _nhwc(x), self.w1, self.w2, self.wd,
-            b.conv1.scale, b.conv1.add, b.conv2.scale, b.conv2.add,
-            dconv.scale, dconv.add, act=(a1, a2), prelu1=p1, prelu2=p2,
-            threshold1=b.conv1.threshold, threshold2=b.conv2.threshold,
-            thresholdd=dconv.threshold, pre=self.pre, zero_to_one=_z21(b.conv1),
-            out_dtype=x.dtype)
+            _nhwc(x), *weights, act=(a1, a2), pre=self.pre,
+            zero_to_one=_z21(b.conv1), out_dtype=x.dtype, desc=self._desc,
+            **rows)
         return y.permute(0, 3, 1, 2)
 
 
@@ -317,7 +328,8 @@ class FusedBottleneck(nn.Module):
     or a stride-1 1x1 projection shortcut. Holds the original block for
     larger batches. Its :class:`~bnn_tpu_torch.kernels.bottleneck.
     BottleneckDesc` is made at the first fused forward and runs every later
-    one, until ``.to()`` or a cast replaces the tensors."""
+    one, until ``.to()``, a cast or an in-place update (such as
+    ``load_state_dict``) changes a tensor it was made from."""
 
     def __init__(self, block, *, max_fused_batch: int = 4):
         super().__init__()
@@ -333,10 +345,6 @@ class FusedBottleneck(nn.Module):
         self._acts = tuple(_act_kind(a)[0] for a in (block.act1, block.act2,
                                                      block.act3))
         self._desc = None
-
-    def _apply(self, fn, *args, **kwargs):
-        self._desc = None  # .to() and casts replace the tensors
-        return super()._apply(fn, *args, **kwargs)
 
     def _rows(self) -> dict:
         b = self.block
@@ -356,9 +364,9 @@ class FusedBottleneck(nn.Module):
         b = self.block
         if x.shape[0] > self.max_fused_batch:
             return b(x)
-        if self._desc is None:
-            self._desc = BottleneckDesc(self.w1.shape[0], self.w1, self.w2,
-                                        self.w3, self.wd, self._rows())
+        weights, rows = (self.w1, self.w2, self.w3, self.wd), self._rows()
+        if self._desc is None or self._desc.key != bottleneck_key(*weights, rows):
+            self._desc = BottleneckDesc(self.w1.shape[0], *weights, rows)
         y = self._desc(_nhwc(x), self._acts, _z21(b.conv1), x.dtype)
         return y.permute(0, 3, 1, 2)
 

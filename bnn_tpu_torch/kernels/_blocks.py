@@ -32,11 +32,31 @@ MAX_BLOCKS = 8
 # ci, co, the row lengths
 BLOCK_PTRS = 6 + len(ROWS)
 BLOCK_INTS = 3 + len(ROWS)
-# the kernels whose GEMM phases run the tensor-core tile (bnn_common.cuh's
-# MmaTile), which reads the K-major weight copies and refuses nulls; the
-# other (fused_downsample_block, on the __dp4a tile) gets nulls
-KMAJOR_KERNELS = ("fused_chain", "fused_stem_chain", "fused_basic_block")
 _FLOATS = (torch.float32, torch.bfloat16)
+
+
+def tensor_key(values) -> tuple:
+    """What a descriptor built from ``values`` depends on: for each tensor
+    its data pointer, version (in-place updates), shape, strides, dtype and
+    device; any other value as given. The descriptor holds the tensors, so
+    a pointer it recorded is not reused while it lives."""
+    return tuple((v.data_ptr(), v._version, tuple(v.shape), v.stride(), v.dtype,
+                  v.device) if isinstance(v, torch.Tensor) else v for v in values)
+
+
+def launch_plan(name: str, args, gemms) -> dict:
+    """The launch of block kernel ``name`` on the current CUDA device, from
+    its ``bnn_<name>_plan(*args, out)`` (bnn_common.cuh's ``block_plan``):
+    its blocks, the blocks that can be resident an SM, a conv's output
+    tiles, and the K slices of each GEMM named in ``gemms``."""
+    fn = getattr(load(name), f"bnn_{name}_plan")
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (3 + len(gemms)))()
+    err = fn(*args, out)
+    if err:
+        raise RuntimeError(f"{name} plan failed: CUDA error {err}")
+    return {"blocks": out[0], "resident_per_sm": out[1], "tiles": out[2],
+            "k_slices": dict(zip(gemms, out[3:]))}
 
 
 def split_act(act):
@@ -151,8 +171,9 @@ class Desc:
         on ``device`` (the shortcut None for a basic block): K in the (dy, dx,
         c) tap order, a down block's conv1 as its 9*C_in taps. The tensor-core
         tile reads them as 16-byte rows. Derived from the weights once per
-        device and kept, like :meth:`flat`'s arrays: the weights must not be
-        changed in place while the descriptor is in use."""
+        device and kept, like :meth:`flat`'s arrays: a holder that may see
+        the weights change compares the descriptor's ``key``
+        (:func:`tensor_key`) and builds a new one."""
         device = torch.device(device)
         if device not in self._kmajor:
             w1 = (untransform_w1(self.w1, self.ci).reshape(9 * self.ci, self.co)
@@ -166,12 +187,11 @@ class Desc:
     def flat(self, name: str, dtype, device):
         """This block's ``(pointers, ints, converted copies)`` for the
         kernel's flat arrays, the rows in ``dtype``; the copies must live
-        until the launch. Checked and built once per dtype, device and
-        weight layout (with or without the K-major copies), unless a tensor
-        had to be converted (a copy would miss later in-place updates of its
-        source); the tensors must not be replaced while the descriptor is in
-        use."""
-        key = (dtype, device, name in KMAJOR_KERNELS)
+        until the launch. Checked and built once per dtype and device, and
+        shared by every kernel, unless a tensor had to be converted (a copy
+        would miss later in-place updates of its source); the tensors must
+        not be replaced while the descriptor is in use."""
+        key = (dtype, device)
         if key in self._flat:
             return self._flat[key]
         tensors = [self.w1, self.w2, self.wd] + [
@@ -188,16 +208,15 @@ class Desc:
 
     def _layout(self, name: str, dtype, device):
         """:meth:`flat`'s arrays, unchecked and uncached: BLOCK_PTRS pointers
-        (w1, w2, wd, the K-major copies where ``name`` reads them, else nulls,
-        the rows) and BLOCK_INTS ints (down, ci, co, the row lengths)."""
+        (w1, w2, wd, the K-major copies, the rows) and BLOCK_INTS ints (down,
+        ci, co, the row lengths)."""
         weights = [self.w1, self.w2, self.wd if self.down else None]
         for w, shape in zip(weights, (((16 if self.down else 9) * self.ci, self.co),
                                       (9 * self.co, self.co), (self.ci, self.co))):
             if w is not None and tuple(w.shape) != shape:
                 raise ValueError(f"{name}: weights {tuple(w.shape)}, "
                                  f"expected {shape}")
-        weights += (list(self.kmajor(device)) if name in KMAJOR_KERNELS
-                    else [None] * 3)
+        weights += list(self.kmajor(device))
         ptrs, lens, keep = flat_args(
             name, weights, zip(ROWS, self.rows),
             [self.ci if r in _IN_ROWS else self.co for r in ROWS], dtype, device)

@@ -24,8 +24,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import ctypes
-
 import torch
 
 from . import _blocks as B
@@ -52,13 +50,10 @@ def _rows(scale1, add1, scale2, add2, prelu1, prelu2, threshold, threshold2):
 
 def desc_key(w1, w2, scale1, add1, scale2, add2, *, prelu1=None,
              prelu2=None, threshold=None, threshold2=None) -> tuple:
-    """What :func:`basic_block_desc` of these arguments is built from: each
-    tensor's data pointer, version (in-place updates) and shape; other rows
-    as given."""
-    rows = _rows(scale1, add1, scale2, add2, prelu1, prelu2, threshold,
-                 threshold2)
-    return tuple((t.data_ptr(), t._version, tuple(t.shape))
-                 if isinstance(t, torch.Tensor) else t for t in (w1, w2, *rows))
+    """What :func:`basic_block_desc` of these arguments is built from
+    (:func:`_blocks.tensor_key`)."""
+    return B.tensor_key((w1, w2, *_rows(scale1, add1, scale2, add2, prelu1,
+                                        prelu2, threshold, threshold2)))
 
 
 def basic_block_desc(w1, w2, scale1, add1, scale2, add2, *, prelu1=None,
@@ -143,16 +138,10 @@ fused_basic_block.launches = 0
 def fused_basic_block_plan(x: torch.Tensor) -> dict:
     """The launch of :func:`fused_basic_block` on ``x`` (NHWC, on the
     current CUDA device), one block per output tile of a conv, 2 to 4 an
-    SM: its blocks, the blocks that can be resident an SM, and a conv's
-    output tiles and K slices."""
-    fn = B.load("fused_basic_block").bnn_fused_basic_block_plan
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    SM: its blocks, the blocks that can be resident an SM, a conv's output
+    tiles and its K slices (:func:`_blocks.launch_plan`)."""
     n, h, w, c = x.shape
-    err = fn(n * h * w, c, out)
-    if err:
-        raise RuntimeError(f"fused_basic_block plan failed: CUDA error {err}")
-    return dict(zip(("blocks", "resident_per_sm", "tiles", "k_slices"), out))
+    return B.launch_plan("fused_basic_block", (n * h * w, c), ("conv",))
 
 
 def fused_basic_block_reference(

@@ -33,7 +33,8 @@ import torch
 from . import _blocks as B
 from ._build import load
 
-__all__ = ["BottleneckDesc", "fused_bottleneck", "fused_bottleneck_reference"]
+__all__ = ["BottleneckDesc", "desc_key", "fused_bottleneck",
+           "fused_bottleneck_reference"]
 
 _NAME = "fused_bottleneck"
 # epilogue rows in csrc/fused_bottleneck.cu's order; the kernel gives a
@@ -73,6 +74,13 @@ def _weights(c: int, w1, w2, w3, wd):
     return width, cout, w1, w2, w3, wd
 
 
+def desc_key(w1, w2, w3, wd=None, rows=None) -> tuple:
+    """What a :class:`BottleneckDesc` of these arguments is built from
+    (:func:`_blocks.tensor_key`)."""
+    rows = rows or {}
+    return B.tensor_key((w1, w2, w3, wd, *(rows.get(r) for r in ROWS)))
+
+
 class BottleneckDesc:
     """One Bottleneck as the kernel takes it: int8 weights ``w1 (C, width)``,
     ``w2 (9 * width, width)``, ``w3 (width, C_out)``, ``wd (C, C_out)`` or
@@ -81,8 +89,10 @@ class BottleneckDesc:
     the plain version on CPU tensors. Its kernel arguments (the K-major
     weight copies among them) are built at the first launch for each dtype
     and device, unless a tensor had to be converted, so a caller that keeps
-    it (``FusedBottleneck``) does not rebuild them per call; the tensors must
-    not be replaced or changed in place meanwhile."""
+    it (``FusedBottleneck``) does not rebuild them per call. Its ``key`` is
+    :func:`desc_key` of the tensors it was built from: a holder whose
+    tensors may be replaced or changed in place compares it and builds a new
+    descriptor where it differs."""
 
     def __init__(self, c: int, w1, w2, w3, wd=None, rows=None):
         rows = dict(rows or {})
@@ -90,6 +100,7 @@ class BottleneckDesc:
         if unknown:
             raise ValueError(f"{_NAME} takes the rows {ROWS}, got {sorted(unknown)}")
         self.rows = [rows.get(r) for r in ROWS]
+        self.key = desc_key(w1, w2, w3, wd, rows)
         self.c = c
         self.width, self.cout, w1, w2, w3, wd = _weights(c, w1, w2, w3, wd)
         self.w1, self.w3, self.wd = w1, w3, wd

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ._blocks import tensor_key
 from ._build import load
 
 __all__ = ["fused_stem", "fused_stem_reference", "StemDesc", "split_pieces",
@@ -99,11 +100,8 @@ def stem_passes(x_dtype: torch.dtype, w_dtype: torch.dtype) -> tuple:
 
 
 def stem_key(w: torch.Tensor, bias: Optional[torch.Tensor]) -> tuple:
-    """What a :class:`StemDesc` was built from: each tensor's dtype, device,
-    data pointer, version (in-place updates), shape and strides (layout)."""
-    return tuple(None if t is None else
-                 (t.dtype, t.device, t.data_ptr(), t._version, tuple(t.shape),
-                  t.stride()) for t in (w, bias))
+    """What a :class:`StemDesc` was built from (:func:`_blocks.tensor_key`)."""
+    return tensor_key((w, bias))
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,16 +9,19 @@
 :func:`fused_downsample_block` launches the hand-written Hopper kernel
 ``bnn_tpu_torch/csrc/fused_downsample_block.cu`` for CUDA tensors and takes
 :func:`fused_downsample_block_reference`, its plain version, only for CPU
-tensors; both compute the same f32 values bit for bit. The kernel takes
-conv1's weights in the JAX kernel's 2x2 space-to-depth form
+tensors; both compute the same f32 values bit for bit. Both take conv1's
+weights as taps or in the JAX kernel's 2x2 space-to-depth form
 (:func:`_transform_w1`), and the 2x2 mean as
 ``0.25 * (((p00 + p01) + p10) + p11)``, in that order in both versions.
 
 Bound on an H100 at ResNet-34 layer4.0's serving shape (1, 14, 14, 256) ->
 512 in bf16: 3.8 MB of weights and activations (conv1's as its 9*Ci*Co
 int8 taps; the s2d form's other 7*Ci*Co bytes are zeros) against 0.36 G
-int8 operations, so bytes bound it (1.14 us); the design is
-fused_basic_block's.
+int8 operations, so bytes bound it (1.14 us). The design is
+fused_basic_block's: the convs run on the int8 tensor cores over K-major
+weight copies, conv1 as its 9*Ci taps; :func:`downsample_block_desc` makes
+the descriptor that keeps them, and :func:`fused_downsample_block_plan`
+reports the launch.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch.nn.functional as F
 
 from . import _blocks as B
 
-__all__ = ["fused_downsample_block", "fused_downsample_block_reference"]
+__all__ = ["desc_key", "downsample_block_desc", "fused_downsample_block",
+           "fused_downsample_block_plan", "fused_downsample_block_reference"]
 
 
 def _transform_w1(w1: torch.Tensor) -> torch.Tensor:
@@ -60,6 +64,44 @@ def _check(x, w1, w2, wd):
     return ci, co
 
 
+def _rows(scale1, add1, scale2, add2, scaled, addd, prelu1, prelu2,
+          threshold1, threshold2, thresholdd):
+    """The epilogue rows in the descriptor's order (``_blocks.ROWS``)."""
+    return [scale1, add1, prelu1, scale2, add2, prelu2, scaled, addd,
+            threshold2, threshold1, thresholdd]
+
+
+def desc_key(w1, w2, wd, scale1, add1, scale2, add2, scaled, addd, *,
+             prelu1=None, prelu2=None, threshold1=None, threshold2=None,
+             thresholdd=None) -> tuple:
+    """What :func:`downsample_block_desc` of these arguments is built from
+    (:func:`_blocks.tensor_key`)."""
+    return B.tensor_key((w1, w2, wd, *_rows(
+        scale1, add1, scale2, add2, scaled, addd, prelu1, prelu2, threshold1,
+        threshold2, thresholdd)))
+
+
+def downsample_block_desc(w1, w2, wd, scale1, add1, scale2, add2, scaled,
+                          addd, *, prelu1=None, prelu2=None, threshold1=None,
+                          threshold2=None, thresholdd=None) -> B.Desc:
+    """The kernel's descriptor of one block, for
+    :func:`fused_downsample_block`'s ``desc``: a caller that runs the block
+    again keeps it, and with it the K-major weight copies and flat arrays
+    that it makes once per device. Its ``key`` is :func:`desc_key` of the
+    tensors it was built from: a call whose weights or rows differ, or were
+    changed in place since, refuses it, and a holder rebuilds it."""
+    co = w2.shape[-1]
+    ci = wd.numel() // co
+    rows = dict(prelu1=prelu1, prelu2=prelu2, threshold1=threshold1,
+                threshold2=threshold2, thresholdd=thresholdd)
+    ws = _transform_w1(w1.to(torch.int8)) if w1.ndim == 4 else w1
+    desc = B.Desc(True, ci, co, ws, w2.reshape(9 * co, co), wd.reshape(ci, co),
+                  _rows(scale1, add1, scale2, add2, scaled, addd, **rows))
+    desc.key = desc_key(w1, w2, wd, scale1, add1, scale2, add2, scaled, addd,
+                        **rows)
+    return desc
+
+
 def fused_downsample_block(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -76,6 +118,7 @@ def fused_downsample_block(
     pre: bool = False,
     zero_to_one: bool = True,
     out_dtype: Optional[torch.dtype] = None,
+    desc: Optional[B.Desc] = None,
 ) -> torch.Tensor:
     """One stride-2 binary BasicBlock (see the module docstring).
 
@@ -89,12 +132,22 @@ def fused_downsample_block(
         threshold1, thresholdd: optional ``(C_in,)`` thresholds of conv1's
             input sign and of the pooled shortcut's sign; threshold2:
             ``(C_out,)`` of conv2's input sign.
+        desc: :func:`downsample_block_desc` of these weights and rows where
+            the caller keeps one (else one is made per call; a descriptor of
+            other tensors, or of tensors changed in place since, is refused).
     Returns:
         ``(N, H/2, W/2, C_out)`` in ``out_dtype`` (default x's dtype).
     """
     ci, co = _check(x, w1, w2, wd)
     acts = B.split_act(act)
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    rows = dict(prelu1=prelu1, prelu2=prelu2, threshold1=threshold1,
+                threshold2=threshold2, thresholdd=thresholdd)
+    if desc is not None and desc.key != desc_key(
+            w1, w2, wd, scale1, add1, scale2, add2, scaled, addd, **rows):
+        raise ValueError("fused_downsample_block's descriptor was built from "
+                         "other weights or rows than the call's, or from "
+                         "these before an in-place change")
     if x.device.type == "cpu":
         return fused_downsample_block_reference(
             x, w1, w2, wd, scale1, add1, scale2, add2, scaled, addd, act=acts,
@@ -102,12 +155,10 @@ def fused_downsample_block(
             threshold2=threshold2, thresholdd=thresholdd, pre=pre,
             zero_to_one=zero_to_one, out_dtype=out_dtype)
     n, h, w, _ = x.shape
-    if w1.ndim == 4:
-        w1 = _transform_w1(w1.to(torch.int8))
     out = torch.empty((n, h // 2, w // 2, co), dtype=out_dtype, device=x.device)
-    desc = B.Desc(True, ci, co, w1, w2.reshape(9 * co, co), wd.reshape(ci, co),
-                  [scale1, add1, prelu1, scale2, add2, prelu2, scaled, addd,
-                   threshold2, threshold1, thresholdd])
+    if desc is None:
+        desc = downsample_block_desc(w1, w2, wd, scale1, add1, scale2, add2,
+                                     scaled, addd, **rows)
     B.launch("fused_downsample_block", x, [desc], out, acts=acts, pre=pre,
              zero_to_one=zero_to_one)
     fused_downsample_block.launches += 1
@@ -115,6 +166,17 @@ def fused_downsample_block(
 
 
 fused_downsample_block.launches = 0
+
+
+def fused_downsample_block_plan(x: torch.Tensor, co: int) -> dict:
+    """The launch of :func:`fused_downsample_block` on ``x`` (NHWC, on the
+    current CUDA device) into ``co`` channels, one block per output tile of
+    a conv, 2 to 4 an SM: its blocks, the blocks that can be resident an SM,
+    a conv's output tiles, and the K slices of conv1, conv2 and the shortcut
+    (:func:`_blocks.launch_plan`)."""
+    n, h, w, ci = x.shape
+    return B.launch_plan("fused_downsample_block", (n * (h // 2) * (w // 2), ci, co),
+                         ("conv1", "conv2", "shortcut"))
 
 
 def fused_downsample_block_reference(

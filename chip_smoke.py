@@ -11,17 +11,19 @@ Phases, each reported on its own lines:
    and the tensor-core, dot-product and popcount instructions (and all
    instructions) in the SASS of the three GEMM-shaped kernels, the five
    block kernels and the stem
-   (``fused_chain``, ``fused_bottleneck``, ``fused_basic_block`` and
-   ``fused_stem_chain`` must show int8 tensor-core and no ``__dp4a``
-   instructions, ``fused_stem`` and ``fused_stem_chain`` bf16 tensor-core
-   instructions; ``fused_downsample_block``'s are printed);
+   (``fused_chain``, ``fused_bottleneck``, ``fused_basic_block``,
+   ``fused_downsample_block`` and ``fused_stem_chain`` must show int8
+   tensor-core and no ``__dp4a`` instructions, ``fused_stem`` and
+   ``fused_stem_chain`` bf16 tensor-core instructions);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
    points take; the stem at its three entry points' geometries in bf16, with
    f32 weights (3 passes) and in f32 (6 passes); ``fused_chain`` at each of ResNet-18's four stage shapes at
    batch 1 and 4, in bf16 and f32 with both option sets, and at widths that
-   its word loader takes (C % 16 != 0), as ``fused_basic_block`` and
-   ``fused_stem_chain`` (layer1 20 channels wide); ``fused_stem_chain``
+   its word loader takes (C % 16 != 0), as ``fused_basic_block``,
+   ``fused_downsample_block`` (20 -> 40 channels, and at ResNet-34's
+   layer4.0 shape at batch 1 and 4) and ``fused_stem_chain`` (layer1 20
+   channels wide); ``fused_stem_chain``
    bit-identical to ``fused_chain(fused_stem(x))``; ``fused_bottleneck`` at ResNet-50's
    shapes, odd H and W, and widths where some of its GEMMs take the word
    loader and others the 16-byte one; ``binary_gemm`` bit for bit at each
@@ -56,7 +58,8 @@ Phases, each reported on its own lines:
    opt-in paths' kernels, captured with its own inputs and held against its
    plain version as in phase 2, with ``fused_bottleneck``'s launch plan
    (tiles and K slices of each GEMM) at ResNet-50's 13 batch-4 calls and
-   ``fused_basic_block``'s and ``fused_stem_chain``'s grids; then
+   ``fused_basic_block``'s, ``fused_downsample_block``'s and
+   ``fused_stem_chain``'s grids; then
    times (the stem at batch 1, 4 and 8 and the v1 and v2 geometries, with
    its launch plan, beside cuDNN's conv + relu + max_pool): each kernel's
    device time
@@ -445,6 +448,16 @@ def check_blocks(kernels, gen, dev) -> dict:
             (x, b.w1.reshape(3, 3, c, c), b.w2.reshape(3, 3, c, c), p[0], p[1], p[3], p[4]),
             dict(opts, prelu1=p[2], prelu2=p[5], threshold=p[6], threshold2=p[7]))
 
+    def down_case(d, x, opts, tag, note=""):
+        ci, co = d.ci, d.co
+        p, q = d.po, d.pi
+        run("fused_downsample_block",
+            f"fused_downsample_block ({','.join(map(str, x.shape))}) -> {co}{note} {tag}",
+            (x, d.w1, d.w2.reshape(3, 3, co, co), d.wd,
+             p[0], p[1], p[3], p[4], p[6], p[7]),
+            dict(opts, prelu1=p[2], prelu2=p[5], threshold1=q[0, :ci],
+                 threshold2=p[8], thresholdd=q[1, :ci]))
+
     bf = torch.bfloat16
     torch_opts = dict(act="relu", pre=False, zero_to_one=False)
     other_opts = dict(act="prelu", pre=True, zero_to_one=True)
@@ -465,14 +478,8 @@ def check_blocks(kernels, gen, dev) -> dict:
         run("fused_chain", f"fused_chain down+basic (4,14,14,256) {tag}", (x, down), opts)
 
         basic_case((1, 7, 7, 512), dtype, opts, options, gen, tag)
-        d = down[0]
-        x = torch.randn((4, 14, 14, 256), generator=gen).to(dev, dtype)
-        p, q = d.po, d.pi
-        run("fused_downsample_block", f"fused_downsample_block (4,14,14,256) {tag}",
-            (x, d.w1, d.w2.reshape(3, 3, 512, 512), d.wd,
-             p[0], p[1], p[3], p[4], p[6], p[7]),
-            dict(opts, prelu1=p[2], prelu2=p[5], threshold1=q[0, :256],
-                 threshold2=p[8], thresholdd=q[1, :256]))
+        down_case(down[0], torch.randn((4, 14, 14, 256), generator=gen).to(dev, dtype),
+                  opts, tag)
 
     # fused_chain at ResNet-18's four stage shapes at batch 1 and 4, then at
     # widths its word loader takes (C % 16 != 0); its own generator keeps
@@ -494,12 +501,20 @@ def check_blocks(kernels, gen, dev) -> dict:
             f"(C % 16 != 0: the word loader) {tag}",
             chain_args(kernels, 2, h, ci, plan, co, False, gen_c, dev, torch.float32,
                        True), other_opts)
-    # fused_basic_block at a width its word loader takes, in both dtypes
+    # fused_basic_block and fused_downsample_block at a width their word
+    # loader takes, and fused_downsample_block at R34 layer4.0's batch-1
+    # shape, in both dtypes
     for dtype, opts, options in ((bf, torch_opts, False), (torch.float32, other_opts, True)):
         tag = f"{str(dtype)[6:]} act={opts['act']} pre={opts['pre']} " \
               f"zero_to_one={opts['zero_to_one']}"
         basic_case((2, 9, 9, 20), dtype, opts, options, gen_c, tag,
                    " (C % 16 != 0: the word loader)")
+        d = rand_block(kernels, "down", 20, 40, gen_c, dev, dtype, options=options)
+        down_case(d, torch.randn((2, 10, 10, 20), generator=gen_c).to(dev, dtype),
+                  opts, tag, " (C % 16 != 0: the word loader)")
+        d = rand_block(kernels, "down", 256, 512, gen_c, dev, dtype, options=options)
+        down_case(d, torch.randn((1, 14, 14, 256), generator=gen_c).to(dev, dtype),
+                  opts, tag)
     return errs
 
 
@@ -1144,7 +1159,7 @@ def main() -> int:
         counts, line = sass_counts(_build._target(name))
         print(f"phase 1: lib{name}: {line}")
         if name in ("fused_chain", "fused_bottleneck", "fused_basic_block",
-                    "fused_stem_chain") and (
+                    "fused_downsample_block", "fused_stem_chain") and (
                 counts is None or counts["IMMA"] == 0 or counts["IDP4A"] > 0):
             raise AssertionError(f"lib{name}: {line}; its GEMM phases run "
                                  "on the int8 tensor cores, not __dp4a")
@@ -1566,11 +1581,17 @@ def main() -> int:
             plain = getattr(kernels, kname + "_reference")
             if kname == "fused_basic_block":
                 plan = kernels.block.fused_basic_block_plan(xh)
-                sms = torch.cuda.get_device_properties(dev).multi_processor_count
-                print(f"phase 4: ResNet-34 fused_basic_block {tuple(xh.shape)}: "
-                      f"a grid of {plan['blocks']} blocks ({plan['blocks'] / sms:g} an "
-                      f"SM, {plan['resident_per_sm']} resident), each conv "
-                      f"{plan['tiles']} tiles x {plan['k_slices']} K slices")
+            else:
+                plan = kernels.strided_block.fused_downsample_block_plan(
+                    xh, args[2].shape[-1])
+            if kw.get("desc") is None:
+                raise AssertionError(f"ResNet-34's {kname} call came without the "
+                                     "descriptor its module keeps")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            print(f"phase 4: ResNet-34 {kname} {tuple(xh.shape)}, kept descriptor: "
+                  f"a grid of {plan['blocks']} blocks ({plan['blocks'] / sms:g} an "
+                  f"SM, {plan['resident_per_sm']} resident), each conv "
+                  f"{plan['tiles']} tiles, K slices {plan['k_slices']}")
             # the plain version takes the block's tensors, not its kept descriptor
             plain_kw = {k: v for k, v in kw.items() if k != "desc"}
             record(kname, f"{kname} {tuple(xh.shape)} bf16",

@@ -68,9 +68,9 @@ included) where the checkout has ``fused_stem_chain_plan``. With
 +/-1 blocks with bf16 epilogue rows (``chip_smoke.rand_block``), a random
 bf16 input, ReLU, torch-parity signs, through the public calls; each result
 held against its plain version (within one bf16 ulp); each kernel's own
-device time beside its bound (:func:`block_bound`), and
-``fused_basic_block``'s launch plan where the checkout has
-``fused_basic_block_plan``.
+device time beside its bound (:func:`block_bound`), and each kernel's
+launch plan (blocks, resident an SM, tiles, K slices) where the checkout
+has ``fused_basic_block_plan`` / ``fused_downsample_block_plan``.
 ``chip_smoke`` is imported from the checkout too, so
 a parent's run uses the parent's helpers. Prints the card line, one JSON
 line per shape (per call with ``--chain``), then one per path with the sums
@@ -463,7 +463,7 @@ def block_bound(kname, args, kw, bound_ms):
 def time_blocks(label, kernels, gen, dev) -> int:
     """ResNet-34 layer4's fused_basic_block and fused_downsample_block calls
     at batch 1, each held against its plain version and timed beside its
-    bound; fused_basic_block's launch plan where the checkout reports it."""
+    bound, with its launch plan where the checkout reports it."""
     from chip_smoke import bound_ms, check_exact, rand_block
 
     bf = torch.bfloat16
@@ -481,7 +481,10 @@ def time_blocks(label, kernels, gen, dev) -> int:
                       (torch.randn((1, 7, 7, 512), generator=gen).to(dev, bf),
                        b.w1.reshape(3, 3, 512, 512), b.w2.reshape(3, 3, 512, 512),
                        p[0], p[1], p[3], p[4])))
-    planner = getattr(kernels.block, "fused_basic_block_plan", None)
+    planners = {  # the launch plans the checkout reports
+        "fused_basic_block": getattr(kernels.block, "fused_basic_block_plan", None),
+        "fused_downsample_block": getattr(kernels.strided_block,
+                                          "fused_downsample_block_plan", None)}
     tot = {}
     for kname, name, args in calls:
         fn = getattr(kernels, kname)
@@ -489,9 +492,10 @@ def time_blocks(label, kernels, gen, dev) -> int:
                           getattr(kernels, kname + "_reference")(*args, **opts),
                           False, verbose=False)
         bound, by = block_bound(kname, args, opts, bound_ms)
+        planner = planners[kname]
         row = {"label": label, "call": name,
-               "plan": (planner(args[0]) if planner is not None
-                        and kname == "fused_basic_block" else None),
+               "plan": (None if planner is None else planner(args[0]) if
+                        kname == "fused_basic_block" else planner(args[0], args[2].shape[-1])),
                "max_abs_err": err,
                "kernel_us": device_us(lambda: fn(*args, **opts), kname + "_kernel",
                                       per_call=1),

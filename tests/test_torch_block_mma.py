@@ -7,8 +7,8 @@ convs on ``bnn_common.cuh``'s MmaTile, as ``fused_chain`` does: it reads the
 K-major ``(C_out, K)`` int8 copies that a block descriptor makes once per
 device (``kernels/_blocks.Desc.kmajor``), loads A rows as 16-byte copies when
 C % 16 == 0 and word by word otherwise, and its entry points refuse null
-copies. ``fused_downsample_block`` is the one block kernel left on the
-``__dp4a`` tile, which takes nulls. The kernels run only on the card, where
+copies. ``fused_downsample_block`` runs the same tile, so every kernel on
+the block descriptors takes one kept layout. The kernels run only on the card, where
 chip_smoke.py holds them against their plain versions; here the plain
 versions are held against the JAX Pallas kernels in interpret mode at a
 width of each loader.
@@ -39,7 +39,8 @@ from bnn_tpu_torch.kernels.block import basic_block_desc
 from bnn_tpu_torch.ops import binarizers as tops
 
 CSRC = Path(__file__).resolve().parent.parent / "bnn_tpu_torch" / "csrc"
-MMA_KERNELS = ("fused_chain", "fused_stem_chain", "fused_basic_block")
+MMA_KERNELS = ("fused_chain", "fused_stem_chain", "fused_basic_block",
+               "fused_downsample_block")
 
 
 def _pm1(rng, *shape):
@@ -66,10 +67,9 @@ def _x(rng, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_tensor_core_kernels_share_one_kept_layout(monkeypatch, dtype):
-    """fused_stem_chain's and fused_basic_block's flat arrays carry the
-    K-major pointers (a basic block has no shortcut copy), and
-    fused_downsample_block's nulls; the three tensor-core kernels share one
-    kept layout per dtype and device, built once."""
+    """Every kernel's flat arrays carry the K-major pointers (a basic block
+    has no shortcut copy): the four tensor-core kernels share one kept
+    layout per dtype and device, built once."""
     monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
     _, tbp = _unit_pair(np.random.RandomState(3), 8)
     arrays = [a if a.dtype == torch.int8 else a.to(dtype) for a in tbp.arrays()]
@@ -81,9 +81,7 @@ def test_tensor_core_kernels_share_one_kept_layout(monkeypatch, dtype):
     assert all(k is kept[0] for k in kept)
     ptrs, ints, copies = kept[0]
     assert ptrs[3:6] == [w1t.data_ptr(), w2t.data_ptr(), 0] and not copies
-    dp4a = desc.flat("fused_downsample_block", dtype, cpu)
-    assert dp4a is not kept[0] and dp4a[0][3:6] == [0, 0, 0]
-    assert dp4a[0][:3] == ptrs[:3] and dp4a[1] == ints
+    assert ints[:3] == [0, 8, 8]
     other = torch.bfloat16 if dtype == torch.float32 else torch.float32
     assert desc.flat("fused_basic_block", other, cpu) is not kept[0]
 
@@ -140,17 +138,27 @@ def test_fused_stem_chain_word_loader_width_matches_jax(z21):
 
 
 def test_sources_run_the_tensor_core_tile():
-    """Both kernels instantiate run_block on MmaTile and refuse null K-major
-    copies; the entry's shared-memory union holds MmaTile's ring."""
-    for name in ("fused_stem_chain", "fused_basic_block"):
+    """The block kernels instantiate run_block on MmaTile and refuse null
+    K-major copies (a down block's shortcut copy too); the entry's
+    shared-memory union holds MmaTile's ring; no source keeps the __dp4a
+    tile or what only it used."""
+    for name, down in (("fused_stem_chain", "false"), ("fused_basic_block", "false"),
+                       ("fused_downsample_block", "true")):
         src = (CSRC / f"{name}.cu").read_text()
-        assert "run_block<bnn::MmaTile, false>" in src
-        assert "Dp4aTile" not in src and "bnn::Smem " not in src
-        assert re.search(r"!b\.wt\[0\] \|\| !b\.wt\[1\]", src), name
+        assert f"run_block<bnn::MmaTile, {down}>" in src
+        assert re.search(r"!b\.wt\[0\] \|\|\s*!b\.wt\[1\]", src), name
+    assert re.search(r"!b\.wt\[1\] \|\| !b\.wt\[2\]",
+                     (CSRC / "fused_downsample_block.cu").read_text())
     union = re.search(r"union Shared \{([^}]*)\}",
                       (CSRC / "fused_stem_chain.cu").read_text()).group(1)
     assert "bnn::MmaSmem gemm;" in union
-    assert "__shared__ bnn::MmaSmem sm;" in (CSRC / "fused_basic_block.cu").read_text()
+    for name in ("fused_basic_block", "fused_downsample_block"):
+        assert "__shared__ bnn::MmaSmem sm;" in (CSRC / f"{name}.cu").read_text()
+    for src in CSRC.glob("*.cu*"):
+        text = src.read_text()
+        for gone in ("Dp4aTile", "bnn::Smem ", "gemm_item", "gemm_tile",
+                     "struct Conv3x3S2 {", "__dp4a("):
+            assert gone not in text, (src.name, gone)
 
 
 def _call_args(rng, c=8):

@@ -219,7 +219,8 @@ def test_fuse_blocks_wraps_resnet50s_stride1_bottlenecks():
     """13 of ResNet-50's 16 blocks: layer1.0's stride-1 projection included,
     the three strided blocks left on the deployed convs. The wrapper's
     descriptor hands the kernel each row at its place in the kernel's order,
-    and is dropped when a cast replaces the tensors."""
+    and is replaced at the next forward when a cast replaces the tensors it
+    was made from (its key differs)."""
     model = deploy(_resnet50(), weight_format="int8")
     optimize_deployed(model)
     assert fuse_blocks(model) == 13
@@ -244,7 +245,10 @@ def test_fuse_blocks_wraps_resnet50s_stride1_bottlenecks():
     first(x)
     assert first._desc is desc  # made once
     model.to(torch.bfloat16)
-    assert first._desc is None
+    first(x.to(torch.bfloat16))
+    assert first._desc is not desc
+    assert first._desc.key == tbn.desc_key(first.w1, first.w2, first.w3, first.wd,
+                                           first._rows())
 
 
 @pytest.mark.parametrize("batch", [1, 4])

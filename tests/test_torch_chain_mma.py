@@ -93,8 +93,8 @@ def _header_constant(text: str, name: str, nrows: int) -> int:
 def test_flat_layout_matches_what_setup_reads():
     """Desc's flat arrays hold, per block, bnn_common.cuh's BLOCK_PTRS
     pointers and BLOCK_INTS ints, with the rows where setup() reads them;
-    the kernels that read K-major copies get their pointers, the others
-    nulls; fused_stem_chain.cu finds its own arguments past the blocks' by
+    every kernel on them gets the K-major copies (a down block's shortcut
+    too); fused_stem_chain.cu finds its own arguments past the blocks' by
     the same constants."""
     common = (CSRC / "bnn_common.cuh").read_text()
     rows = re.search(r"enum Row \{([^}]*)\}", common).group(1)
@@ -117,33 +117,29 @@ def test_flat_layout_matches_what_setup_reads():
         ptrs, ints, keep = desc._layout(name, torch.float32, cpu)
         assert len(ptrs) == _blocks.BLOCK_PTRS and len(ints) == _blocks.BLOCK_INTS
         assert ptrs[:3] == [tbp.w1.data_ptr(), tbp.w2.data_ptr(), tbp.wd.data_ptr()]
-        want = ([t.data_ptr() for t in desc.kmajor(cpu)]
-                if name in _blocks.KMAJOR_KERNELS else [0, 0, 0])
-        assert ptrs[3:6] == want
+        assert ptrs[3:6] == [t.data_ptr() for t in desc.kmajor(cpu)]
+        assert 0 not in ptrs[3:6]
         assert ints[:3] == [1, 8, 16] and not keep
         assert ptrs[6 + _blocks.ROWS.index("scale1")] == tbp.po[0].data_ptr()
         assert ints[3 + _blocks.ROWS.index("threshold1")] == 8
-    assert _blocks.KMAJOR_KERNELS == ("fused_chain", "fused_stem_chain",
-                                      "fused_basic_block")
+    assert not hasattr(_blocks, "KMAJOR_KERNELS")  # no kernel takes nulls
 
 
 def test_flat_arrays_are_kept_per_weight_layout(monkeypatch):
-    """One descriptor serves kernels of both tiles (fused_downsample_block,
-    the one __dp4a kernel left, then fused_chain on the same block): the
-    flat arrays kept for the __dp4a kernel carry null K-major pointers, and
-    must not be handed to fused_chain, which refuses nulls. Each layout is
-    built once, and the tensor-core kernels share theirs."""
+    """There is one weight layout: a descriptor that served
+    fused_downsample_block first hands fused_chain, fused_stem_chain and
+    fused_basic_block the same kept flat arrays, built once per dtype and
+    device, with every K-major copy (a down block's shortcut too)."""
     monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
     _, _, tbp = _pair(np.random.RandomState(2), "down", 8, 16)
     desc, cpu = tbp.desc(), torch.device("cpu")
-    dp4a = desc.flat("fused_downsample_block", torch.float32, cpu)
-    mma = desc.flat("fused_chain", torch.float32, cpu)
-    assert dp4a[0][3:6] == [0, 0, 0]
-    assert mma[0][3:6] == [t.data_ptr() for t in desc.kmajor(cpu)]
-    assert 0 not in mma[0][3:6]  # a down block's shortcut has its copy too
-    assert desc.flat("fused_chain", torch.float32, cpu) is mma
-    assert desc.flat("fused_stem_chain", torch.float32, cpu) is mma
-    assert desc.flat("fused_downsample_block", torch.float32, cpu) is dp4a
+    down = desc.flat("fused_downsample_block", torch.float32, cpu)
+    assert down[0][3:6] == [t.data_ptr() for t in desc.kmajor(cpu)]
+    assert 0 not in down[0][3:6]  # a down block's shortcut has its copy too
+    for name in ("fused_chain", "fused_stem_chain", "fused_basic_block",
+                 "fused_downsample_block"):
+        assert desc.flat(name, torch.float32, cpu) is down
+    assert desc.flat("fused_chain", torch.bfloat16, cpu) is not down
 
 
 @pytest.mark.parametrize("plan,c", [(("basic", "basic"), 20),
