@@ -17,7 +17,8 @@ from .binarize import (
     prepare_binary_model,
     swap_modules_by_name,
 )
-from . import inference, kernels, layers, models, ops, utils
+from . import (functional, inference, kernels, layers, models, nn, ops,
+               parallel, utils)
 
 __all__ = [
     "BConfig",
@@ -25,10 +26,13 @@ __all__ = [
     "get_modules_to_binarize",
     "swap_modules_by_name",
     "prepare_binary_model",
+    "functional",
     "inference",
     "kernels",
     "layers",
     "models",
+    "nn",
     "ops",
+    "parallel",
     "utils",
 ]

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..binarize import set_module_by_name
 from ..kernels.stem import StemDesc, stem_key
+from ..nn import MaxPool2d
 
 __all__ = ["SpaceToDepthConv", "space_to_depth_stem", "FusedStem", "fuse_stem"]
 
@@ -180,7 +181,7 @@ def fuse_stem(model: nn.Module, *, max_batch: int = 8) -> int:
         if type(m.relu) is not nn.ReLU:
             continue
         mp = m.maxpool
-        if not (type(mp) is nn.MaxPool2d
+        if not (type(mp) in (nn.MaxPool2d, MaxPool2d)
                 and _pair(mp.kernel_size) == (3, 3)
                 and _pair(mp.stride) == (2, 2)
                 and _pair(mp.padding) == (1, 1)

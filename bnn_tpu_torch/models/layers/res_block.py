@@ -19,6 +19,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ...nn import BatchNorm2d
 from ...utils.precision import promote_call
 from .common import conv1x1, conv3x3, make_activation
 
@@ -61,7 +62,7 @@ class _UnitChain(nn.Module):
                  base_width: int = 64, dilation: int = 1,
                  norm_layer: Optional[Callable] = None, activation=nn.ReLU):
         super().__init__()
-        norm = nn.BatchNorm2d if norm_layer is None else norm_layer
+        norm = BatchNorm2d if norm_layer is None else norm_layer
         units = self._plan(type(self).__name__, inplanes, planes, stride,
                            groups, base_width, dilation)
         self.n_units = len(units)

@@ -14,6 +14,7 @@ from typing import Callable, List, Optional, Type
 import torch
 from torch import nn
 
+from ..nn import BatchNorm2d, MaxPool2d
 from ..utils.precision import promote_call
 from .layers import BasicBlock, Bottleneck, conv1x1
 
@@ -68,7 +69,7 @@ class ResNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        norm = nn.BatchNorm2d if norm_layer is None else norm_layer
+        norm = BatchNorm2d if norm_layer is None else norm_layer
         activation = nn.ReLU if activation is None else activation
         dilate = (list(replace_stride_with_dilation)
                   if replace_stride_with_dilation is not None
@@ -88,7 +89,7 @@ class ResNet(nn.Module):
                                padding=3, bias=False)
         self.bn1 = norm(_STEM_WIDTH)
         self.relu = nn.ReLU()
-        self.maxpool = nn.MaxPool2d(kernel_size=3, stride=2, padding=1)
+        self.maxpool = MaxPool2d(kernel_size=3, stride=2, padding=1)
 
         fan, dilation = _STEM_WIDTH, 1
         for idx, (planes, count) in enumerate(zip(_STAGE_WIDTHS, layers)):

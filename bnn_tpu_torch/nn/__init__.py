@@ -1,0 +1,80 @@
+"""Float layers whose training semantics follow ``bnn_tpu/nn`` (counterpart
+of ``bnn_tpu/nn/__init__.py``).
+
+The model zoo builds these in place of ``torch.nn``'s: each subclasses the
+torch layer, so every ``isinstance`` test of the serving passes holds, and
+differs only where the JAX package trains differently.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import functional as F
+
+__all__ = ["BatchNorm1d", "BatchNorm2d", "MaxPool2d"]
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Channels-first batch norm for any rank, with flax's training rules.
+
+    In train mode it normalises with the two-pass batch variance
+    ``mean((x - mean)^2)`` computed in at least f32, in flax's order
+    (``(x - mean) * (rsqrt(var + eps) * weight) + bias``), and updates the
+    running statistics with the *biased* batch variance: torch's own layer
+    takes the unbiased one, a factor n / (n - 1) apart. The output keeps the
+    input's dtype. In eval mode it is torch's forward; f32 running statistics
+    beside a narrower weight and bias (``cast_floats(keep_batch_stats=True)``)
+    run with the weight and bias widened to the statistics' dtype."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() < 2:
+            raise ValueError(f"expected an input of rank >= 2, got {x.dim()}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        if not self.training and self.running_mean is not None:
+            w, b = self.weight, self.bias
+            if w is not None and w.dtype != self.running_mean.dtype:
+                w, b = w.to(self.running_mean.dtype), b.to(self.running_mean.dtype)
+            return nn.functional.batch_norm(x, self.running_mean, self.running_var,
+                                            w, b, False, 0.0, self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims, keepdim=True)
+        d = xf - mean
+        var = d.square().mean(dims, keepdim=True)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.view(shape)
+        y = d * mul
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        if self.training and self.track_running_stats:
+            self._update_stats(mean.view(-1), var.view(-1))
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.num_batches_tracked.add_(1)
+        factor = (self.momentum if self.momentum is not None
+                  else 1.0 / float(self.num_batches_tracked))
+        keep = 1.0 - factor  # flax's momentum
+        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+            buf.copy_(keep * buf + (1.0 - keep) * stat)
+
+
+# as in the JAX package, one layer covers every rank
+BatchNorm1d = BatchNorm2d
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` through :func:`bnn_tpu_torch.functional.max_pool`, so
+    that its backward follows ``set_pool_grad_mode``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.return_indices:
+            return super().forward(x)
+        return F.max_pool(x, self.kernel_size, self.stride, self.padding,
+                          self.ceil_mode, self.dilation)

@@ -91,18 +91,33 @@ _STOCHASTIC_SEED = itertools.count()
 
 @register
 class StochasticInputBinarizer(BinarizerBase):
-    """Stochastic sign binarizer drawing from its own ``torch.Generator``."""
+    """Stochastic sign binarizer with a stream of its own on each device.
+
+    Its noise is drawn on the input's device, from a ``torch.Generator`` of
+    that device seeded with the instance's seed (``seed``, the given
+    ``generator``'s initial seed, or ``_STOCHASTIC_SEED``'s next value), made
+    at the first call there and kept."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None):
         super().__init__()
-        if generator is None:
-            generator = torch.Generator().manual_seed(
-                next(_STOCHASTIC_SEED) if seed is None else seed)
-        self.generator = generator
+        self._generators = {}
+        if generator is not None:
+            self._generators[generator.device] = generator
+            seed = generator.initial_seed()
+        self.seed = next(_STOCHASTIC_SEED) if seed is None else seed
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        """This instance's generator on ``device``."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(device).manual_seed(self.seed)
+        return self._generators[device]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return stochastic_sign_ste(x, self.generator)
+        return stochastic_sign_ste(x, self.generator(x.device))
 
 
 @register
@@ -135,9 +150,15 @@ class XNORWeightBinarizer(BinarizerBase):
         if self.center_weights:
             w = w - w.mean(dim=1, keepdim=True)
         if self.compute_alpha:
-            alpha = w.abs().mean(dim=tuple(range(1, w.ndim)), keepdim=True)
+            alpha = _abs(w).mean(dim=tuple(range(1, w.ndim)), keepdim=True)
             return sign_ste(w) * alpha
         return sign_ste(w)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with JAX's gradient at 0, +1 (``torch.abs`` gives 0 there):
+    post-ReLU inputs to ``XNORScaleBinarizer`` hold exact zeros."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _out_channels(module: nn.Module) -> int:
@@ -185,7 +206,7 @@ class XNORScaleBinarizer(BinarizerBase):
 
     def forward(self, layer_out: torch.Tensor,
                 layer_in: torch.Tensor) -> torch.Tensor:
-        a = layer_in.abs().mean(dim=1, keepdim=True)
+        a = _abs(layer_in).mean(dim=1, keepdim=True)
         k = torch.full((1, 1) + self.kernel_size,
                        1.0 / math.prod(self.kernel_size),
                        dtype=layer_in.dtype, device=layer_in.device)

@@ -84,7 +84,8 @@ def stochastic_sign_ste(x: torch.Tensor,
                         generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
     """``round(clip((x+1)/2 + U[-0.5, 0.5]))`` mapped to {-1, +1}; the noise
-    comes from ``generator`` (the JAX package's PRNG key)."""
+    comes from ``generator`` (the JAX package's PRNG key), a generator of
+    ``x``'s device, drawn there."""
     noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
                        device=x.device) - 0.5
     return _StochasticSignSTE.apply(x, noise)

@@ -1,4 +1,4 @@
-from .jax_weights import load_jax_state
-from .precision import cast_floats
+from .jax_weights import jax_to_port, load_jax_state
+from .precision import cast_float_tree, cast_floats
 
-__all__ = ["cast_floats", "load_jax_state"]
+__all__ = ["cast_float_tree", "cast_floats", "jax_to_port", "load_jax_state"]

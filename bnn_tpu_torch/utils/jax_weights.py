@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_state"]
+__all__ = ["jax_to_port", "load_jax_state"]
 
 # JAX leaf name -> port leaf name
 _LEAF = {
@@ -43,14 +43,18 @@ def _to_port(arr: np.ndarray, leaf: str, shape) -> torch.Tensor:
     return t
 
 
-def load_jax_state(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
-    """Fill ``model`` in place from ``flat``, ``{dotted JAX path: array}``
-    (for example ``nnx.to_flat_state(nnx.state(jax_model))`` with the path
-    tuples joined by dots). Raises ``ValueError`` on a missing key, an
-    unexpected key or a shape mismatch; nothing is written then."""
-    targets: Dict[str, torch.Tensor] = {
-        k: v for k, v in model.state_dict().items()
-        if k.rsplit(".", 1)[-1] not in _PORT_ONLY}
+def _targets(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in model.state_dict().items()
+            if k.rsplit(".", 1)[-1] not in _PORT_ONLY}
+
+
+def jax_to_port(model: nn.Module, flat: Mapping[str, np.ndarray]
+                ) -> Dict[str, torch.Tensor]:
+    """``{port state_dict key: tensor in the port's layout}`` of ``flat``,
+    ``{dotted JAX path: array}``, which may hold a subset of the model's
+    leaves (the gradients of its parameters, say). Raises ``ValueError`` on
+    an unexpected key or a shape mismatch."""
+    targets = _targets(model)
     values: Dict[str, torch.Tensor] = {}
     unexpected, mismatched = [], []
     for jkey, arr in flat.items():
@@ -66,11 +70,24 @@ def load_jax_state(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
                               f"{tuple(targets[key].shape)}")
             continue
         values[key] = t
-    missing = sorted(set(targets) - set(values))
-    if missing or unexpected or mismatched:
+    if unexpected or mismatched:
         raise ValueError(f"JAX state does not match the model: "
-                         f"missing={missing[:5]} unexpected={unexpected[:5]} "
+                         f"unexpected={unexpected[:5]} "
                          f"shape mismatch={mismatched[:5]}")
+    return values
+
+
+def load_jax_state(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Fill ``model`` in place from ``flat``, ``{dotted JAX path: array}``
+    (for example ``nnx.to_flat_state(nnx.state(jax_model))`` with the path
+    tuples joined by dots). Raises ``ValueError`` on a missing key, an
+    unexpected key or a shape mismatch; nothing is written then."""
+    targets = _targets(model)
+    values = jax_to_port(model, flat)
+    missing = sorted(set(targets) - set(values))
+    if missing:
+        raise ValueError(f"JAX state does not match the model: "
+                         f"missing={missing[:5]}")
     with torch.no_grad():
         for key, t in values.items():
             targets[key].copy_(t.to(targets[key].dtype))

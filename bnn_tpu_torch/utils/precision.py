@@ -4,14 +4,45 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["cast_floats", "promote_call"]
+__all__ = ["cast_float_tree", "cast_floats", "promote_call"]
 
 
-def cast_floats(obj: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+def cast_float_tree(tree, dtype):
+    """Cast the floating tensors of a nest of dicts, lists and tuples to
+    ``dtype``; everything else (int8 and packed weights, counters) passes
+    through. The one copy of the mixed-precision cast rule, also used at
+    every step of ``make_train_step(compute_dtype=...)``."""
+    if isinstance(tree, dict):
+        return {k: cast_float_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_float_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def cast_floats(obj: nn.Module, dtype=torch.bfloat16, *,
+                keep_batch_stats: bool = False) -> nn.Module:
     """Cast every floating-point parameter and buffer of ``obj`` to ``dtype``,
-    in place. Integer state (packed and int8 weights) is untouched, which is
-    what ``nn.Module.to(dtype)`` does."""
-    return obj.to(dtype)
+    in place. Integer state (packed and int8 weights, counters) is untouched,
+    which is what ``nn.Module.to(dtype)`` does.
+
+    ``keep_batch_stats=True`` leaves the BatchNorm running statistics in
+    their dtype, as a model cast for low-precision *training* needs: the
+    statistics are accumulated in f32, as the masters and the optimizer's
+    moments are. The norm layers' outputs still come out in ``dtype``, the
+    dtype of their inputs. Serving casts never update statistics and keep
+    the default."""
+    kept = {}
+    if keep_batch_stats:
+        kept = {(m, k): m._buffers[k] for m in obj.modules()
+                if isinstance(m, nn.modules.batchnorm._BatchNorm)
+                for k in ("running_mean", "running_var")
+                if m._buffers.get(k) is not None}
+    obj.to(dtype)
+    for (m, k), buf in kept.items():
+        m._buffers[k] = buf
+    return obj
 
 
 def promote_call(module: nn.Module, x: torch.Tensor) -> torch.Tensor:

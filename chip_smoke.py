@@ -74,7 +74,27 @@ Phases, each reported on its own lines:
    images/s, device busy share and the kernels that take the time, of each
    path; ``fused_chain``'s four ResNet-18 stages and ``fused_bottleneck``'s
    13 ResNet-50 calls summed at batch 1 and 4, beside their bounds;
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+5. QAT training of the flagship at full width (1000 classes, 224x224,
+   AdamW 1e-3, weight decay 1e-4) through ``parallel.make_train_step``: the
+   first step of the all-Identity config at batch 8 on the card against
+   the CPU's (f32: loss 1e-4 relative; float64: loss and each parameter
+   1e-4 relative L2); the
+   binary flagship's layer1.0 and layer2.0 train-mode gradients on the card
+   against the CPU's (input 1e-4, each parameter 2e-2); remat's first step
+   against the plain one (bf16, batch 256, cuDNN deterministic, 1e-6); five
+   cases on one fixed batch each, (a) f32 batch 64 (cuDNN deterministic, so
+   that its trained weights are the same in every run), (b) bf16 compute
+   batch 256, (c) as (b) with ``accum_steps=4``, (d) as (b) with ``remat``,
+   5 steps each, (e) a ``StochasticInputBinarizer`` model, 2 steps, each
+   with its losses, ms a step by CUDA events after 2 warm-up steps,
+   images/s and peak memory (every loss finite; (b)'s falls), and for (b),
+   (c) and (d) a step's device busy share and busiest kernels; then case
+   (a)'s trained weights through ``Predictor(batch_size=1)`` and ``8`` in
+   f32, with phase 3's launch counts, against the plain versions of the
+   same path on the CPU: the stem within 1e-5, the logits within 1e-3 with
+   the card's stem output fed to the CPU's forward (a ternary sign flips
+   where the stem's sum lands within rounding of 0);
+6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
@@ -82,9 +102,11 @@ fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -621,13 +643,15 @@ def bottleneck_bound(xh, desc):
     return bound_ms(moved, ops, torch.int8)
 
 
-def flagship(gen: torch.Generator, depth: int = 18, z1_prelu: bool = False):
+def flagship(gen: torch.Generator, depth: int = 18, z1_prelu: bool = False,
+             binarizers=None):
     """The flagship QAT ResNet-18 (or the ResNet of ``depth``): binary body,
     float first and last layers, torch-parity ternary sign; BN statistics
     and output scales random so that every folded ``add`` is non-zero. With
     ``z1_prelu``, the Z1-PReLU variant: zero_to_one signs (sign(0) = +1, as
     the pallas-conv and popcount kernels sign) and PReLU activations with
-    random slopes (with ReLU, sign(relu(x)) would be +1 everywhere)."""
+    random slopes (with ReLU, sign(relu(x)) would be +1 everywhere).
+    ``binarizers`` replaces the (pre, post, weight) binarizers."""
     import bnn_tpu_torch as bt
     from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer,
                                    XNORWeightBinarizer)
@@ -637,11 +661,12 @@ def flagship(gen: torch.Generator, depth: int = 18, z1_prelu: bool = False):
             else BasicInputBinarizer)
     model = getattr(bt.models, f"resnet{depth}")(num_classes=1000, generator=gen,
                                                  **kw)
+    pre, post, weight = binarizers or (sign, BasicScaleBinarizer,
+                                       XNORWeightBinarizer)
     model = bt.prepare_binary_model(
         model,
-        bt.BConfig(activation_pre_process=sign,
-                   activation_post_process=BasicScaleBinarizer,
-                   weight_pre_process=XNORWeightBinarizer),
+        bt.BConfig(activation_pre_process=pre, activation_post_process=post,
+                   weight_pre_process=weight),
         ignore_layers_name=["_first_", "_last_"])
     with torch.no_grad():
         for m in model.modules():
@@ -664,7 +689,7 @@ KERNELS = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
 
 
 def serve_counted(kernels, pred, requests, name: str, want_per_forward: dict,
-                  classes: int = 1000):
+                  classes: int = 1000, phase: int = 3):
     """Serve ``requests`` with every launch count set to 0 just before and
     read just after; check the counts, shapes and finiteness."""
     for k in KERNELS:
@@ -681,17 +706,17 @@ def serve_counted(kernels, pred, requests, name: str, want_per_forward: dict,
     if launches != want:
         raise AssertionError(f"{name}: expected launches {want} in {forwards} "
                              f"forwards, got {launches}")
-    print(f"phase 3: {name}: requests of {[r.shape[0] for r in requests]} in "
+    print(f"phase {phase}: {name}: requests of {[r.shape[0] for r in requests]} in "
           f"{forwards} forwards, logits {outs[0].dtype}, launches {launches}")
     return outs, launches
 
 
-def check_f32(pred_gpu, ref_cpu, images, name):
+def check_f32(pred_gpu, ref_cpu, images, name, phase: int = 3):
     got = pred_gpu(images).cpu()
     torch.testing.assert_close(got, ref_cpu, rtol=1e-3, atol=1e-3)
     if not bool((got.argmax(1) == ref_cpu.argmax(1)).all()):
         raise AssertionError(f"{name}: argmax differs from the CPU plain path")
-    print(f"phase 3: {name}: f32 on the card vs plain versions on the CPU: max "
+    print(f"phase {phase}: {name}: f32 on the card vs plain versions on the CPU: max "
           f"|diff| {(got - ref_cpu).abs().max().item():.3g} (limit 1e-3), "
           f"argmax equal")
 
@@ -1125,6 +1150,289 @@ def print_rows(kname, rows, card, library):
           f"device{plain}{lib}, bound {tot['bound'] * 1e3:.3f} us "
           f"({tot['by']}) | {card}")
     return tot
+
+
+# phase 5's training cases: (label, make_train_step options, batch, steps)
+TRAIN_CASES = [
+    ("a: f32, batch 64 (cuDNN deterministic)", {}, 64, 5),
+    ("b: bf16 compute, batch 256", {"compute_dtype": torch.bfloat16}, 256, 5),
+    ("c: bf16 compute, batch 256, accum_steps=4",
+     {"compute_dtype": torch.bfloat16, "accum_steps": 4}, 256, 5),
+    ("d: bf16 compute, batch 256, remat",
+     {"compute_dtype": torch.bfloat16, "remat": True}, 256, 5),
+    ("e: StochasticInputBinarizer, f32, batch 64", {}, 64, 2),
+]
+WARMUP_STEPS = 2
+
+
+def adamw(model):
+    """The optimizer of the trainer's default (examples/imagenet.py)."""
+    return torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+
+
+def rel_max(got, want, scale=None) -> float:
+    """max |got - want| over max |want| (or over ``scale``)."""
+    want = want.detach().double().cpu()
+    scale = want.abs().max().item() if scale is None else scale
+    return (got.detach().double().cpu() - want).abs().max().item() / (scale + 1e-12)
+
+
+def rel_l2(got, want) -> float:
+    want = want.detach().double().cpu()
+    return ((got.detach().double().cpu() - want).norm() / (want.norm() + 1e-12)).item()
+
+
+def first_step_on_card_vs_cpu(make_train_step, images, labels, dev):
+    """One step of the all-Identity (fp32) config at full width, batch 8, on
+    the card and on the CPU from the same weights. In f32 the losses agree
+    within 1e-4 relative. The parameters are held in float64, within 1e-4
+    relative L2: in f32 this network's gradients at its start are
+    ill-conditioned (the train-mode BN backwards of layers 3-4 cancel most
+    of their digits, on the CPU and on the card alike), and AdamW's first
+    step, about lr * sign(g) an element, turns that noise into flips of
+    whole updates."""
+    from bnn_tpu_torch.ops import Identity
+
+    model = flagship(torch.Generator().manual_seed(SEED + 9),
+                     binarizers=(Identity, Identity, Identity)).train()
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        runs = {}
+        for name, device in (("cpu", "cpu"), ("card", dev)):
+            m = copy.deepcopy(model).to(device, dtype)
+            out = make_train_step()(m, adamw(m), images[:8].to(dtype), labels[:8])
+            runs[name] = (out["loss"].item(), dict(m.named_parameters()))
+            grads[name, dtype] = {k: p.grad for k, p in m.named_parameters()}
+        (lc, pc), (lg, pg) = runs["cpu"], runs["card"]
+        loss_err = abs(lg - lc) / abs(lc)
+        worst = max((rel_l2(pg[k], p), k) for k, p in pc.items())
+        held = dtype == torch.float64
+        print(f"phase 5: first step, fp32 (all-Identity) config, batch 8, {dtype}: loss "
+              f"card {lg:.7f} cpu {lc:.7f} (relative {loss_err:.3g}, limit 1e-4); worst "
+              f"parameter after the step {worst[1]} relative L2 {worst[0]:.3g} "
+              f"({'limit 1e-4' if held else 'not held in f32'}) over {len(pc)} parameters")
+        if loss_err > 1e-4 or (held and worst[0] > 1e-4):
+            raise AssertionError("the first training step on the card differs from the CPU's")
+    for name in ("cpu", "card"):
+        g32, g64 = grads[name, torch.float32], grads[name, torch.float64]
+        worst = max((rel_max(g32[k], g), k) for k, g in g64.items())
+        print(f"phase 5: first step on the {name}: f32 gradients against float64's, worst "
+              f"{worst[1]} {worst[0]:.3g} (max |diff| over max |float64|)")
+
+
+def block_grads_on_card_vs_cpu(gen, dev):
+    """Train-mode gradients through layer1.0 and layer2.0 of the binary
+    flagship on the card and on the CPU: input gradients within 1e-4 and
+    each parameter's within 2e-2 (max |diff| over max |CPU|; an output scale
+    ``convN...alpha`` over ``bnN.weight``'s, since the train-mode BN after
+    the conv makes the loss invariant to it)."""
+    model = flagship(torch.Generator().manual_seed(SEED + 10)).train()
+    x = torch.randn((8, 64, 56, 56), generator=gen)
+    for name in ("layer1.0", "layer2.0"):
+        block = model.get_submodule(name)
+        grads = {}
+        for device in ("cpu", dev):
+            b = copy.deepcopy(block).to(device)
+            xi = x.detach().to(device).requires_grad_(True)
+            out = b(xi)
+            if device == "cpu":
+                r = torch.randn(out.shape, generator=gen)
+            out.backward(r.to(device))
+            grads[str(device)] = (xi.grad, {k: p.grad for k, p in b.named_parameters()})
+        (gx_c, gp_c), (gx_g, gp_g) = grads["cpu"], grads[str(dev)]
+        x_err = rel_max(gx_g, gx_c)
+        errs = {}
+        for k, g in gp_c.items():
+            ref = gp_c.get(k.split(".")[0].replace("conv", "bn") + ".weight")
+            scale = (ref.abs().max().item() if k.endswith(".alpha") and ref is not None
+                     else None)
+            errs[k] = rel_max(gp_g[k], g, scale)
+        worst = max((v, k) for k, v in errs.items())
+        print(f"phase 5: binary flagship {name} train-mode gradients, card vs CPU: "
+              f"input {x_err:.3g} (limit 1e-4), worst parameter {worst[1]} "
+              f"{worst[0]:.3g} (limit 2e-2)")
+        if x_err > 1e-4 or worst[0] > 2e-2:
+            raise AssertionError(f"{name}: gradients on the card differ from the CPU's")
+
+
+def train_case(make_train_step, model, opts, x, y, steps, label, card,
+               profile: bool = False):
+    """``steps`` steps on one fixed batch, each timed by CUDA events; returns
+    (losses, ms a step after the warm-up steps or None, peak bytes). With
+    ``profile``, five more steps follow, the last two under torch.profiler:
+    the device busy share of a step and the kernels that take the time."""
+    opt = adamw(model)
+    step = make_train_step(**opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(model, opt, x, y)["loss"])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    losses = [v.item() for v in losses]
+    times = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated()
+    timed = times[WARMUP_STEPS:]
+    ms = sum(timed) / len(timed) if timed else None
+    rate = (f"{ms:.2f} ms a step (mean of steps {WARMUP_STEPS + 1}-{steps}), "
+            f"{x.shape[0] / ms * 1e3:.1f} images/s" if ms is not None
+            else f"not timed after warm-up ({steps} steps; step times "
+                 f"{[round(t, 2) for t in times]} ms)")
+    print(f"phase 5: case {label}: losses {[round(v, 5) for v in losses]}; {rate}; "
+          f"peak memory {peak / 2**30:.2f} GiB | {card}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"case {label}: a loss is not finite")
+    if profile:
+        by_kernel, wall = device_profile(lambda: step(model, opt, x, y), iters=2,
+                                         whole=False)
+        busy = sum(by_kernel.values())
+        print(f"phase 5: case {label}: device busy {busy:.2f} ms a step, {100 * busy / wall:.1f}% "
+              f"of its {wall:.2f} ms under the profiler; by device time:")
+        for kname, kms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"phase 5:   {kms:8.3f} ms  {kname[:100]}")
+    return losses, ms, peak
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def first_steps_equal(make_train_step, base, x, y, dev):
+    """Case (d)'s first step equals case (b)'s from the same start, with
+    cuDNN deterministic: loss and every parameter and buffer within 1e-6
+    (max |diff| over max |plain|), so remat wrote the BN statistics once."""
+    runs = []
+    with cudnn_deterministic():
+        for remat in (False, True):
+            m = copy.deepcopy(base).to(dev)
+            out = make_train_step(compute_dtype=torch.bfloat16, remat=remat)(
+                m, adamw(m), x, y)
+            runs.append((out["loss"].item(), m.state_dict()))
+            del m
+    (l0, s0), (l1, s1) = runs
+    errs = {k: rel_max(s1[k].float(), s0[k].float()) for k in s0}
+    worst = max((v, k) for k, v in errs.items())
+    loss_err = abs(l1 - l0) / abs(l0)
+    print(f"phase 5: remat's first step vs the plain step (bf16, batch 256, cuDNN "
+          f"deterministic): loss {l1:.7f} vs {l0:.7f} (relative {loss_err:.3g}); "
+          f"worst state tensor {worst[1]} {worst[0]:.3g} (limit 1e-6) over {len(s0)}")
+    if loss_err > 1e-6 or worst[0] > 1e-6:
+        raise AssertionError("remat's first step differs from the plain step")
+
+
+def train_phase(kernels, Predictor, dev, card) -> dict:
+    """Phase 5: QAT training of the flagship at full width on the card, then
+    its trained weights served; returns the serving runs' launches."""
+    from bnn_tpu_torch.ops import (BasicScaleBinarizer, StochasticInputBinarizer,
+                                   XNORWeightBinarizer)
+    from bnn_tpu_torch.parallel import make_train_step
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    images = torch.randn((256, 3, SIZE, SIZE), generator=gen)
+    labels = torch.randint(0, 1000, (256,), generator=gen)
+    first_step_on_card_vs_cpu(make_train_step, images, labels, dev)
+    block_grads_on_card_vs_cpu(gen, dev)
+
+    xd, yd = images.to(dev), labels.to(dev)
+    base = flagship(torch.Generator().manual_seed(SEED + 8)).train()
+    first_steps_equal(make_train_step, base, xd, yd, dev)
+    results, trained = {}, None
+    for label, opts, batch, steps in TRAIN_CASES:
+        if label.startswith("e"):
+            model = flagship(torch.Generator().manual_seed(SEED + 8), binarizers=(
+                StochasticInputBinarizer, BasicScaleBinarizer, XNORWeightBinarizer))
+            model = model.train().to(dev)
+        else:
+            model = copy.deepcopy(base).to(dev)
+        # case (a) trains the weights phase 5 serves: with cuDNN
+        # deterministic they are the same in every run, so the serving check
+        # below meets the same weights each time, as phase 3's does
+        with cudnn_deterministic() if label.startswith("a") else contextlib.nullcontext():
+            results[label] = train_case(make_train_step, model, opts, xd[:batch],
+                                        yd[:batch], steps, label, card,
+                                        profile=label[0] in "bcd")
+        if label.startswith("a"):
+            trained = model
+        elif label.startswith("e"):
+            gens = [m.generator(xd.device) for m in model.modules()
+                    if isinstance(m, StochasticInputBinarizer)]
+            if not gens or any(g.device != xd.device for g in gens):
+                raise AssertionError("case e: a binarizer drew its noise off the card")
+            print(f"phase 5: case e: {len(gens)} stochastic binarizers, each with its "
+                  f"own generator on {xd.device}")
+        if model is not trained:
+            del model
+        torch.cuda.empty_cache()
+    losses_b = results[TRAIN_CASES[1][0]][0]
+    if not losses_b[-1] < losses_b[0]:
+        raise AssertionError(f"case b: 5 steps on one batch did not lower the loss: "
+                             f"{losses_b}")
+
+    # the trained weights (case a), served; launch counts as in phase 3
+    trained.eval()
+    launches = dict.fromkeys(KERNELS, 0)
+    cpu_model = copy.deepcopy(trained).cpu()
+    served = images[:16]
+    for b, requests, want in (
+            (1, (served[:1], served[1:3]), {"fused_stem": 1, "fused_chain": 4}),
+            (8, (served[:8], served[8:11]), {"fused_stem": 1, "binary_gemm": 1})):
+        pred = Predictor(copy.deepcopy(trained), batch_size=b, dtype=None)
+        _, counted = serve_counted(
+            kernels, pred, requests,
+            f"trained ResNet-18 (case a) Predictor(batch_size={b}) f32", want, phase=5)
+        for k, v in counted.items():
+            launches[k] += v
+        check_trained_serving(pred, Predictor(copy.deepcopy(cpu_model), batch_size=b,
+                                              dtype=None, device="cpu"),
+                              served[:8], b)
+    return launches
+
+
+def check_trained_serving(pred, ref_pred, images, b):
+    """The card's f32 ``Predictor`` against the plain versions of the same
+    path on the CPU. A ternary sign flips wherever the stem's f32 sum lands
+    within its rounding of 0, and a flip moves the logits by far more than
+    1e-3; so the stem is held to its phase-2 bound (1e-5) on each forward's
+    input, and the CPU's forward goes on from the card's stem output, which
+    holds every later kernel on the same input (1e-3, argmax equal). The
+    logits of the CPU's own stem are printed beside them."""
+    stems = []
+    hook = pred.model.conv1.register_forward_hook(
+        lambda mod, args, out: stems.append(out.detach().cpu()))
+    got = pred(images).cpu()
+    hook.remove()
+    own = ref_pred(images)
+    feed, stem_err = iter(stems), []
+
+    def swap(mod, args, out):
+        card = next(feed)
+        stem_err.append((card - out).abs().max().item())
+        return card
+
+    hook = ref_pred.model.conv1.register_forward_hook(swap)
+    ref = ref_pred(images)
+    hook.remove()
+    per_image = (got - own).abs().amax(1)
+    print(f"phase 5: trained ResNet-18 batch {b}: stem on the card vs the CPU max |err| "
+          f"{max(stem_err):.3g} (limit 1e-5) over {len(stem_err)} forwards; logits "
+          f"from the CPU's own stem differ by up to {per_image.max().item():.3g} "
+          f"({int((per_image > 1e-3).sum())} of {len(per_image)} images over 1e-3)")
+    if max(stem_err) > 1e-5:
+        raise AssertionError(f"trained ResNet-18 batch {b}: the stem on the card "
+                             "differs from its plain version")
+    check_f32(pred, ref, images, f"trained ResNet-18 batch {b}, from the card's stem",
+              phase=5)
 
 
 def main() -> int:
@@ -1825,13 +2133,18 @@ def main() -> int:
           f"us device (bound {bneck[2] * 1e3:.3f} us, {bneck[3]}); batch 4 "
           f"{bneck4[0] * 1e3:.2f} us device (bound {bneck4[2] * 1e3:.3f} us, "
           f"{bneck4[3]}) | {card}")
-    print("phase 5: fused_chain's numbers are the sums over the four stages of "
+
+    # phase 5: QAT training of the flagship on the card, then its weights
+    # served; the serving runs' launches join phase 3's
+    add(train_phase(kernels, Predictor, dev, card))
+    print("phase 6: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
           "binary_conv2d_s1's and popcount_gemm's the sums over the 13 and 36 "
           "calls of one batch-8 forward of paths B and C; launches are totals "
-          "over phase 3's serving runs")
+          "over phase 3's serving runs and phase 5's serving of the trained "
+          "weights")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",

@@ -3,6 +3,8 @@ JAX, flax or the JAX package (only the tests import both)."""
 import pathlib
 import re
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|bnn_tpu)(\.|\s|$)", re.M)
@@ -28,3 +30,13 @@ def test_pattern_catches_what_it_must():
     for line in ("import bnn_tpu_torch", "from bnn_tpu_torch import ops",
                  "from . import jaxlike"):
         assert not _FORBIDDEN.search(line), line
+
+
+@pytest.mark.parametrize("module", ["nn/__init__.py", "functional.py",
+                                    "parallel/__init__.py",
+                                    "parallel/trainstep.py"])
+def test_training_modules_are_checked(module):
+    """The training slice's modules are among the sources checked above."""
+    path = ROOT / "bnn_tpu_torch" / module
+    assert path in _port_sources()
+    assert not _FORBIDDEN.findall(path.read_text())
