@@ -1,4 +1,8 @@
-from .deploy import DeployedConv, DeployedLinear, deploy, set_gemm_impl
+from .batching import BatcherStats, ContinuousBatcher
+from .compress import (QuantizedConv, QuantizedLinear, quantize_float_layers,
+                       state_bytes)
+from .deploy import (DeployedConv, DeployedLinear, deploy, model_weight_bytes,
+                     packed_weight_bytes, set_gemm_impl)
 from .export import batched_call
 from .megablock import (FusedBlock, FusedBottleneck, FusedDownBlock,
                         default_fuse_predicate, fuse_blocks)
@@ -9,6 +13,14 @@ from .stages import (FusedEntry, FusedStage, fuse_entry, fuse_head,
 from .stem import FusedStem, SpaceToDepthConv, fuse_stem, space_to_depth_stem
 
 __all__ = [
+    "BatcherStats",
+    "ContinuousBatcher",
+    "QuantizedConv",
+    "QuantizedLinear",
+    "quantize_float_layers",
+    "state_bytes",
+    "model_weight_bytes",
+    "packed_weight_bytes",
     "DeployedConv",
     "DeployedLinear",
     "deploy",

@@ -51,7 +51,8 @@ from ..ops.binarizers import (
 )
 from ..utils.padding import pad_same, static_same_pads
 
-__all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl"]
+__all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl",
+           "packed_weight_bytes", "model_weight_bytes"]
 
 _MODES = ("auto", "gemm", "im2col", "conv", "pallas-conv")
 _WEIGHT_FORMATS = ("packed", "int8")
@@ -445,3 +446,22 @@ def set_gemm_impl(model: nn.Module, impl: str = "popcount"):
             m.gemm_impl = impl
             changed.append(name)
     return changed
+
+
+def packed_weight_bytes(model: nn.Module) -> int:
+    """Bytes of the deployed layers' packed / int8 weight storage."""
+    return sum(m.w_packed.numel() * m.w_packed.element_size()
+               for m in model.modules()
+               if isinstance(m, (DeployedLinear, DeployedConv)))
+
+
+def model_weight_bytes(model: nn.Module) -> int:
+    """Bytes of every weight matrix: the deployed layers' packed storage
+    and the float (or binary QAT) conv and linear weights, the JAX package's
+    ``kernel`` parameters. Norm and PReLU weights and the quantized layers'
+    ``w_q`` are not counted, as there."""
+    total = packed_weight_bytes(model)
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.modules.conv._ConvNd)):
+            total += m.weight.numel() * m.weight.element_size()
+    return total

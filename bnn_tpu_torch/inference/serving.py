@@ -1,17 +1,22 @@
 """One-call serving wrapper (counterpart of ``bnn_tpu/inference/serving.py``).
 
     predictor = Predictor(model, batch_size=1)          # device="cuda"
+    predictor = Predictor.from_checkpoint(path, model_fn, batch_size=8)
     logits = predictor(images)                          # NCHW
 
 Pipeline, in the JAX package's order: deploy (int8 / packed weights, folded
-epilogues) -> BN folds -> space-to-depth stem -> with ``fuse``: fused stem,
-whole-stage kernels (:func:`~bnn_tpu_torch.inference.stages.fuse_stages`),
-per-block kernels under ``max_fused_batch``
-(:func:`~bnn_tpu_torch.inference.megablock.fuse_blocks`), the classifier
-head folded into the last stage -> float state cast to ``dtype``. Requests
-are padded and split into ``batch_size`` chunks. Every fused module decides
-per forward whether its kernel runs: at batch 1 to 4 a binary ResNet-18 is
-five launches (stem, four stages), a binary ResNet-50 the stem and one
+epilogues) -> BN folds -> with ``quantize_float_bits``, the big float layers
+(the classifier head) stored as int8 or int4
+(:func:`~bnn_tpu_torch.inference.compress.quantize_float_layers`) ->
+space-to-depth stem -> with ``fuse``: fused stem, whole-stage kernels
+(:func:`~bnn_tpu_torch.inference.stages.fuse_stages`), per-block kernels
+under ``max_fused_batch``
+(:func:`~bnn_tpu_torch.inference.megablock.fuse_blocks`), the float
+classifier head folded into the last stage (a quantized head stays apart,
+after the stage's features) -> float state cast to ``dtype``. Requests are
+padded and split into ``batch_size`` chunks. Every fused module decides per
+forward whether its kernel runs: at batch 1 to 4 a binary ResNet-18 is five
+launches (stem, four stages), a binary ResNet-50 the stem and one
 ``fused_bottleneck`` per stride-1 Bottleneck (13), its three strided blocks
 on the deployed convs; at batch 8 the stages and blocks fall back to the
 deployed convs, as in the JAX package.
@@ -21,16 +26,19 @@ deployed convs, as in the JAX package.
 BN folds (``popcount_layers`` names them), as the JAX ``Predictor`` does.
 
 Not ported yet, and raising ``NotImplementedError``: multi-device serving
-and the quantized float head.
+(``mesh=``, ``tensor_parallel=``) and the frozen serving bundle
+(:meth:`Predictor.export`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
+from ..utils.checkpoint import load_checkpoint, restore_into
 from ..utils.precision import cast_floats
+from .compress import quantize_float_layers, state_bytes
 from .deploy import deploy, set_gemm_impl
 from .export import batched_call
 from .megablock import fuse_blocks
@@ -75,10 +83,6 @@ class Predictor:
             # the block and stage kernels run the int8 product: serve
             # unfused so that every eligible layer takes the requested form
             fuse = False
-        if quantize_float_bits is not None:
-            raise NotImplementedError(
-                "quantize_float_bits (bnn_tpu/inference/compress.py) is not "
-                "ported yet")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -93,6 +97,10 @@ class Predictor:
         self.popcount_layers = []
         if binary_gemm_impl != "mxu":
             self.popcount_layers = set_gemm_impl(model, binary_gemm_impl)
+        if quantize_float_bits is not None:
+            # weight-only storage for the big float layers (the head); the
+            # sign-feeding stem stays float (see inference/compress.py)
+            model = quantize_float_layers(model, bits=quantize_float_bits)
         if space_to_depth:
             space_to_depth_stem(model)
         if fuse:
@@ -109,6 +117,38 @@ class Predictor:
         self.batch_size = batch_size
         self.dtype = dtype or torch.float32
         self.device = device
+
+    def export(self, path: str, input_shape, *, platforms=None) -> None:
+        """The frozen serving bundle (``bnn_tpu/inference/export.py``) is not
+        ported yet: it needs every kernel wrapper registered as a
+        ``torch.library`` custom op first (the next slice of the port)."""
+        raise NotImplementedError(
+            "Predictor.export (the frozen serving bundle) is not ported yet: "
+            "it waits for the kernels as torch.library custom ops, the next "
+            "slice of the port")
+
+    def served_model(self) -> nn.Module:
+        """The deployed model being served."""
+        return self.model
+
+    def state_bytes(self) -> int:
+        """Bytes of every tensor in the served model's state (weights,
+        scales, norm statistics, the fused modules' kernel-layout copies)."""
+        return state_bytes(self.model)
+
+    @classmethod
+    def from_model(cls, model: nn.Module, **kwargs) -> "Predictor":
+        return cls(model, **kwargs)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, model_fn: Callable[[], nn.Module],
+                        **kwargs) -> "Predictor":
+        """Build the QAT model with ``model_fn``, restore the checkpoint at
+        ``path`` (:func:`~bnn_tpu_torch.utils.checkpoint.save_checkpoint`'s
+        directory) into it, then deploy."""
+        model = model_fn()
+        restore_into(model, load_checkpoint(path))
+        return cls(model, **kwargs)
 
     def _forward(self, xb: torch.Tensor) -> torch.Tensor:
         out = self.model(xb)

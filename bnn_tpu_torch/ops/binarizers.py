@@ -96,12 +96,19 @@ class StochasticInputBinarizer(BinarizerBase):
     Its noise is drawn on the input's device, from a ``torch.Generator`` of
     that device seeded with the instance's seed (``seed``, the given
     ``generator``'s initial seed, or ``_STOCHASTIC_SEED``'s next value), made
-    at the first call there and kept."""
+    at the first call there and kept.
+
+    The seed and each device's generator state are the module's extra state
+    (``_extra_state`` in its ``state_dict``), as the JAX binarizer's
+    ``nnx.Rngs`` are part of its state: a restored binarizer draws on from
+    where the saved one stopped. A saved state of a device this process has
+    no generator on yet is applied when the generator is made."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None):
         super().__init__()
         self._generators = {}
+        self._saved_states = {}
         if generator is not None:
             self._generators[generator.device] = generator
             seed = generator.initial_seed()
@@ -113,8 +120,26 @@ class StochasticInputBinarizer(BinarizerBase):
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device not in self._generators:
-            self._generators[device] = torch.Generator(device).manual_seed(self.seed)
+            g = torch.Generator(device).manual_seed(self.seed)
+            saved = self._saved_states.pop(str(device), None)
+            if saved is not None:
+                g.set_state(saved)
+            self._generators[device] = g
         return self._generators[device]
+
+    def get_extra_state(self) -> dict:
+        states = {str(d): g.get_state() for d, g in self._generators.items()}
+        return {"seed": self.seed, "states": {**self._saved_states, **states}}
+
+    def set_extra_state(self, state: dict) -> None:
+        self.seed = int(state["seed"])
+        self._saved_states = {}
+        for name, s in state["states"].items():
+            device = torch.device(name)
+            if device in self._generators:
+                self._generators[device].set_state(s)
+            else:
+                self._saved_states[name] = s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return stochastic_sign_ste(x, self.generator(x.device))

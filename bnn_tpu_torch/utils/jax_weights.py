@@ -27,9 +27,12 @@ _LEAF = {
     "var": "running_var",
     "alpha": "alpha",           # BasicScaleBinarizer
     "weight": "weight",         # PReLU slope
+    "w_q": "w_q",               # inference.compress, in JAX's layout
+    "w_scale": "w_scale",
 }
-# port leaves with no JAX counterpart
-_PORT_ONLY = ("num_batches_tracked",)
+# port leaves with no JAX counterpart (a stochastic binarizer's generator
+# states are not JAX's nnx.Rngs)
+_PORT_ONLY = ("num_batches_tracked", "_extra_state")
 # kernel rank -> permutation from the JAX layout to torch's
 _KERNEL_PERM = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
 

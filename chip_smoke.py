@@ -94,7 +94,28 @@ Phases, each reported on its own lines:
    same path on the CPU: the stem within 1e-5, the logits within 1e-3 with
    the card's stem output fed to the CPU's forward (a ternary sign flips
    where the stem's sum lands within rounding of 0);
-6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+6. serving as ``examples/serve.py`` runs it, on case (a)'s trained weights:
+   (a) the flagship and its AdamW through ``utils.save_checkpoint`` and
+   ``load_checkpoint`` into a fresh flagship and AdamW (``restore_into``,
+   ``restore_optimizer``), every state tensor bit-identical, and one more
+   step of each pair (cuDNN deterministic) bit-identical again; (b)
+   ``Predictor.from_checkpoint(..., quantize_float_bits=8)`` (the int8 head)
+   at batch 1 and 8 in bf16 with phase 3's launch counts, its logits
+   against the bf16 head of the same weights (max |diff| over max |logit|
+   under 0.02, top-1 agreement), its f32 build against the plain versions
+   on the CPU (as in phase 5), and each head's forward profiled and timed
+   in turns; (c) ``state_bytes``, ``packed_weight_bytes``,
+   ``model_weight_bytes`` and the card memory each predictor holds, with
+   and without the int8 head; (d) 256 single-image requests through
+   ``ContinuousBatcher`` over the batch-8 predictor (max_delay 5 ms),
+   Poisson arrivals at 200 requests/s and at 80% of the predictor's
+   capacity, then all at once (the batcher's own ceiling): each request's
+   rows against a direct call (1e-5), images/s,
+   batches, occupancy, p50 and p99 latency, launches (one stem and one
+   ``binary_gemm`` a batch) and the device busy share under
+   torch.profiler; (e) ``python -m bnn_tpu_torch.examples.serve --ckpt``
+   with ``--requests 4``, and with ``--continuous``, each exiting 0;
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
@@ -104,12 +125,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import importlib
 import json
 import math
+import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -802,16 +826,16 @@ def host_ms(fn, iters: int = 50) -> float:
     return t / iters * 1e3
 
 
-def forward_times(pred, xb, card, name):
+def forward_times(pred, xb, card, name, phase: int = 4):
     fwd = fwd_ms(pred, xb)
     by_kernel, _ = device_profile(lambda: pred(xb), iters=10, whole=False)
     busy = sum(by_kernel.values())
     n = xb.shape[0]
-    print(f"phase 4: {name}: {fwd:.3f} ms per forward, "
+    print(f"phase {phase}: {name}: {fwd:.3f} ms per forward, "
           f"{n / fwd * 1e3:.1f} images/s; device busy {busy:.3f} ms per "
           f"forward ({100 * busy / fwd:.1f}% of the latency) | {card}")
     for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"phase 4:   {ms * 1e3:9.2f} us  {kname[:100]}")
+        print(f"phase {phase}:   {ms * 1e3:9.2f} us  {kname[:100]}")
     return fwd, busy
 
 
@@ -1258,7 +1282,8 @@ def block_grads_on_card_vs_cpu(gen, dev):
 def train_case(make_train_step, model, opts, x, y, steps, label, card,
                profile: bool = False):
     """``steps`` steps on one fixed batch, each timed by CUDA events; returns
-    (losses, ms a step after the warm-up steps or None, peak bytes). With
+    (losses, ms a step after the warm-up steps or None, peak bytes, the
+    optimizer). With
     ``profile``, five more steps follow, the last two under torch.profiler:
     the device busy share of a step and the kernels that take the time."""
     opt = adamw(model)
@@ -1295,7 +1320,7 @@ def train_case(make_train_step, model, opts, x, y, steps, label, card,
               f"of its {wall:.2f} ms under the profiler; by device time:")
         for kname, kms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"phase 5:   {kms:8.3f} ms  {kname[:100]}")
-    return losses, ms, peak
+    return losses, ms, peak, opt
 
 
 @contextlib.contextmanager
@@ -1331,9 +1356,10 @@ def first_steps_equal(make_train_step, base, x, y, dev):
         raise AssertionError("remat's first step differs from the plain step")
 
 
-def train_phase(kernels, Predictor, dev, card) -> dict:
+def train_phase(kernels, Predictor, dev, card) -> tuple:
     """Phase 5: QAT training of the flagship at full width on the card, then
-    its trained weights served; returns the serving runs' launches."""
+    its trained weights served; returns the serving runs' launches, and case
+    (a)'s trained model and optimizer, which phase 6 checkpoints."""
     from bnn_tpu_torch.ops import (BasicScaleBinarizer, StochasticInputBinarizer,
                                    XNORWeightBinarizer)
     from bnn_tpu_torch.parallel import make_train_step
@@ -1396,10 +1422,11 @@ def train_phase(kernels, Predictor, dev, card) -> dict:
         check_trained_serving(pred, Predictor(copy.deepcopy(cpu_model), batch_size=b,
                                               dtype=None, device="cpu"),
                               served[:8], b)
-    return launches
+    return launches, trained, results[TRAIN_CASES[0][0]][3]
 
 
-def check_trained_serving(pred, ref_pred, images, b):
+def check_trained_serving(pred, ref_pred, images, b, phase: int = 5,
+                          name: str = "trained ResNet-18"):
     """The card's f32 ``Predictor`` against the plain versions of the same
     path on the CPU. A ternary sign flips wherever the stem's f32 sum lands
     within its rounding of 0, and a flip moves the logits by far more than
@@ -1424,15 +1451,274 @@ def check_trained_serving(pred, ref_pred, images, b):
     ref = ref_pred(images)
     hook.remove()
     per_image = (got - own).abs().amax(1)
-    print(f"phase 5: trained ResNet-18 batch {b}: stem on the card vs the CPU max |err| "
+    print(f"phase {phase}: {name} batch {b}: stem on the card vs the CPU max |err| "
           f"{max(stem_err):.3g} (limit 1e-5) over {len(stem_err)} forwards; logits "
           f"from the CPU's own stem differ by up to {per_image.max().item():.3g} "
           f"({int((per_image > 1e-3).sum())} of {len(per_image)} images over 1e-3)")
     if max(stem_err) > 1e-5:
-        raise AssertionError(f"trained ResNet-18 batch {b}: the stem on the card "
+        raise AssertionError(f"{name} batch {b}: the stem on the card "
                              "differs from its plain version")
-    check_f32(pred, ref, images, f"trained ResNet-18 batch {b}, from the card's stem",
-              phase=5)
+    check_f32(pred, ref, images, f"{name} batch {b}, from the card's stem",
+              phase=phase)
+
+
+ROOT = pathlib.Path(__file__).resolve().parent
+# phase 6 writes its checkpoint here, inside the checkout (the directory is
+# ignored by git and removed at the end of the phase)
+SMOKE_DIR = ROOT / ".smoke"
+STREAM_REQUESTS = 256
+
+
+def card_mb() -> float:
+    """MB of tensors the caching allocator holds on the card now."""
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 1e6
+
+
+def checkpoint_round_trip(trained, opt, dev, card, path) -> None:
+    """Phase 6 (a): case (a)'s trained flagship and its AdamW through
+    save_checkpoint and load_checkpoint into a fresh flagship and AdamW:
+    every parameter and buffer bit-identical, then one more step of each
+    pair on one batch (cuDNN deterministic), bit-identical again."""
+    from bnn_tpu_torch.parallel import make_train_step
+    from bnn_tpu_torch.utils import (load_checkpoint, restore_into,
+                                     restore_optimizer, save_checkpoint)
+
+    t0 = time.perf_counter()
+    save_checkpoint(path, trained, opt_state=opt, metadata={"step": 5})
+    payload = load_checkpoint(path)
+    io_s = time.perf_counter() - t0
+    if payload["metadata"] != {"step": 5}:
+        raise AssertionError(f"checkpoint metadata {payload['metadata']}")
+    fresh = flagship(torch.Generator().manual_seed(SEED + 11)).to(dev)
+    restore_into(fresh, payload)
+    fresh_opt = adamw(fresh)
+    restore_optimizer(fresh_opt, payload)
+
+    def differing(a, b):
+        sa, sb = a.state_dict(), b.state_dict()
+        return [k for k in sa if not torch.equal(sa[k], sb[k])]
+
+    def opt_differing(a, b):
+        return [i for i, (x, y) in enumerate(zip(a.state.values(), b.state.values()))
+                if any(not torch.equal(x[k], y[k]) for k in x)]
+
+    restored = differing(fresh, trained)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    x = torch.randn((64, 3, SIZE, SIZE), generator=gen).to(dev)
+    y = torch.randint(0, 1000, (64,), generator=gen).to(dev)
+    step = make_train_step()
+    trained.train()
+    fresh.train()
+    with cudnn_deterministic():
+        loss = step(trained, opt, x, y)["loss"].item()
+        loss_r = step(fresh, fresh_opt, x, y)["loss"].item()
+    stepped = differing(fresh, trained) + [f"moments {i}" for i in opt_differing(fresh_opt, opt)]
+    n = len(trained.state_dict())
+    print(f"phase 6: checkpoint of the trained flagship and its AdamW "
+          f"({(pathlib.Path(path) / 'checkpoint.pt').stat().st_size / 1e6:.1f} MB, saved "
+          f"and loaded in {io_s:.2f} s): restored into a fresh flagship, "
+          f"{n - len(restored)} of {n} state tensors bit-identical; one more step of each "
+          f"pair (cuDNN deterministic): loss {loss:.7f} vs {loss_r:.7f}, "
+          f"{n - len([k for k in stepped if not k.startswith('moments')])} of {n} state "
+          f"tensors and {len(opt.state) - len(opt_differing(fresh_opt, opt))} of "
+          f"{len(opt.state)} parameters' moments bit-identical | {card}")
+    if restored or stepped or loss != loss_r:
+        raise AssertionError(f"checkpoint: restored state differs at {restored[:5]}, "
+                             f"after a step at {stepped[:5]}")
+
+
+def served_from_checkpoint(kernels, Predictor, path, b, requests, want, images,
+                           card) -> tuple:
+    """Phase 6 (b) and (c) at one batch size: the checkpoint through
+    ``Predictor.from_checkpoint`` with the int8 head, its launches, its
+    logits against the unquantized predictor of the same weights, its f32
+    build against the plain versions on the CPU, and the bytes each holds.
+    Returns (the quantized bf16 predictor, its launches)."""
+    from bnn_tpu_torch.inference import (QuantizedLinear, model_weight_bytes,
+                                         packed_weight_bytes)
+
+    build = lambda: flagship(torch.Generator().manual_seed(SEED + 11))  # noqa: E731
+    held = {}
+    preds = {}
+    for name, kw in (("int8 head", {"quantize_float_bits": 8}), ("bf16 head", {})):
+        before = card_mb()
+        preds[name] = Predictor.from_checkpoint(path, build, batch_size=b, **kw)
+        built = card_mb() - before
+        preds[name](requests[0])
+        held[name] = (built, card_mb() - before)
+    q, u = preds["int8 head"], preds["bf16 head"]
+    if not isinstance(q.served_model().fc, QuantizedLinear) or \
+            q.model.layer4.head_fc is not None:
+        raise AssertionError("the int8 head is not the served model's fc")
+    label = f"Predictor.from_checkpoint(batch_size={b}, quantize_float_bits=8) bf16"
+    outs, launches = serve_counted(kernels, q, requests, label, want, phase=6)
+    got = torch.cat([o.float() for o in outs])
+    ref = torch.cat([u(r).float() for r in requests])
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+    print(f"phase 6: batch {b}: int8 head vs the bf16 head of the same weights: max "
+          f"|diff| over max |logit| {err:.3g} (limit 0.02); top-1 agreement "
+          f"{100 * agree:.1f}% of {got.shape[0]} images")
+    if not err < 0.02:
+        raise AssertionError(f"batch {b}: the int8 head is {err:.3g} off the bf16 one")
+    check_trained_serving(
+        Predictor.from_checkpoint(path, build, batch_size=b, quantize_float_bits=8,
+                                  dtype=None),
+        Predictor.from_checkpoint(path, build, batch_size=b, quantize_float_bits=8,
+                                  dtype=None, device="cpu"),
+        images[:8], b, phase=6, name="checkpoint with the int8 head, f32,")
+    for name, p in preds.items():
+        print(f"phase 6: batch {b}, {name}: state_bytes {p.state_bytes()} B, "
+              f"packed_weight_bytes {packed_weight_bytes(p.model)} B, "
+              f"model_weight_bytes {model_weight_bytes(p.model)} B; card memory "
+              f"{held[name][0]:.3f} MB after the build, {held[name][1]:.3f} MB after "
+              f"its first forward | {card}")
+    print(f"phase 6: batch {b}: the int8 head saves {u.state_bytes() - q.state_bytes()} B "
+          f"of state and {held['bf16 head'][1] - held['int8 head'][1]:.3f} MB of card "
+          "memory")
+    # the forward with each head: profiled once, then timed in turns
+    xb = images[:b].to(q.device)
+    for name, p in preds.items():
+        forward_times(p, xb, card, f"Predictor.from_checkpoint(batch_size={b}), {name}, "
+                      f"bf16 {SIZE}x{SIZE}", phase=6)
+    turns = {name: [] for name in preds}
+    for order in (("bf16 head", "int8 head"), ("int8 head", "bf16 head")):
+        for name in order:
+            turns[name].append(fwd_ms(preds[name], xb))
+    print(f"phase 6: batch {b} forward in turns (bf16, int8, int8, bf16): "
+          + "; ".join(f"{name} {[round(v, 3) for v in ms]} ms"
+                      for name, ms in turns.items()) + f" | {card}")
+    return q, launches
+
+
+def run_stream(pred, requests, rps: float, seed: int):
+    """``requests`` as single-image submissions to a ContinuousBatcher over
+    ``pred`` (max_delay 5 ms), Poisson arrivals at ``rps`` (all at once
+    with ``rps=None``); returns (rows of each request, stats, wall seconds
+    to the last result)."""
+    from bnn_tpu_torch.inference import ContinuousBatcher
+
+    rng = torch.Generator().manual_seed(seed)
+    gaps = ([0.0] * len(requests) if rps is None else
+            torch.empty(len(requests)).exponential_(rps, generator=rng).tolist())
+    with ContinuousBatcher(pred, max_delay_ms=5.0) as srv:
+        t0 = time.perf_counter()
+        futs = []
+        for r, gap in zip(requests, gaps):
+            futs.append(srv.submit(r))
+            if gap:
+                time.sleep(gap)
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    return outs, stats, wall
+
+
+def stream_phase(kernels, pred, dev, card) -> dict:
+    """Phase 6 (d): 256 single-image requests through the continuous batcher
+    over the batch-8 predictor with the int8 head, at 200 requests/s
+    (serve.py's default) and at 80% of the predictor's capacity (8 images
+    over one forward's latency), then all at once (the batcher's own
+    ceiling, with no arrivals to wait for): each request's rows against a
+    direct call, images/s, batches, occupancy, p50 and p99 latency, the
+    launches, and the device busy share over a second run of each under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    requests = list(torch.randn((STREAM_REQUESTS, 1, 3, SIZE, SIZE), generator=gen))
+    direct = [pred(r).float().cpu() for r in requests]
+    xb = requests[0].expand(BATCH, -1, -1, -1).contiguous().to(dev)
+    fwd = fwd_ms(pred, xb)
+    capacity = BATCH / fwd * 1e3
+    # the same forward timed from another thread, as the dispatcher runs it
+    worker_ms = []
+    worker = threading.Thread(target=lambda: worker_ms.append(fwd_ms(pred, xb)))
+    worker.start()
+    worker.join(timeout=300)
+    if worker.is_alive() or not worker_ms:
+        raise AssertionError("the forward timed from a worker thread did not finish")
+    print(f"phase 6: batch-8 forward with the int8 head: {fwd:.3f} ms from the main "
+          f"thread, {worker_ms[0]:.3f} ms from a worker thread | {card}")
+    launches = dict.fromkeys(KERNELS, 0)
+    for label, rps in (("200 rps", 200.0), ("80% of capacity", 0.8 * capacity),
+                       ("once", None)):
+        for k in KERNELS:
+            getattr(kernels, k).launches = 0
+        outs, st, wall = run_stream(pred, requests, rps, SEED)
+        counted = {k: getattr(kernels, k).launches for k in KERNELS}
+        want = {k: st.batches if k in ("fused_stem", "binary_gemm") else 0 for k in KERNELS}
+        if counted != want:
+            raise AssertionError(f"stream at {label}: launches {counted}, expected {want}")
+        for k, v in counted.items():
+            launches[k] += v
+        err = max((o.float() - d).abs().max().item() for o, d in zip(outs, direct))
+        equal = sum(torch.equal(o.float(), d) for o, d in zip(outs, direct))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, pwall = run_stream(pred, requests, rps, SEED + 1)
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        offered = "all submitted at once" if rps is None else f"{rps:.1f} rps offered"
+        print(f"phase 6: stream of {st.requests} single-image requests at {label} "
+              f"({offered}; capacity {capacity:.1f} images/s from a "
+              f"{fwd:.3f} ms forward): {st.rows / wall:.1f} images/s, {st.batches} "
+              f"batches ({1e3 * wall / st.batches:.2f} ms each), occupancy "
+              f"{100 * st.mean_occupancy:.1f}%, latency p50 "
+              f"{st.latency_percentile(50):.3f} ms, p99 {st.latency_percentile(99):.3f} "
+              f"ms; rows against direct calls max |diff| {err:.3g} (limit 1e-5), "
+              f"{equal} of {len(outs)} bit-identical; launches {counted}; device busy "
+              f"{busy:.1f} ms of a {1e3 * pwall:.1f} ms profiled run "
+              f"({100 * busy / (1e3 * pwall):.1f}%) | {card}")
+        if err > 1e-5:
+            raise AssertionError(f"stream at {label}: rows differ from direct calls by {err}")
+    return launches
+
+
+def serve_cli(path, card) -> None:
+    """Phase 6 (e): ``python -m bnn_tpu_torch.examples.serve`` on the card from
+    the checkpoint, batched requests and a continuous stream; each must exit
+    0."""
+    for extra in ([], ["--continuous"]):
+        cmd = [sys.executable, "-m", "bnn_tpu_torch.examples.serve", "--ckpt", path,
+               "--requests", "4", *extra]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        flag = " ".join(["--ckpt", "--requests 4", *extra])
+        for line in run.stdout.splitlines():
+            print(f"phase 6: serve CLI ({flag}): {line}")
+        print(f"phase 6: serve CLI ({flag}) exited {run.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s | {card}")
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"the serve CLI ({flag}) exited {run.returncode}")
+
+
+def serve_phase(kernels, Predictor, dev, card, trained, opt, images) -> dict:
+    """Phase 6: serving as examples/serve.py runs it; returns the launches of
+    its counted serving runs."""
+    path = str(SMOKE_DIR / "flagship")
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    launches = dict.fromkeys(KERNELS, 0)
+    try:
+        checkpoint_round_trip(trained, opt, dev, card, path)
+        served = {}
+        for b, requests, want in (
+                (1, (images[:1], images[1:3]), {"fused_stem": 1, "fused_chain": 4}),
+                (8, (images[:8], images[8:11]), {"fused_stem": 1, "binary_gemm": 1})):
+            served[b], counted = served_from_checkpoint(kernels, Predictor, path, b,
+                                                        requests, want, images, card)
+            for k, v in counted.items():
+                launches[k] += v
+        for k, v in stream_phase(kernels, served[8], dev, card).items():
+            launches[k] += v
+        serve_cli(path, card)
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -2136,15 +2422,20 @@ def main() -> int:
 
     # phase 5: QAT training of the flagship on the card, then its weights
     # served; the serving runs' launches join phase 3's
-    add(train_phase(kernels, Predictor, dev, card))
-    print("phase 6: fused_chain's numbers are the sums over the four stages of "
+    launches, trained, opt = train_phase(kernels, Predictor, dev, card)
+    add(launches)
+    # phase 6: serving as examples/serve.py runs it, from a checkpoint of
+    # phase 5's trained weights; its counted launches join the others
+    add(serve_phase(kernels, Predictor, dev, card, trained, opt, images))
+    del trained, opt
+    print("phase 7: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
           "binary_conv2d_s1's and popcount_gemm's the sums over the 13 and 36 "
           "calls of one batch-8 forward of paths B and C; launches are totals "
-          "over phase 3's serving runs and phase 5's serving of the trained "
-          "weights")
+          "over phase 3's serving runs, phase 5's serving of the trained "
+          "weights and phase 6's counted serving runs and streams")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",

@@ -34,9 +34,15 @@ def test_pattern_catches_what_it_must():
 
 @pytest.mark.parametrize("module", ["nn/__init__.py", "functional.py",
                                     "parallel/__init__.py",
-                                    "parallel/trainstep.py"])
+                                    "parallel/trainstep.py",
+                                    "utils/checkpoint.py",
+                                    "inference/compress.py",
+                                    "inference/batching.py",
+                                    "examples/__init__.py",
+                                    "examples/serve.py"])
 def test_training_modules_are_checked(module):
-    """The training slice's modules are among the sources checked above."""
+    """The training and serving slices' modules are among the sources
+    checked above."""
     path = ROOT / "bnn_tpu_torch" / module
     assert path in _port_sources()
     assert not _FORBIDDEN.findall(path.read_text())

@@ -179,12 +179,15 @@ def _tiny():
     (dict(binary_gemm_impl="popcount", fuse=True), ValueError,
      "incompatible with fuse=True"),
     (dict(mesh=object(), fuse=False), NotImplementedError, "multi-device"),
-    (dict(quantize_float_bits=8), NotImplementedError, "quantize_float_bits"),
+    # the serving bundle waits for the kernels as torch.library custom ops
+    (dict(export=("bundle", (3, 8, 8))), NotImplementedError, "custom ops"),
 ])
 def test_predictor_loud_errors(kwargs, error, match):
     kwargs = {"batch_size": 8, "device": "cpu", **kwargs}
+    export = kwargs.pop("export", None)
     with pytest.raises(error, match=match):
-        Predictor(_tiny(), **kwargs)
+        pred = Predictor(_tiny(), **kwargs)
+        pred.export(*export)
 
 
 @pytest.mark.parametrize("kwargs", [dict(batch_size=4),
