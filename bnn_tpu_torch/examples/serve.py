@@ -5,6 +5,8 @@
     python -m bnn_tpu_torch.examples.serve                  # random weights
     python -m bnn_tpu_torch.examples.serve --continuous     # a request stream
     python -m bnn_tpu_torch.examples.serve --device cpu     # plain versions
+    python -m bnn_tpu_torch.examples.serve --export PATH    # write a bundle
+    python -m bnn_tpu_torch.examples.serve --load PATH      # serve a bundle
 
 Inside ``Predictor``: deploy (packed / int8 binary layers, folded
 epilogues), BN folds, the classifier head stored as int8
@@ -12,9 +14,11 @@ epilogues), BN folds, the classifier head stored as int8
 kernels, then bf16. ``--ckpt`` takes a directory written by
 ``bnn_tpu_torch.utils.save_checkpoint``. ``--continuous`` sends a Poisson
 stream of single-image requests through ``ContinuousBatcher``, which joins
-them into the predictor's batch. The frozen bundle (``--export`` / ``--load``)
-and multi-device serving (``--data-parallel`` / ``--tensor-parallel``) are
-not ported yet.
+them into the predictor's batch. ``--export`` writes the frozen serving
+bundle (``inference/export.py``: the traced program with its weights) and
+exits; ``--load`` serves such a bundle without building a model, on the
+device type it was exported on (pass the same ``--device``). Multi-device
+serving (``--data-parallel`` / ``--tensor-parallel``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 import bnn_tpu_torch as bt
-from bnn_tpu_torch.inference import ContinuousBatcher, Predictor
+from bnn_tpu_torch.inference import ContinuousBatcher, Predictor, load_serving
 from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer,
                                XNORWeightBinarizer)
 
@@ -67,8 +71,8 @@ def serve_stream(predictor, args, shape) -> None:
           f"p99 {st.latency_percentile(99):.1f} ms")
 
 
-def serve_loop(predictor, args) -> None:
-    shape = (3, args.size, args.size)
+def serve_loop(predictor, args, shape=None) -> None:
+    shape = tuple(shape) if shape is not None else (3, args.size, args.size)
     if args.continuous:
         serve_stream(predictor, args, shape)
         return
@@ -90,6 +94,11 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--size", type=int, default=224)
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="write a serving bundle (program + weights) and exit")
+    ap.add_argument("--load", default=None, metavar="PATH",
+                    help="serve from an exported bundle instead of building "
+                         "a model")
     ap.add_argument("--continuous", action="store_true",
                     help="serve a single-image request stream through the "
                          "continuous batcher instead of batched requests")
@@ -101,6 +110,14 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
+    if args.load:
+        predictor = load_serving(args.load, device=device)
+        print(f"loaded bundle {args.load}: platforms "
+              f"{list(predictor.platforms)}, batch {predictor.batch_size}, "
+              f"state {predictor.state_bytes() / 1e6:.2f} MB")
+        args.batch_size = predictor.batch_size
+        serve_loop(predictor, args, shape=predictor.input_shape)
+        return
     on_card = device.type == "cuda"
     common = dict(batch_size=args.batch_size, fuse=on_card,
                   quantize_float_bits=8, device=device)
@@ -113,6 +130,11 @@ def main(argv=None) -> None:
             else "plain PyTorch versions on the CPU")
     print(f"serving state: {predictor.state_bytes() / 1e6:.2f} MB, "
           f"batch {args.batch_size}, {mode}")
+    if args.export:
+        predictor.export(args.export, input_shape=(3, args.size, args.size))
+        print(f"exported serving bundle to {args.export} "
+              f"(serve it with --load {args.export})")
+        return
     serve_loop(predictor, args)
 
 

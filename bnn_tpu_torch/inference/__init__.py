@@ -3,7 +3,8 @@ from .compress import (QuantizedConv, QuantizedLinear, quantize_float_layers,
                        state_bytes)
 from .deploy import (DeployedConv, DeployedLinear, deploy, model_weight_bytes,
                      packed_weight_bytes, set_gemm_impl)
-from .export import batched_call
+from .export import (ExportedServer, batched_call, export_serving,
+                     load_serving)
 from .megablock import (FusedBlock, FusedBottleneck, FusedDownBlock,
                         default_fuse_predicate, fuse_blocks)
 from .optimize import fold_bn_after, fold_bn_before, optimize_deployed
@@ -26,6 +27,9 @@ __all__ = [
     "deploy",
     "set_gemm_impl",
     "batched_call",
+    "ExportedServer",
+    "export_serving",
+    "load_serving",
     "FusedBlock",
     "FusedBottleneck",
     "FusedDownBlock",

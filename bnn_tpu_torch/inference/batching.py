@@ -78,6 +78,7 @@ class ContinuousBatcher:
     """Queue and dispatcher turning a request stream into batched calls.
 
     ``predictor`` is typically :class:`bnn_tpu_torch.inference.Predictor`
+    or a bundle loaded with :func:`bnn_tpu_torch.inference.load_serving`
     (its ``batch_size`` is the coalescing target), but any ``fn(x) -> y``
     that maps row ``i`` of ``x`` to row ``i`` of ``y`` works (pass
     ``max_batch`` for a plain callable)::

@@ -29,13 +29,10 @@ import torch
 from torch import nn
 
 from ..binarize import set_module_by_name
-from ..kernels.block import basic_block_desc, desc_key, fused_basic_block
-from ..kernels.bottleneck import BottleneckDesc
-from ..kernels.bottleneck import desc_key as bottleneck_key
+from ..kernels.block import fused_basic_block
+from ..kernels.bottleneck import fused_bottleneck
 from ..kernels.packing import unpack_bits
-from ..kernels.strided_block import (_transform_w1, downsample_block_desc,
-                                     fused_downsample_block)
-from ..kernels.strided_block import desc_key as downsample_key
+from ..kernels.strided_block import _transform_w1, fused_downsample_block
 from ..models.layers import BasicBlock, Bottleneck, PreBasicBlock
 from .deploy import DeployedConv
 from .optimize import fold_bn_after, fold_bn_before
@@ -244,11 +241,10 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class FusedBlock(nn.Module):
     """Kernel execution of a deployed stride-1 BasicBlock (``pre=True``: a
-    PreBasicBlock). Holds the original block for larger batches. Its kernel
-    descriptor (:func:`~bnn_tpu_torch.kernels.block.basic_block_desc`, with
-    the K-major weight copies) is made at the first fused forward and runs
-    every later one, until ``.to()``, a cast or an in-place update (such as
-    ``load_state_dict``) changes a tensor it was made from."""
+    PreBasicBlock). Holds the original block for larger batches, and its
+    int8 weights as buffers; the operator keeps the kernel arguments derived
+    from them (K-major copies) until ``.to()``, a cast or an in-place update
+    (such as ``load_state_dict``) changes a tensor they were made from."""
 
     def __init__(self, block, *, max_fused_batch: int = 4, fuse_when=None,
                  pre: bool = False):
@@ -259,7 +255,6 @@ class FusedBlock(nn.Module):
         self.pre = pre
         self.register_buffer("w1", _conv_weight_int8(block.conv1))
         self.register_buffer("w2", _conv_weight_int8(block.conv2))
-        self._desc = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.block
@@ -268,27 +263,22 @@ class FusedBlock(nn.Module):
             return b(x)
         a1, p1 = _act_kind(b.act1)
         a2, p2 = _act_kind(b.act2)
-        rows = dict(prelu1=p1, prelu2=p2, threshold=b.conv1.threshold,
-                    threshold2=b.conv2.threshold)
-        weights = (self.w1, self.w2, b.conv1.scale, b.conv1.add,
-                   b.conv2.scale, b.conv2.add)
-        if self._desc is None or self._desc.key != desc_key(*weights, **rows):
-            self._desc = basic_block_desc(*weights, **rows)
         y = fused_basic_block(
-            _nhwc(x), *weights, act=(a1, a2), pre=self.pre,
-            zero_to_one=_z21(b.conv1), out_dtype=x.dtype, desc=self._desc,
-            **rows)
+            _nhwc(x), self.w1, self.w2, b.conv1.scale, b.conv1.add,
+            b.conv2.scale, b.conv2.add, act=(a1, a2), pre=self.pre,
+            zero_to_one=_z21(b.conv1), out_dtype=x.dtype, prelu1=p1,
+            prelu2=p2, threshold=b.conv1.threshold,
+            threshold2=b.conv2.threshold)
         return y.permute(0, 3, 1, 2)
 
 
 class FusedDownBlock(nn.Module):
     """Kernel execution of a deployed stride-2 block with the BNN
     AvgPool -> 1x1 shortcut. Holds the original block for larger batches and
-    odd H or W. Its kernel descriptor (:func:`~bnn_tpu_torch.kernels.
-    strided_block.downsample_block_desc`, with the K-major weight copies) is
-    made at the first fused forward and runs every later one, until
-    ``.to()``, a cast or an in-place update (such as ``load_state_dict``)
-    changes a tensor it was made from."""
+    odd H or W, and its int8 weights as buffers; the operator keeps the
+    kernel arguments derived from them (K-major copies) until ``.to()``, a
+    cast or an in-place update (such as ``load_state_dict``) changes a
+    tensor they were made from."""
 
     def __init__(self, block, *, max_fused_batch: int = 4, pre: bool = False):
         super().__init__()
@@ -300,7 +290,6 @@ class FusedDownBlock(nn.Module):
         self.register_buffer("w2", _conv_weight_int8(block.conv2))
         self.register_buffer("wd", _conv_weight_int8(block.downsample[1])
                              .reshape(ci, -1).contiguous())
-        self._desc = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.block
@@ -310,26 +299,22 @@ class FusedDownBlock(nn.Module):
         dconv = b.downsample[1]
         a1, p1 = _act_kind(b.act1)
         a2, p2 = _act_kind(b.act2)
-        rows = dict(prelu1=p1, prelu2=p2, threshold1=b.conv1.threshold,
-                    threshold2=b.conv2.threshold, thresholdd=dconv.threshold)
-        weights = (self.w1, self.w2, self.wd, b.conv1.scale, b.conv1.add,
-                   b.conv2.scale, b.conv2.add, dconv.scale, dconv.add)
-        if self._desc is None or self._desc.key != downsample_key(*weights, **rows):
-            self._desc = downsample_block_desc(*weights, **rows)
         y = fused_downsample_block(
-            _nhwc(x), *weights, act=(a1, a2), pre=self.pre,
-            zero_to_one=_z21(b.conv1), out_dtype=x.dtype, desc=self._desc,
-            **rows)
+            _nhwc(x), self.w1, self.w2, self.wd, b.conv1.scale, b.conv1.add,
+            b.conv2.scale, b.conv2.add, dconv.scale, dconv.add, act=(a1, a2),
+            pre=self.pre, zero_to_one=_z21(b.conv1), out_dtype=x.dtype,
+            prelu1=p1, prelu2=p2, threshold1=b.conv1.threshold,
+            threshold2=b.conv2.threshold, thresholdd=dconv.threshold)
         return y.permute(0, 3, 1, 2)
 
 
 class FusedBottleneck(nn.Module):
     """Kernel execution of a deployed stride-1 Bottleneck, with an identity
     or a stride-1 1x1 projection shortcut. Holds the original block for
-    larger batches. Its :class:`~bnn_tpu_torch.kernels.bottleneck.
-    BottleneckDesc` is made at the first fused forward and runs every later
-    one, until ``.to()``, a cast or an in-place update (such as
-    ``load_state_dict``) changes a tensor it was made from."""
+    larger batches, and its int8 weights as buffers; the operator keeps the
+    kernel arguments derived from them (a :class:`~bnn_tpu_torch.kernels.
+    bottleneck.KeptBottleneck`) until ``.to()``, a cast or an in-place update
+    (such as ``load_state_dict``) changes a tensor they were made from."""
 
     def __init__(self, block, *, max_fused_batch: int = 4):
         super().__init__()
@@ -344,7 +329,6 @@ class FusedBottleneck(nn.Module):
                              _conv_weight_int8(block.downsample[1]).reshape(c, -1))
         self._acts = tuple(_act_kind(a)[0] for a in (block.act1, block.act2,
                                                      block.act3))
-        self._desc = None
 
     def _rows(self) -> dict:
         b = self.block
@@ -364,10 +348,9 @@ class FusedBottleneck(nn.Module):
         b = self.block
         if x.shape[0] > self.max_fused_batch:
             return b(x)
-        weights, rows = (self.w1, self.w2, self.w3, self.wd), self._rows()
-        if self._desc is None or self._desc.key != bottleneck_key(*weights, rows):
-            self._desc = BottleneckDesc(self.w1.shape[0], *weights, rows)
-        y = self._desc(_nhwc(x), self._acts, _z21(b.conv1), x.dtype)
+        y = fused_bottleneck(_nhwc(x), self.w1, self.w2, self.w3, wd=self.wd,
+                             act=self._acts, zero_to_one=_z21(b.conv1),
+                             out_dtype=x.dtype, **self._rows())
         return y.permute(0, 3, 1, 2)
 
 

@@ -25,9 +25,10 @@ deployed convs, as in the JAX package.
 ``zero_to_one`` dense layer and pointwise conv to the popcount GEMM after the
 BN folds (``popcount_layers`` names them), as the JAX ``Predictor`` does.
 
-Not ported yet, and raising ``NotImplementedError``: multi-device serving
-(``mesh=``, ``tensor_parallel=``) and the frozen serving bundle
-(:meth:`Predictor.export`).
+:meth:`Predictor.export` writes the frozen serving bundle
+(``inference/export.py``), which ``load_serving`` serves without building a
+model. Not ported yet, and raising ``NotImplementedError``: multi-device
+serving (``mesh=``, ``tensor_parallel=``).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from ..utils.checkpoint import load_checkpoint, restore_into
 from ..utils.precision import cast_floats
 from .compress import quantize_float_layers, state_bytes
 from .deploy import deploy, set_gemm_impl
-from .export import batched_call
+from .export import batched_call, export_serving
 from .megablock import fuse_blocks
 from .optimize import optimize_deployed
 from .stages import fuse_head, fuse_stages
@@ -119,13 +120,12 @@ class Predictor:
         self.device = device
 
     def export(self, path: str, input_shape, *, platforms=None) -> None:
-        """The frozen serving bundle (``bnn_tpu/inference/export.py``) is not
-        ported yet: it needs every kernel wrapper registered as a
-        ``torch.library`` custom op first (the next slice of the port)."""
-        raise NotImplementedError(
-            "Predictor.export (the frozen serving bundle) is not ported yet: "
-            "it waits for the kernels as torch.library custom ops, the next "
-            "slice of the port")
+        """Freeze this predictor into a serving bundle at ``path``
+        (:func:`~bnn_tpu_torch.inference.export.export_serving`;
+        ``input_shape`` per example, NCHW, e.g. ``(3, 224, 224)``); serve it
+        with :func:`~bnn_tpu_torch.inference.export.load_serving`. The
+        predictor serves as before."""
+        export_serving(self, path, input_shape, platforms=platforms)
 
     def served_model(self) -> nn.Module:
         """The deployed model being served."""

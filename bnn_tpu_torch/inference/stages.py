@@ -24,7 +24,8 @@ to the two launches it replaces.
 Each :class:`FusedStage` keeps the original Sequential for batches above its
 cap and odd H or W; :func:`~bnn_tpu_torch.inference.megablock.fuse_blocks`,
 applied afterwards, still wraps the blocks inside it. Its kernel-layout
-arrays are buffers made once, so ``cast_floats`` rounds the epilogue rows,
+arrays are buffers made once (the operator keeps the kernel arguments
+derived from them), so ``cast_floats`` rounds the epilogue rows,
 thresholds, slopes and fc weights as the JAX package's ``cast_floats``
 rounds them; the kernel computes in f32 on the rounded values.
 """
@@ -96,7 +97,6 @@ class FusedStage(nn.Module):
         bps = [(_down_params if kind == "down" and i == 0 else _basic_params)(b)
                for i, b in enumerate(stage)]
         self._metas = [(bp.kind, bp.ci, bp.co) for bp in bps]
-        self._bps = None
         self._n_arrays = []
         for i, bp in enumerate(bps):
             arrays = bp.arrays()
@@ -121,17 +121,11 @@ class FusedStage(nn.Module):
         self.bfc = fc.bias.detach().clone() if fc.bias is not None else None
 
     def _params(self):
-        """The blocks' parameters over the current buffers, made once: their
-        kernel descriptors then keep their pointers from call to call."""
-        if self._bps is None:
-            self._bps = [BlockParams.from_arrays(
-                meta, [getattr(self, f"p{i}_{j}") for j in range(k)])
-                for i, (meta, k) in enumerate(zip(self._metas, self._n_arrays))]
-        return self._bps
-
-    def _apply(self, fn, *args, **kwargs):
-        self._bps = None  # .to() and casts replace the buffers
-        return super()._apply(fn, *args, **kwargs)
+        """The blocks' parameters over the current buffers (the operator
+        keeps their kernel arguments per buffers)."""
+        return [BlockParams.from_arrays(
+            meta, [getattr(self, f"p{i}_{j}") for j in range(k)])
+            for i, (meta, k) in enumerate(zip(self._metas, self._n_arrays))]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
@@ -260,7 +254,7 @@ class FusedEntry(nn.Module):
     and W % 8 == 0; otherwise ``stage(stem(x))``, the held
     :class:`~bnn_tpu_torch.inference.stem.FusedStem` and :class:`FusedStage`
     (same arrays), runs. The kernel reads the stem's descriptor that the
-    held ``FusedStem`` keeps, and rounds the stem's output to the IO dtype
+    held ``FusedStem`` holds, and rounds the stem's output to the IO dtype
     where the split pipeline's kernel boundary rounds it, so both give the
     same bits.
     """
@@ -274,11 +268,10 @@ class FusedEntry(nn.Module):
         n, _, h, w = x.shape
         if n > self.stage.max_fused_batch or h % 16 or w % 8:
             return self.stage(self.stem(x))
-        desc = self.stem.desc()
         y = fused_stem_chain(
-            x.permute(0, 2, 3, 1).contiguous(), desc.w, desc.bias,
+            x.permute(0, 2, 3, 1).contiguous(), *self.stem.weights(),
             self.stage._params(), act=self.stage._acts, pre=self.stage.pre,
-            zero_to_one=self.stage._z21, out_dtype=x.dtype, stem=desc)
+            zero_to_one=self.stage._z21, out_dtype=x.dtype)
         return y.permute(0, 3, 1, 2)
 
 

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..binarize import set_module_by_name
-from ..kernels.stem import StemDesc, stem_key
+from ..kernels.stem import fused_stem
 from ..nn import MaxPool2d
 
 __all__ = ["SpaceToDepthConv", "space_to_depth_stem", "FusedStem", "fuse_stem"]
@@ -128,9 +128,9 @@ def _is_basic_stem_conv(inner) -> bool:
 class FusedStem(nn.Module):
     """One-kernel execution of the basic ResNet stem. Holds the original
     conv (a :class:`SpaceToDepthConv` wrapper is accepted and kept for the
-    fallback path) and the kernel's :class:`~bnn_tpu_torch.kernels.stem.
-    StemDesc` of its weights, made at the first fused forward and made again
-    when the weight or bias changes (in place, cast or moved)."""
+    fallback path) and calls :func:`~bnn_tpu_torch.kernels.stem.fused_stem`
+    on its weight (as HWIO) and bias; the operator keeps the kernel's layout
+    of them per weights, so this module keeps nothing but the conv."""
 
     def __init__(self, conv, *, max_batch: int = 8):
         super().__init__()
@@ -144,21 +144,18 @@ class FusedStem(nn.Module):
                 f"groups={inner.groups} in_channels={inner.in_channels}")
         self.conv = conv
         self.max_batch = max_batch
-        self._desc = None
 
-    def desc(self) -> StemDesc:
-        """The kernel's descriptor of the conv's current weight and bias."""
+    def weights(self) -> tuple:
+        """``(w, bias)``: the conv's weight as the kernel's ``(7, 7, C, O)``
+        HWIO view, and its bias."""
         inner = _inner(self.conv)
-        w, b = inner.weight.permute(2, 3, 1, 0), inner.bias
-        if self._desc is None or self._desc.key != stem_key(w, b):
-            self._desc = StemDesc(w, b)
-        return self._desc
+        return inner.weight.permute(2, 3, 1, 0), inner.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
         if n > self.max_batch or h % 8 or w % 4:
             return F.max_pool2d(torch.relu(self.conv(x)), 3, 2, 1)
-        y = self.desc()(x.permute(0, 2, 3, 1).contiguous())
+        y = fused_stem(x.permute(0, 2, 3, 1).contiguous(), *self.weights())
         return y.permute(0, 3, 1, 2)
 
 

@@ -12,6 +12,7 @@ from .packing import pack_bits, packed_words, unpack_bits
 from .stem import StemDesc, fused_stem, fused_stem_reference
 from .strided_block import (fused_downsample_block,
                             fused_downsample_block_reference)
+from . import ops  # registers the operators the wrappers above call
 
 __all__ = ["binary_gemm", "binary_gemm_reference", "pack_bits",
            "packed_words", "unpack_bits", "fused_stem",

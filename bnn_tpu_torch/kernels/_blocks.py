@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence
+import threading
+import weakref
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +42,64 @@ def tensor_key(values) -> tuple:
     its data pointer, version (in-place updates), shape, strides, dtype and
     device; any other value as given. The descriptor holds the tensors, so
     a pointer it recorded is not reused while it lives."""
-    return tuple((v.data_ptr(), v._version, tuple(v.shape), v.stride(), v.dtype,
+    return tuple((v.data_ptr(), v._version, v.shape, v.stride(), v.dtype,
                   v.device) if isinstance(v, torch.Tensor) else v for v in values)
+
+
+class Kept:
+    """Kernel arguments derived from weights (K-major copies, pointer
+    arrays, converted epilogue rows), kept per set of source tensors so that
+    a launch does not derive them again. The key is :func:`tensor_key` of
+    the sources and a few other values (such as the parameter dtype), so an
+    in-place update (a new version), a cast or a move (new tensors) makes a
+    new entry. A kept value never holds its sources, only what was derived
+    from them, and it lives no longer than they do: a weakref finalizer on
+    each source's storage drops the entry when the first of them is freed
+    (so a pointer in a key is never reused while its entry lives), and a new
+    version of the same tensors replaces the entry of the old one."""
+
+    def __init__(self):
+        self._values = {}   # tensor_key -> value
+        self._latest = {}   # the key without versions -> its current key
+        # reentrant: freeing a value, or a collection while the lock is
+        # held, can run a finalizer that drops another entry
+        self._lock = threading.RLock()
+
+    def get(self, sources, extra, build):
+        """The value kept for ``sources`` and ``extra``, made by ``build()``
+        where there is none."""
+        key = tensor_key(sources) + tuple(extra)
+        value = self._values.get(key)
+        if value is not None:
+            return value
+        value = build()
+        ident = tuple(k[:1] + k[2:] if isinstance(v, torch.Tensor) else k
+                      for k, v in zip(key, sources)) + tuple(extra)
+        with self._lock:
+            old = self._latest.get(ident)
+            if old is None:
+                for v in sources:
+                    if isinstance(v, torch.Tensor):
+                        weakref.finalize(v.untyped_storage(), self._drop,
+                                         ident).atexit = False
+            stale = self._values.pop(old, None) if old is not None else None
+            self._latest[ident] = key
+            self._values[key] = value
+        del stale  # freed outside the lock
+        return value
+
+    def _drop(self, ident) -> None:
+        with self._lock:
+            key = self._latest.pop(ident, None)
+            value = self._values.pop(key, None) if key is not None else None
+        del value
+
+    def __len__(self) -> int:
+        return len(self._values)
+
+
+# what the kernel operators' CUDA implementations keep (kernels/ops.py)
+KEPT = Kept()
 
 
 def launch_plan(name: str, args, gemms) -> dict:
@@ -80,6 +138,14 @@ def sign(v: torch.Tensor, t, zero_to_one: bool) -> torch.Tensor:
     if zero_to_one:
         return torch.where(v >= t, 1.0, -1.0)
     return (v > t).to(torch.float32) - (v < t).to(torch.float32)
+
+
+def as_tensor_row(v, device) -> Optional[torch.Tensor]:
+    """An epilogue row as an operator takes it: None, a tensor, or a number
+    as a one-value f32 tensor on ``device``."""
+    if v is None or isinstance(v, torch.Tensor):
+        return v
+    return torch.tensor([float(v)], dtype=torch.float32, device=device)
 
 
 def row(v, default: float, width: int, device) -> torch.Tensor:
@@ -157,12 +223,16 @@ class Desc:
     ``(9Co, Co)``, wd ``(Ci, Co)``) and the epilogue rows of :data:`ROWS`
     (None, numbers, tensors, or ``(matrix, row index)`` pairs)."""
 
-    def __init__(self, down: bool, ci: int, co: int, w1, w2, wd, rows):
+    def __init__(self, down: bool, ci: int, co: int, w1, w2, wd, rows, *,
+                 derived=()):
         self.down, self.ci, self.co = bool(down), ci, co
         self.w1, self.w2, self.wd = w1, w2, wd
         self.rows = list(rows)
         floats = [v[0] if isinstance(v, tuple) else v for v in self.rows]
         self.float_dtypes = {t.dtype for t in floats if isinstance(t, torch.Tensor)}
+        # tensors made from the caller's for this descriptor that its
+        # pointers read (a down block's s2d conv1): kept with its arguments
+        self.derived = list(derived)
         self._flat = {}
         self._kmajor = {}
 
@@ -171,9 +241,8 @@ class Desc:
         on ``device`` (the shortcut None for a basic block): K in the (dy, dx,
         c) tap order, a down block's conv1 as its 9*C_in taps. The tensor-core
         tile reads them as 16-byte rows. Derived from the weights once per
-        device and kept, like :meth:`flat`'s arrays: a holder that may see
-        the weights change compares the descriptor's ``key``
-        (:func:`tensor_key`) and builds a new one."""
+        device and kept by the descriptor, like :meth:`flat`'s arrays; the
+        operators keep them across calls per weights (:func:`kept_blocks`)."""
         device = torch.device(device)
         if device not in self._kmajor:
             w1 = (untransform_w1(self.w1, self.ci).reshape(9 * self.ci, self.co)
@@ -299,14 +368,53 @@ def _row(name, r, v, width, dtype, device, keep):
     return v.data_ptr(), v.numel()
 
 
-def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
+class KeptBlocks(NamedTuple):
+    """A chain of blocks' part of a kernel's flat arrays (:func:`kept_blocks`):
+    ``BLOCK_PTRS`` pointers and ``BLOCK_INTS`` ints a block, the tensors
+    derived from the sources that they point into (K-major copies, converted
+    copies, a down block's s2d conv1), each block's ``(down, ci, co)`` and
+    the rows' dtype."""
+    ptrs: tuple
+    ints: tuple
+    derived: list
+    metas: tuple
+    dtype: torch.dtype
+
+
+def kept_blocks(name: str, sources, device, descs, floats=()) -> KeptBlocks:
+    """:class:`KeptBlocks` of the blocks that ``descs()`` describes, made
+    (and checked) once per ``sources``, the tensors the blocks were built
+    from, and kept while they live unchanged (:data:`KEPT`). The rows are
+    read in bf16 where every float tensor among the blocks' rows and
+    ``floats`` (a head's weights) is bf16, else in f32. Every block kernel
+    takes the same arrays."""
+    def build():
+        descs_ = descs()
+        dtypes = set().union(*(d.float_dtypes for d in descs_))
+        dtypes |= {t.dtype for t in floats if t is not None}
+        dtype = torch.bfloat16 if dtypes == {torch.bfloat16} else torch.float32
+        ptrs, ints, derived, metas = [], [], [], []
+        for d in descs_:
+            p, i, copies = d.flat(name, dtype, device)
+            ptrs += p
+            ints += i
+            derived += list(copies) + d.derived
+            derived += [t for t in d.kmajor(device) if t is not None]
+            metas.append((d.down, d.ci, d.co))
+        return KeptBlocks(tuple(ptrs), tuple(ints), derived, tuple(metas), dtype)
+
+    extra = ("blocks", device) + tuple(None if t is None else t.dtype for t in floats)
+    return KEPT.get(sources, extra, build)
+
+
+def launch(name: str, x: torch.Tensor, blocks: KeptBlocks,
            out: torch.Tensor, *, acts, pre: bool, zero_to_one: bool,
            wfc: Optional[torch.Tensor] = None,
            bfc: Optional[torch.Tensor] = None, stem=None) -> None:
     """One launch of kernel ``name`` on CUDA tensors; raises on what the
     kernel does not take and on a failed launch. ``stem``, for
-    fused_stem_chain: ``(raw NHWC input, its StemDesc)``, whose pooled output
-    the kernel writes into ``x``."""
+    fused_stem_chain: ``(raw NHWC input, its StemWeights)``, whose pooled
+    output the kernel writes into ``x``."""
     dev = x.device
     stem_tensors = [] if stem is None else [stem[0], stem[1].wk, stem[1].bias_f32]
     _check_device(name, dev, [out, wfc, bfc] + stem_tensors)
@@ -315,12 +423,11 @@ def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
                         f"and {out.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous NHWC x")
-    if not 1 <= len(descs) <= MAX_BLOCKS:
-        raise ValueError(f"{name} runs 1 to {MAX_BLOCKS} blocks, got {len(descs)}")
-    dtypes = set().union(*(d.float_dtypes for d in descs))
-    dtypes |= {t.dtype for t in (wfc, bfc) if t is not None}
-    prm_dtype = torch.bfloat16 if dtypes == {torch.bfloat16} else torch.float32
-    keep, ptrs, ints = [], [], []
+    metas = blocks.metas
+    if not 1 <= len(metas) <= MAX_BLOCKS:
+        raise ValueError(f"{name} runs 1 to {MAX_BLOCKS} blocks, got {len(metas)}")
+    prm_dtype = blocks.dtype
+    ptrs, ints, keep = list(blocks.ptrs), list(blocks.ints), [blocks]
 
     def ptr(t):
         keep.append(t)
@@ -328,30 +435,26 @@ def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
 
     n, h, w, _ = x.shape
     xs_n = out_n = ds_n = 0  # largest block input, block output, shortcut
-    for d in descs:
-        p, i, copies = d.flat(name, prm_dtype, dev)
-        ptrs += p
-        ints += i
-        keep += copies
-        xs_n = max(xs_n, n * h * w * d.ci)
-        if d.down:
+    for down, ci, co in metas:
+        xs_n = max(xs_n, n * h * w * ci)
+        if down:
             if h % 2 or w % 2:
                 raise ValueError(f"{name}: a stride-2 block needs even H and W, "
                                  f"got {h}x{w}")
             h, w = h // 2, w // 2
-            ds_n = n * h * w * d.ci
-        out_n = max(out_n, n * h * w * d.co)
+            ds_n = n * h * w * ci
+        out_n = max(out_n, n * h * w * co)
     classes = 0
     if wfc is not None:
         classes = wfc.shape[1]
-        if tuple(wfc.shape) != (descs[-1].co, classes):
+        if tuple(wfc.shape) != (metas[-1][2], classes):
             raise ValueError(f"{name}: wfc {tuple(wfc.shape)}, expected "
-                             f"({descs[-1].co}, classes)")
+                             f"({metas[-1][2]}, classes)")
         if bfc is not None and bfc.numel() != classes:
             raise ValueError(f"{name}: bfc has {bfc.numel()} values, expected {classes}")
     buf, act0, act1, xs, hs, ds, acc, accd, pooled = _carve(
         dev, [4 * out_n, 4 * out_n, xs_n, out_n, ds_n, 4 * out_n, 4 * out_n,
-              4 * n * descs[-1].co])
+              4 * n * metas[-1][2]])
     keep.append(buf)
     ptrs += [x.data_ptr(), out.data_ptr(), act0, act1, xs, hs, ds, acc, accd,
              ptr(wfc.to(prm_dtype).contiguous()) if wfc is not None else 0,
@@ -367,7 +470,7 @@ def launch(name: str, x: torch.Tensor, descs: Sequence[Desc],
         ptrs += [sx.data_ptr(), sd.wk.data_ptr(), sd.bias_f32.data_ptr()]
         ints += [sx.shape[1], sx.shape[2], sx.shape[3],
                  int(sx.dtype == torch.bfloat16), sd.w_pieces, sd.o_pad]
-    err = _entry(name)(len(descs), (ctypes.c_void_p * len(ptrs))(*ptrs),
+    err = _entry(name)(len(metas), (ctypes.c_void_p * len(ptrs))(*ptrs),
                        (ctypes.c_int * len(ints))(*ints),
                        torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -6,8 +6,10 @@
     y2  = conv3x3(sign(y1 - threshold2), w2) * scale2 + add2
     out = act2(y2 + x)            (pre=True: act2(y2) + x)
 
-:func:`fused_basic_block` launches the hand-written Hopper kernel
-``bnn_tpu_torch/csrc/fused_basic_block.cu`` for CUDA tensors and takes
+:func:`fused_basic_block` calls the ``bnn_tpu_torch::fused_basic_block``
+operator (``kernels/ops.py``), which launches the hand-written Hopper kernel
+``bnn_tpu_torch/csrc/fused_basic_block.cu`` for CUDA tensors
+(:func:`fused_basic_block_cuda`) and takes
 :func:`fused_basic_block_reference`, its plain version, only for CPU
 tensors. Both compute the same f32 values bit for bit: the convolutions are
 exact integer sums, and the zero padding is added after the sign, so padded
@@ -17,8 +19,9 @@ Bound on an H100 at ResNet-34 layer4.1's shape (1, 7, 7, 512): 4.7 MB of
 int8 weights against 0.46 G int8 operations, so bytes bound it (1.4 us).
 The kernel keeps both signed maps in L2-resident int8 scratch and runs the
 block as one cooperative launch whose convs run on the int8 tensor cores
-over K-major weight copies; :func:`basic_block_desc` makes the descriptor
-that keeps them, and :func:`fused_basic_block_plan` reports the launch.
+over K-major weight copies, made once per weights and kept
+(``_blocks.KEPT``); :func:`basic_block_desc` makes a descriptor of one
+block, and :func:`fused_basic_block_plan` reports the launch.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch
 from . import _blocks as B
 
 __all__ = ["basic_block_desc", "desc_key", "fused_basic_block",
-           "fused_basic_block_plan", "fused_basic_block_reference"]
+           "fused_basic_block_cuda", "fused_basic_block_plan", "kept_args",
+           "fused_basic_block_reference"]
 
 
 def _check(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> int:
@@ -58,12 +62,11 @@ def desc_key(w1, w2, scale1, add1, scale2, add2, *, prelu1=None,
 
 def basic_block_desc(w1, w2, scale1, add1, scale2, add2, *, prelu1=None,
                      prelu2=None, threshold=None, threshold2=None) -> B.Desc:
-    """The kernel's descriptor of one block, for :func:`fused_basic_block`'s
-    ``desc``: a caller that runs the block again keeps it, and with it the
-    K-major weight copies and flat arrays that it makes once per device.
-    Its ``key`` is :func:`desc_key` of the tensors it was built from: a call
-    whose weights or rows differ, or were changed in place since, refuses
-    it, and a holder rebuilds it."""
+    """The kernel's descriptor of one block (the one the operator's CUDA
+    implementation builds, with its K-major weight copies and flat arrays),
+    for :func:`fused_basic_block`'s ``desc``. Its ``key`` is :func:`desc_key`
+    of the tensors it was built from: a call whose weights or rows differ,
+    or were changed in place since, refuses it."""
     c = w1.shape[-1]
     rows = dict(prelu1=prelu1, prelu2=prelu2, threshold=threshold,
                 threshold2=threshold2)
@@ -103,30 +106,49 @@ def fused_basic_block(
         pre: pre-activation order, ``act2(y2) + x``.
         zero_to_one: sign(0) convention of both signs (False: sign(0) = 0).
         out_dtype: default x's dtype.
-        desc: :func:`basic_block_desc` of these weights and rows where the
-            caller keeps one (else one is made per call; a descriptor of
-            other tensors, or of tensors changed in place since, is refused).
+        desc: :func:`basic_block_desc` of these weights and rows, checked:
+            a descriptor of other tensors, or of tensors changed in place
+            since, is refused. The operator keeps its own kernel arguments
+            per weights and rows (:func:`fused_basic_block_cuda`).
     """
-    c = _check(x, w1, w2)
-    acts = B.split_act(act)
-    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check(x, w1, w2)
+    act1, act2 = B.split_act(act)
     if desc is not None and desc.key != desc_key(
             w1, w2, scale1, add1, scale2, add2, prelu1=prelu1, prelu2=prelu2,
             threshold=threshold, threshold2=threshold2):
         raise ValueError("fused_basic_block's descriptor was built from other "
                          "weights or rows than the call's, or from these "
                          "before an in-place change")
-    if x.device.type == "cpu":
-        return fused_basic_block_reference(
-            x, w1, w2, scale1, add1, scale2, add2, act=acts, prelu1=prelu1,
-            prelu2=prelu2, threshold=threshold, threshold2=threshold2, pre=pre,
-            zero_to_one=zero_to_one, out_dtype=out_dtype)
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    if desc is None:
-        desc = basic_block_desc(w1, w2, scale1, add1, scale2, add2,
-                                prelu1=prelu1, prelu2=prelu2,
-                                threshold=threshold, threshold2=threshold2)
-    B.launch("fused_basic_block", x, [desc], out, acts=acts, pre=pre,
+    rows = [B.as_tensor_row(v, x.device) for v in (
+        scale1, add1, scale2, add2, prelu1, prelu2, threshold, threshold2)]
+    return torch.ops.bnn_tpu_torch.fused_basic_block(
+        x, w1, w2, *rows, act1, act2, pre, zero_to_one, out_dtype)
+
+
+def kept_args(w1, w2, scale1, add1, scale2, add2, prelu1, prelu2, threshold,
+              threshold2, device) -> B.KeptBlocks:
+    """The block's kernel arguments on ``device`` (``_blocks.kept_blocks``:
+    K-major copies, flat arrays), made once per weights and rows and kept
+    while they live unchanged."""
+    c = w1.shape[-1]
+    rows = _rows(scale1, add1, scale2, add2, prelu1, prelu2, threshold, threshold2)
+    return B.kept_blocks(
+        "fused_basic_block", [w1, w2, *rows], device,
+        lambda: [B.Desc(False, c, c, w1.reshape(9 * c, c), w2.reshape(9 * c, c),
+                        None, rows)])
+
+
+def fused_basic_block_cuda(x, w1, w2, scale1, add1, scale2, add2, prelu1,
+                           prelu2, threshold, threshold2, act1, act2, pre,
+                           zero_to_one, out_dtype) -> torch.Tensor:
+    """The ``fused_basic_block`` operator's CUDA implementation: one launch,
+    with the kernel arguments kept per weights and rows (``_blocks.KEPT``)."""
+    _check(x, w1, w2)
+    out = torch.empty(x.shape, dtype=x.dtype if out_dtype is None else out_dtype,
+                      device=x.device)
+    blocks = kept_args(w1, w2, scale1, add1, scale2, add2, prelu1, prelu2,
+                       threshold, threshold2, x.device)
+    B.launch("fused_basic_block", x, blocks, out, acts=(act1, act2), pre=pre,
              zero_to_one=zero_to_one)
     fused_basic_block.launches += 1
     return out

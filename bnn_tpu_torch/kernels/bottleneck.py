@@ -7,9 +7,11 @@
     r   = x, or conv1x1(sign(x - thresholdd), wd) * scaled + addd
     out = act3(y3 + r)
 
-:func:`fused_bottleneck` launches the hand-written Hopper kernel
-``bnn_tpu_torch/csrc/fused_bottleneck.cu`` for CUDA tensors and takes
-:func:`fused_bottleneck_reference`, its plain version, only for CPU tensors.
+:func:`fused_bottleneck` calls the ``bnn_tpu_torch::fused_bottleneck``
+operator (``kernels/ops.py``), which launches the hand-written Hopper kernel
+``bnn_tpu_torch/csrc/fused_bottleneck.cu`` for CUDA tensors
+(:func:`fused_bottleneck_cuda`) and takes :func:`fused_bottleneck_reference`,
+its plain version, only for CPU tensors.
 Both compute the same f32 values bit for bit: the convolutions are exact
 integer sums, the 3x3's zero padding is added after the sign, and every f32
 multiply and add rounds on its own.
@@ -18,23 +20,23 @@ Bound on an H100 at batch 1: 69.6 KB of int8 weights per layer1 block and
 4.46 MB per layer4 block; with the bf16 activations, bytes bound each call
 to 0.6-1.5 us. The kernel is one cooperative launch whose phases are
 split by grid barriers; its four GEMMs run ``bnn_common.cuh``'s int8
-tensor-core tile over K-major weight copies that :class:`BottleneckDesc`
-keeps per device (:meth:`BottleneckDesc.kmajor`), and
+tensor-core tile over K-major weight copies (:meth:`BottleneckDesc.kmajor`),
+made once per weights and kept (``_blocks.KEPT``), and
 :meth:`BottleneckDesc.plan` reports how the kernel splits them on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _blocks as B
 from ._build import load
 
-__all__ = ["BottleneckDesc", "desc_key", "fused_bottleneck",
-           "fused_bottleneck_reference"]
+__all__ = ["BottleneckDesc", "KeptBottleneck", "desc_key", "fused_bottleneck",
+           "fused_bottleneck_cuda", "fused_bottleneck_reference", "kept_args"]
 
 _NAME = "fused_bottleneck"
 # epilogue rows in csrc/fused_bottleneck.cu's order; the kernel gives a
@@ -85,14 +87,13 @@ class BottleneckDesc:
     """One Bottleneck as the kernel takes it: int8 weights ``w1 (C, width)``,
     ``w2 (9 * width, width)``, ``w3 (width, C_out)``, ``wd (C, C_out)`` or
     None, and the epilogue rows ``{name: None, a number or a tensor}`` (see
-    :data:`ROWS`). Calling it runs the block: the kernel on CUDA tensors,
-    the plain version on CPU tensors. Its kernel arguments (the K-major
-    weight copies among them) are built at the first launch for each dtype
-    and device, unless a tensor had to be converted, so a caller that keeps
-    it (``FusedBottleneck``) does not rebuild them per call. Its ``key`` is
-    :func:`desc_key` of the tensors it was built from: a holder whose
-    tensors may be replaced or changed in place compares it and builds a new
-    descriptor where it differs."""
+    :data:`ROWS`). Calling it runs the block through the
+    ``fused_bottleneck`` operator: the kernel on CUDA tensors, the plain
+    version on CPU tensors. The operator's CUDA implementation builds one at
+    the first launch on given weights and rows and keeps what the launch
+    reads (:meth:`kept`: the K-major weight copies among them) while they
+    live unchanged (``_blocks.KEPT``). Its ``key`` is :func:`desc_key` of
+    the tensors it was built from."""
 
     def __init__(self, c: int, w1, w2, w3, wd=None, rows=None):
         rows = dict(rows or {})
@@ -105,22 +106,19 @@ class BottleneckDesc:
         self.width, self.cout, w1, w2, w3, wd = _weights(c, w1, w2, w3, wd)
         self.w1, self.w3, self.wd = w1, w3, wd
         self.w2 = w2.reshape(9 * self.width, self.width)
-        self.float_dtypes = {v.dtype for v in self.rows if isinstance(v, torch.Tensor)}
         self._flat = {}
         self._kmajor = {}
 
     def __call__(self, x: torch.Tensor, act="relu", zero_to_one: bool = True,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The block on ``x`` through the ``fused_bottleneck`` operator: the
+        kernel on CUDA tensors, the plain version on CPU tensors."""
         if x.ndim != 4:
             raise ValueError(f"expected NHWC x, got {tuple(x.shape)}")
-        acts = split_act3(act)
-        out_dtype = x.dtype if out_dtype is None else out_dtype
-        if x.device.type == "cpu":
-            return self.reference(x, acts, zero_to_one, out_dtype)
-        out = torch.empty(x.shape[:3] + (self.cout,), dtype=out_dtype, device=x.device)
-        self._launch(x, out, acts, zero_to_one)
-        fused_bottleneck.launches += 1
-        return out
+        return torch.ops.bnn_tpu_torch.fused_bottleneck(
+            x, self.w1, self.w2.reshape(3, 3, self.width, self.width), self.w3,
+            self.wd, [B.as_tensor_row(v, x.device) for v in self.rows],
+            *split_act3(act), zero_to_one, out_dtype)
 
     def reference(self, x: torch.Tensor, act="relu", zero_to_one: bool = True,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -168,54 +166,29 @@ class BottleneckDesc:
             self._flat[key] = flat
         return flat
 
+    def kept(self, dtype, device) -> "KeptBottleneck":
+        """What a launch reads besides x, its output and scratch: the flat
+        arrays of the weights and rows (the rows in ``dtype``) and the
+        tensors derived here that they point into (K-major and converted
+        copies), never the weights and rows themselves, so that
+        ``_blocks.KEPT`` can keep it."""
+        ptrs, lens, copies = self._flat_args(dtype, device)
+        derived = list(copies) + [t for t in self.kmajor(device) if t is not None]
+        return KeptBottleneck(tuple(ptrs), tuple(lens), derived, dtype, self.c,
+                              self.width, self.cout, self.wd is not None)
+
     def _ints(self, shape) -> list:
         """The first ints of the flat array for an ``(N, H, W, C)`` input:
         n, h, w, c, width, cout, projection; checked."""
-        n, h, w, c = shape
-        if c != self.c:
-            raise ValueError(f"{_NAME}: x has {c} channels, the weights take {self.c}")
-        if n * h * w * max(c, self.width, self.cout) >= 2 ** 31:
-            raise ValueError(f"{_NAME} indexes its maps in 32 bits: {n * h * w} "
-                             f"pixels of up to {max(c, self.width, self.cout)} "
-                             "channels are too many")
-        return [n, h, w, c, self.width, self.cout, int(self.wd is not None)]
+        return _ints(shape, self.c, self.width, self.cout, self.wd is not None)
 
     def _args(self, x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool):
         """``(pointers, ints, tensors to keep until the launch)``: the
         kernel's flat arrays (x, out, the four weights, their K-major copies,
         the rows, seven scratch buffers; 14 ints, then the row lengths);
         raises on what the kernel does not take."""
-        dev = x.device
-        B._check_device(_NAME, dev, [out])
-        if x.dtype not in B._FLOATS or out.dtype not in B._FLOATS:
-            raise TypeError(f"{_NAME} takes f32/bf16 x and output, got {x.dtype} "
-                            f"and {out.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{_NAME} needs a contiguous NHWC x")
-        prm = torch.bfloat16 if self.float_dtypes == {torch.bfloat16} else torch.float32
-        wptrs, lens, keep = self._flat_args(prm, dev)
-        ints = self._ints(x.shape)
-        m, c, proj = x.shape[0] * x.shape[1] * x.shape[2], self.c, self.wd is not None
-        # xs, ds, hs1, hs2 (int8), then the int32 sums of conv1/conv2, conv3
-        # and the projection
-        scratch = B._carve(dev, [
-            m * c, m * c if proj else 0, m * self.width, m * self.width,
-            4 * m * self.width, 4 * m * self.cout, 4 * m * self.cout if proj else 0])
-        ptrs = [x.data_ptr(), out.data_ptr()] + wptrs + scratch[1:]
-        ints += [B.ACTS.index(a) for a in acts]
-        ints += [int(zero_to_one), int(x.dtype == torch.bfloat16),
-                 int(out.dtype == torch.bfloat16), int(prm == torch.bfloat16)] + lens
-        return ptrs, ints, keep + [scratch[0]]
-
-    def _launch(self, x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool):
-        """One launch on CUDA tensors; raises on what the kernel does not
-        take and on a failed launch."""
-        ptrs, ints, keep = self._args(x, out, acts, zero_to_one)
-        err = _entry("bnn_fused_bottleneck")(
-            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"{_NAME} kernel launch failed: CUDA error {err}")
+        return _launch_args(x, out, acts, zero_to_one,
+                            self.kept(_prm_dtype(self.rows), x.device))
 
     def plan(self, x: torch.Tensor) -> dict:
         """How the kernel splits this block's GEMMs for ``x`` (NHWC, on a
@@ -237,6 +210,94 @@ class BottleneckDesc:
         if self.wd is None:
             plan["projection"] = None
         return plan
+
+
+class KeptBottleneck(NamedTuple):
+    """:meth:`BottleneckDesc.kept`: the weights' and rows' pointers and row
+    lengths, the derived tensors they point into, the rows' dtype and the
+    block's widths."""
+    ptrs: tuple
+    lens: tuple
+    derived: list
+    dtype: torch.dtype
+    c: int
+    width: int
+    cout: int
+    projection: bool
+
+
+def _prm_dtype(rows) -> torch.dtype:
+    """The rows' dtype in the kernel: bf16 where every row tensor is bf16."""
+    floats = {v.dtype for v in rows if isinstance(v, torch.Tensor)}
+    return torch.bfloat16 if floats == {torch.bfloat16} else torch.float32
+
+
+def _ints(shape, c, width, cout, projection) -> list:
+    n, h, w, cx = shape
+    if cx != c:
+        raise ValueError(f"{_NAME}: x has {cx} channels, the weights take {c}")
+    if n * h * w * max(c, width, cout) >= 2 ** 31:
+        raise ValueError(f"{_NAME} indexes its maps in 32 bits: {n * h * w} "
+                         f"pixels of up to {max(c, width, cout)} channels are "
+                         "too many")
+    return [n, h, w, c, width, cout, int(projection)]
+
+
+def _launch_args(x: torch.Tensor, out: torch.Tensor, acts, zero_to_one: bool,
+                 kept: KeptBottleneck):
+    """:meth:`BottleneckDesc._args` from a :class:`KeptBottleneck`."""
+    dev = x.device
+    B._check_device(_NAME, dev, [out])
+    if x.dtype not in B._FLOATS or out.dtype not in B._FLOATS:
+        raise TypeError(f"{_NAME} takes f32/bf16 x and output, got {x.dtype} "
+                        f"and {out.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{_NAME} needs a contiguous NHWC x")
+    ints = _ints(x.shape, kept.c, kept.width, kept.cout, kept.projection)
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    c, width, cout, proj = kept.c, kept.width, kept.cout, kept.projection
+    # xs, ds, hs1, hs2 (int8), then the int32 sums of conv1/conv2, conv3
+    # and the projection
+    scratch = B._carve(dev, [
+        m * c, m * c if proj else 0, m * width, m * width,
+        4 * m * width, 4 * m * cout, 4 * m * cout if proj else 0])
+    ptrs = [x.data_ptr(), out.data_ptr()] + list(kept.ptrs) + scratch[1:]
+    ints += [B.ACTS.index(a) for a in acts]
+    ints += [int(zero_to_one), int(x.dtype == torch.bfloat16),
+             int(out.dtype == torch.bfloat16),
+             int(kept.dtype == torch.bfloat16)] + list(kept.lens)
+    return ptrs, ints, [kept, scratch[0]]
+
+
+def kept_args(w1, w2, w3, wd, rows, device) -> KeptBottleneck:
+    """The block's :class:`KeptBottleneck` on ``device`` (``rows`` in
+    :data:`ROWS` order), made once per weights and rows and kept while they
+    live unchanged (``_blocks.KEPT``)."""
+    return B.KEPT.get(
+        [w1, w2, w3, wd, *rows], ("bottleneck", device),
+        lambda: BottleneckDesc(w1.shape[-2], w1, w2, w3, wd,
+                               dict(zip(ROWS, rows))).kept(_prm_dtype(rows), device))
+
+
+def fused_bottleneck_cuda(x, w1, w2, w3, wd, rows, act1, act2, act3,
+                          zero_to_one, out_dtype) -> torch.Tensor:
+    """The ``fused_bottleneck`` operator's CUDA implementation: one launch,
+    with the block's :class:`KeptBottleneck` kept per weights and rows
+    (``_blocks.KEPT``)."""
+    if x.ndim != 4:
+        raise ValueError(f"expected NHWC x, got {tuple(x.shape)}")
+    kept = kept_args(w1, w2, w3, wd, rows, x.device)
+    out = torch.empty(x.shape[:3] + (kept.cout,),
+                      dtype=x.dtype if out_dtype is None else out_dtype,
+                      device=x.device)
+    ptrs, ints, keep = _launch_args(x, out, (act1, act2, act3), zero_to_one, kept)
+    err = _entry("bnn_fused_bottleneck")(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{_NAME} kernel launch failed: CUDA error {err}")
+    fused_bottleneck.launches += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,8 +355,10 @@ def fused_bottleneck(
                  threshold3=threshold3, thresholdd=thresholdd)
     if x.ndim != 4:
         raise ValueError(f"expected NHWC x, got {tuple(x.shape)}")
-    return BottleneckDesc(x.shape[-1], w1, w2, w3, wd, named)(
-        x, act, zero_to_one, out_dtype)
+    _weights(x.shape[-1], w1, w2, w3, wd)
+    return torch.ops.bnn_tpu_torch.fused_bottleneck(
+        x, w1, w2, w3, wd, [B.as_tensor_row(named[r], x.device) for r in ROWS],
+        *split_act3(act), zero_to_one, out_dtype)
 
 
 fused_bottleneck.launches = 0

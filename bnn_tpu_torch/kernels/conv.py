@@ -2,10 +2,10 @@
 ``bnn_tpu/kernels/conv.py``).
 
 :func:`binary_conv2d_s1` computes ``conv(x >= 0 ? +1 : -1, w) * scale + add``
-over an odd square kernel with "same" zero padding, in NHWC: the
-hand-written Hopper kernel ``bnn_tpu_torch/csrc/binary_conv2d_s1.cu`` for
-CUDA tensors, its plain version :func:`binary_conv2d_s1_reference` only for
-CPU tensors. The sign is taken inside with sign(0) = +1, whatever the
+over an odd square kernel with "same" zero padding, in NHWC, as an
+operator: the hand-written Hopper kernel
+``bnn_tpu_torch/csrc/binary_conv2d_s1.cu`` for CUDA tensors, its plain
+version :func:`binary_conv2d_s1_reference` only for CPU tensors. The sign is taken inside with sign(0) = +1, whatever the
 layer's ``zero_to_one`` (as the TPU kernel does); the padding is added after
 the sign, so padded taps contribute exactly 0. The output is always f32.
 
@@ -159,7 +159,11 @@ def _kernel():
 def binary_conv2d_s1(x: torch.Tensor, w_int8: torch.Tensor,
                      scale: Optional[torch.Tensor] = None,
                      add: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``conv(sign(x), w_int8) * scale + add`` for a stride-1 odd kernel.
+    """``conv(sign(x), w_int8) * scale + add`` for a stride-1 odd kernel:
+    the ``bnn_tpu_torch::binary_conv2d_s1`` operator (``kernels/ops.py``),
+    whose CUDA implementation is :func:`binary_conv2d_s1_planned` with the
+    host's plan and whose CPU implementation is
+    :func:`binary_conv2d_s1_reference`.
 
     Args:
         x: ``(N, H, W, C)`` raw activations, f32 or bf16 (signed inside,
@@ -170,9 +174,7 @@ def binary_conv2d_s1(x: torch.Tensor, w_int8: torch.Tensor,
         ``(N, H, W, O)`` f32.
     """
     _check(x, w_int8, scale, add)
-    if x.device.type == "cpu":
-        return binary_conv2d_s1_reference(x, w_int8, scale, add)
-    return binary_conv2d_s1_planned(x, w_int8, scale, add)
+    return torch.ops.bnn_tpu_torch.binary_conv2d_s1(x, w_int8, scale, add)
 
 
 def _check_plan(plan, x: torch.Tensor, k: int) -> None:

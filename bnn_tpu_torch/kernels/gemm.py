@@ -1,7 +1,8 @@
 """Binary GEMM over bit-packed weights (counterpart of
 ``bnn_tpu/kernels/gemm.py``).
 
-:func:`binary_gemm` launches the hand-written Hopper kernel
+:func:`binary_gemm` calls the ``bnn_tpu_torch::binary_gemm`` operator
+(``kernels/ops.py``), which launches the hand-written Hopper kernel
 ``bnn_tpu_torch/csrc/binary_gemm.cu`` for CUDA tensors and takes
 :func:`binary_gemm_reference`, its plain version, only for CPU tensors.
 
@@ -22,7 +23,8 @@ the pointers allow them, else element by element).
 :func:`popcount_gemm` is the XNOR / popcount form over packed activations
 AND packed weights, ``(K - 2 * sum popcount(xp ^ wp)) * scale + add``: the
 kernel ``bnn_tpu_torch/csrc/popcount_gemm.cu`` for CUDA tensors, the plain
-version :func:`popcount_gemm_reference` for CPU tensors. The pad bits past K
+version :func:`popcount_gemm_reference` for CPU tensors, through the
+``bnn_tpu_torch::popcount_gemm`` operator. The pad bits past K
 are 0 in both operands and cancel. The kernel runs 1-bit tensor-core
 products (``mma.sync`` m16n8k256 ``.and.popc``, the mismatches as
 ``popc(x & ~w) + popc(~x & w)``) on the packed words; it is bound by its f32
@@ -116,7 +118,10 @@ def binary_gemm(x: torch.Tensor, w_packed: torch.Tensor, k: int,
                 scale: Optional[torch.Tensor] = None,
                 add: Optional[torch.Tensor] = None, *,
                 sign_inputs: bool = True) -> torch.Tensor:
-    """``s(x) @ unpack(w_packed)[:k] * scale + add`` as one kernel.
+    """``s(x) @ unpack(w_packed)[:k] * scale + add`` as one kernel: the
+    ``bnn_tpu_torch::binary_gemm`` operator (``kernels/ops.py``), whose CUDA
+    implementation is :func:`binary_gemm_planned` with the host's plan and
+    whose CPU implementation is :func:`binary_gemm_reference`.
 
     Args:
         x: ``(M, K)`` activations, f32 or bf16.
@@ -127,12 +132,9 @@ def binary_gemm(x: torch.Tensor, w_packed: torch.Tensor, k: int,
     Returns:
         ``(M, N)`` f32.
     """
-    if x.device.type == "cpu":
-        _check_shapes(x, w_packed, k, scale, add)
-        return binary_gemm_reference(x, w_packed, k, scale, add,
-                                     sign_inputs=sign_inputs)
-    return binary_gemm_planned(x, w_packed, k, scale, add,
-                               sign_inputs=sign_inputs)
+    _check_shapes(x, w_packed, k, scale, add)
+    return torch.ops.bnn_tpu_torch.binary_gemm(x, w_packed, k, scale, add,
+                                               sign_inputs)
 
 
 def binary_gemm_planned(x: torch.Tensor, w_packed: torch.Tensor, k: int,
@@ -274,7 +276,10 @@ def _popcount_check_shapes(x_packed, w_packed, k, scale, add):
 def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
                   scale: Optional[torch.Tensor] = None,
                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``(k - 2 * popcount(x_packed XOR w_packed)) * scale + add``.
+    """``(k - 2 * popcount(x_packed XOR w_packed)) * scale + add``: the
+    ``bnn_tpu_torch::popcount_gemm`` operator (``kernels/ops.py``), whose CUDA
+    implementation is :func:`popcount_gemm_planned` with the host's plan and
+    whose CPU implementation is :func:`popcount_gemm_reference`.
 
     Args:
         x_packed: ``(M, ceil(K/32))`` int32 words, :func:`pack_bits` of the
@@ -285,10 +290,8 @@ def popcount_gemm(x_packed: torch.Tensor, w_packed: torch.Tensor, k: int,
     Returns:
         ``(M, N)`` f32.
     """
-    if x_packed.device.type == "cpu":
-        _popcount_check_shapes(x_packed, w_packed, k, scale, add)
-        return popcount_gemm_reference(x_packed, w_packed, k, scale, add)
-    return popcount_gemm_planned(x_packed, w_packed, k, scale, add)
+    _popcount_check_shapes(x_packed, w_packed, k, scale, add)
+    return torch.ops.bnn_tpu_torch.popcount_gemm(x_packed, w_packed, k, scale, add)
 
 
 def popcount_gemm_planned(x_packed: torch.Tensor, w_packed: torch.Tensor,

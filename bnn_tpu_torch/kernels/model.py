@@ -3,8 +3,10 @@
 stride-1 basic blocks, then optionally the global avgpool and a float fc.
 
 :func:`fused_chain` (and :func:`fused_pair`, :func:`fused_down_stage`, which
-call it) launches the hand-written Hopper kernel
-``bnn_tpu_torch/csrc/fused_chain.cu`` for CUDA tensors and takes
+call it) calls the ``bnn_tpu_torch::fused_chain`` operator
+(``kernels/ops.py``) on the blocks' arrays (:func:`flatten`), which launches
+the hand-written Hopper kernel ``bnn_tpu_torch/csrc/fused_chain.cu`` for
+CUDA tensors (:func:`fused_chain_cuda`) and takes
 :func:`fused_chain_reference`, its plain version, only for CPU tensors.
 Between blocks the activations stay f32, as in the JAX kernel; the output
 is in x's dtype, or f32 logits with the head. :class:`BlockParams` holds a
@@ -17,7 +19,7 @@ bf16 weights), which bounds it at batch 1; at batch 4 layers 1-3 are bound
 by their int8 operations. The kernel runs a stage as one cooperative launch
 over the card, its convolutions on the int8 tensor cores
 (csrc/fused_chain.cu), which read K-major copies of the weights that each
-block's descriptor makes once per device (``_blocks.Desc.kmajor``);
+block's descriptor makes (``_blocks.Desc.kmajor``), kept per arrays;
 :meth:`BlockParams.arrays` stays the JAX layout.
 
 :func:`fused_stem_chain` runs the network entry, the float stem and then
@@ -34,11 +36,15 @@ import torch
 
 from . import _blocks as B
 from .block import fused_basic_block_reference
-from .stem import StemDesc, _check_geometry, fused_stem_reference, stem_key
+from .stem import (StemDesc, _check_geometry, check_x, fused_stem_reference,
+                   kept_stem, stem_key)
 from .strided_block import (_transform_w1, _untransform_w1,
                             fused_downsample_block_reference)
 
-__all__ = ["BlockParams", "fused_chain", "fused_pair", "fused_down_stage",
+__all__ = ["BlockParams", "KINDS", "flatten", "unflatten", "kept_args",
+           "fused_chain",
+           "fused_chain_cuda", "fused_stem_chain_cuda", "fused_pair",
+           "fused_down_stage",
            "fused_chain_reference", "fused_pair_reference",
            "fused_down_stage_reference", "fused_stem_chain",
            "fused_stem_chain_reference"]
@@ -130,21 +136,58 @@ class BlockParams:
         return self._desc
 
 
-def _check_chain(x: torch.Tensor, blocks: Sequence[BlockParams]):
+def _check_blocks(blocks: Sequence[BlockParams]) -> None:
     plan = tuple(b.kind for b in blocks)
     if not plan or any(k != "basic" for k in plan[1:]):
         raise ValueError(f"a chain is an optional leading 'down' block and "
                          f"'basic' blocks, got {plan}")
-    if x.ndim != 4 or x.shape[-1] != blocks[0].ci:
+    for a, b in zip(blocks, blocks[1:]):
+        if b.ci != a.co:
+            raise ValueError(f"block widths do not chain: {a.co} -> {b.ci}")
+
+
+def _check_x(x: torch.Tensor, metas) -> None:
+    """x against the chain's blocks' ``(down, ci, co)``."""
+    if x.ndim != 4 or x.shape[-1] != metas[0][1]:
         raise ValueError(f"x {tuple(x.shape)} does not feed a block of "
-                         f"{blocks[0].ci} input channels")
+                         f"{metas[0][1]} input channels")
     if x.shape[0] > _MAX_BATCH:
         raise ValueError(f"stage megakernels serve batches up to {_MAX_BATCH}, "
                          f"got {x.shape[0]}; larger batches take the "
                          "per-block or unfused paths")
-    for a, b in zip(blocks, blocks[1:]):
-        if b.ci != a.co:
-            raise ValueError(f"block widths do not chain: {a.co} -> {b.ci}")
+
+
+def _check_chain(x: torch.Tensor, blocks: Sequence[BlockParams]):
+    _check_blocks(blocks)
+    _check_x(x, [(b.kind == "down", b.ci, b.co) for b in blocks])
+
+
+KINDS = ("basic", "down")
+
+
+def flatten(blocks: Sequence[BlockParams]):
+    """``(arrays, kinds)``: every block's :meth:`BlockParams.arrays` in one
+    list and each block's index in :data:`KINDS`, as the chain operators
+    take them."""
+    return ([a for b in blocks for a in b.arrays()],
+            [KINDS.index(b.kind) for b in blocks])
+
+
+def unflatten(arrays, kinds) -> list:
+    """The :class:`BlockParams` of :func:`flatten`'s ``(arrays, kinds)``."""
+    blocks, i = [], 0
+    for k in kinds:
+        kind = KINDS[k]
+        n = 3 if kind == "basic" else 5
+        w1 = arrays[i]
+        ci = w1.shape[1] if kind == "basic" else w1.shape[0] // 16
+        blocks.append(BlockParams.from_arrays((kind, ci, w1.shape[1]),
+                                              list(arrays[i:i + n])))
+        i += n
+    if i != len(arrays):
+        raise ValueError(f"{len(arrays)} arrays for blocks of kinds "
+                         f"{[KINDS[k] for k in kinds]}")
+    return blocks
 
 
 def fused_chain(
@@ -161,25 +204,48 @@ def fused_chain(
     """A whole residual stage, any chain of [down] + basic* blocks, in one
     kernel; with ``wfc`` (``(C_out, classes)``) also the global avgpool and
     the fc, giving ``(N, classes)`` logits (f32 unless ``out_dtype``).
+    Calls the ``bnn_tpu_torch::fused_chain`` operator (``kernels/ops.py``)
+    on the blocks' :meth:`BlockParams.arrays` and their kinds.
 
     ``x``: ``(N, H, W, C)`` raw stage input, N <= 8, f32 or bf16.
     """
     _check_chain(x, blocks)
-    acts = B.split_act(act)
-    if x.device.type == "cpu":
-        return fused_chain_reference(x, blocks, wfc, bfc, act=acts, pre=pre,
-                                     zero_to_one=zero_to_one, out_dtype=out_dtype)
+    act1, act2 = B.split_act(act)
+    arrays, kinds = flatten(blocks)
+    return torch.ops.bnn_tpu_torch.fused_chain(
+        x, arrays, kinds, wfc, bfc, act1, act2, pre, zero_to_one, out_dtype)
+
+
+def kept_args(name, arrays, kinds, device, floats=()) -> B.KeptBlocks:
+    """The chain's kernel arguments on ``device`` (``_blocks.kept_blocks``;
+    ``floats``: the head's weights, whose dtype joins the rows'), made once
+    per arrays and kept while they live unchanged."""
+    def descs():
+        blocks = unflatten(arrays, kinds)
+        _check_blocks(blocks)
+        return [b.desc() for b in blocks]
+
+    return B.kept_blocks(name, arrays, device, descs, floats)
+
+
+def fused_chain_cuda(x, arrays, kinds, wfc, bfc, act1, act2, pre, zero_to_one,
+                     out_dtype) -> torch.Tensor:
+    """The ``fused_chain`` operator's CUDA implementation: one launch, with
+    the blocks' kernel arguments (K-major copies, flat arrays) kept per
+    arrays (``_blocks.KEPT``)."""
+    blocks = kept_args("fused_chain", arrays, kinds, x.device, (wfc, bfc))
+    _check_x(x, blocks.metas)
     n, h, w, _ = x.shape
-    if blocks[0].kind == "down":
+    if blocks.metas[0][0]:
         h, w = h // 2, w // 2
     if wfc is not None:
         out = torch.empty((n, wfc.shape[-1]), dtype=torch.float32, device=x.device)
     else:
-        out = torch.empty((n, h, w, blocks[-1].co),
+        out = torch.empty((n, h, w, blocks.metas[-1][2]),
                           dtype=x.dtype if out_dtype is None else out_dtype,
                           device=x.device)
-    B.launch("fused_chain", x, [b.desc() for b in blocks], out, acts=acts,
-             pre=pre, zero_to_one=zero_to_one, wfc=wfc, bfc=bfc)
+    B.launch("fused_chain", x, blocks, out, acts=(act1, act2), pre=pre,
+             zero_to_one=zero_to_one, wfc=wfc, bfc=bfc)
     fused_chain.launches += 1
     if wfc is not None and out_dtype not in (None, torch.float32):
         return out.to(out_dtype)
@@ -283,38 +349,43 @@ def fused_stem_chain(
     """The network entry in one kernel: ``maxpool3x3/s2/p1(relu(
     conv7x7/s2/p3(x, w) + bias))``, rounded to the IO dtype (``out_dtype``,
     else x's) as the split pipeline's kernel boundary rounds it, then
-    layer1's stride-1 blocks.
+    layer1's stride-1 blocks; the ``bnn_tpu_torch::fused_stem_chain``
+    operator (``kernels/ops.py``).
 
     ``x``: ``(N, H, W, C)`` raw input, N <= 8, C <= 4, H % 16 == 0,
     W % 8 == 0; ``w``: ``(7, 7, C, O)`` HWIO stem kernel (BN folded);
     ``blocks``: ``basic`` BlockParams with ``blocks[0].ci == O``; ``stem``:
-    the :class:`~bnn_tpu_torch.kernels.stem.StemDesc` of ``w`` and ``bias``
-    where the caller keeps one (else one is made; a descriptor of other
-    tensors is refused). Returns
+    a :class:`~bnn_tpu_torch.kernels.stem.StemDesc` of ``w`` and ``bias``,
+    checked (a descriptor of other tensors is refused; the operator keeps
+    its own :func:`~bnn_tpu_torch.kernels.stem.kept_stem`). Returns
     ``(N, H/4, W/4, C_out)`` in the IO dtype.
     """
     _check_stem_chain(x, w, blocks)
     if stem is not None and stem.key != stem_key(w, bias):
         raise ValueError("fused_stem_chain's stem descriptor was built from other "
                          "weights than w and bias")
-    acts = B.split_act(act)
-    if x.device.type == "cpu":
-        return fused_stem_chain_reference(x, w, bias, blocks, act=acts, pre=pre,
-                                          zero_to_one=zero_to_one,
-                                          out_dtype=out_dtype)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"fused_stem_chain needs x and w on one CUDA device, "
-                         f"got {x.device} and {w.device}")
-    stem = StemDesc(w, bias) if stem is None else stem
-    stem.check(x, "fused_stem_chain")
+    act1, act2 = B.split_act(act)
+    arrays, kinds = flatten(blocks)
+    return torch.ops.bnn_tpu_torch.fused_stem_chain(
+        x, w, bias, arrays, kinds, act1, act2, pre, zero_to_one, out_dtype)
+
+
+def fused_stem_chain_cuda(x, w, bias, arrays, kinds, act1, act2, pre,
+                          zero_to_one, out_dtype) -> torch.Tensor:
+    """The ``fused_stem_chain`` operator's CUDA implementation: one launch,
+    with the stem's weights (:func:`~bnn_tpu_torch.kernels.stem.kept_stem`)
+    and the blocks' kernel arguments kept (``_blocks.KEPT``)."""
+    _check_stem_chain(x, w, unflatten(arrays, kinds))
+    check_x(x, w, "fused_stem_chain")
+    sw = kept_stem(w, bias)
+    blocks = kept_args("fused_stem_chain", arrays, kinds, x.device)
     io = x.dtype if out_dtype is None else out_dtype
     n, h, ws, _ = x.shape
-    o = w.shape[-1]
-    stem_out = torch.empty((n, h // 4, ws // 4, o), dtype=io, device=x.device)
-    out = torch.empty((n, h // 4, ws // 4, blocks[-1].co), dtype=io,
+    stem_out = torch.empty((n, h // 4, ws // 4, sw.o), dtype=io, device=x.device)
+    out = torch.empty((n, h // 4, ws // 4, blocks.metas[-1][2]), dtype=io,
                       device=x.device)
-    B.launch("fused_stem_chain", stem_out, [b.desc() for b in blocks], out,
-             acts=acts, pre=pre, zero_to_one=zero_to_one, stem=(x, stem))
+    B.launch("fused_stem_chain", stem_out, blocks, out, acts=(act1, act2),
+             pre=pre, zero_to_one=zero_to_one, stem=(x, sw))
     fused_stem_chain.launches += 1
     return out
 

@@ -1,9 +1,11 @@
 """Fused ResNet stem (counterpart of ``bnn_tpu/kernels/stem.py``):
 ``maxpool3x3/s2/p1(relu(conv7x7/s2/p3(x, w) + bias))`` in one kernel.
 
-:func:`fused_stem` launches the hand-written Hopper kernel
-``bnn_tpu_torch/csrc/fused_stem.cu`` for CUDA tensors and takes
-:func:`fused_stem_reference`, its plain version, only for CPU tensors. The
+:func:`fused_stem` calls the ``bnn_tpu_torch::fused_stem`` operator
+(``kernels/ops.py``), which launches the hand-written Hopper kernel
+``bnn_tpu_torch/csrc/fused_stem.cu`` for CUDA tensors
+(:func:`fused_stem_cuda`) and takes :func:`fused_stem_reference`, its plain
+version, only for CPU tensors. The
 JAX package has three TPU kernels for this one function (``fused_stem``,
 ``fused_stem_v2``, ``fused_stem_v3``), each tuned to a geometry; the CUDA
 kernel accepts every geometry the widest of them (v1: H % 8, W % 4) does,
@@ -14,9 +16,9 @@ as the TPU kernels run it on the MXU: bf16 x times bf16 w, summed in f32,
 in one pass. An f32 operand is split exactly into three bf16 pieces
 (:func:`split_pieces`) and the products of the pieces run as 3 or 6 passes
 (:func:`stem_passes`), so f32 inputs keep f32-grade sums. :class:`StemDesc`
-holds the weights as the kernel reads them, K-major bf16 pieces, and the
-f32 bias; a caller that keeps one (``FusedStem``, ``FusedEntry``) builds
-them once.
+holds the weights as the kernel reads them (:class:`StemWeights`: K-major
+bf16 pieces and the f32 bias); the operator's CUDA implementation keeps them
+per weights (:func:`kept_stem`), so a forward does not build them again.
 
 Bound on an H100 at (8, 224, 224, 3) bf16: 5.6 MB moved (1.7 us) against
 1.9 GFLOP (1.9 us at the bf16 tensor-core rate), so the bound is the
@@ -28,16 +30,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ._blocks import tensor_key
+from ._blocks import KEPT, tensor_key
 from ._build import load
 
-__all__ = ["fused_stem", "fused_stem_reference", "StemDesc", "split_pieces",
-           "stem_passes", "stem_key", "k_tap_channel"]
+__all__ = ["fused_stem", "fused_stem_reference", "StemDesc", "StemWeights",
+           "kept_stem", "split_pieces", "stem_passes", "stem_key",
+           "stem_weights", "k_tap_channel"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 TAPS = 49          # 7 x 7
@@ -123,80 +126,120 @@ def _plan_fn():
     return fn
 
 
+class StemWeights(NamedTuple):
+    """The stem's weights as the kernels read them: ``wk``, the K-major bf16
+    pieces ``(P, O_pad, 208)`` (P = 1 for bf16 weights, else the 3 exact
+    pieces of :func:`split_pieces`), element ``(o, k)`` holding piece p of
+    ``w[ky, kx, c, o]`` where :func:`k_tap_channel` of ``k`` is
+    ``(7 * ky + kx, c)``, zero in the padded channels (c >= C), taps
+    (49-51) and output channels (o >= O); ``bias_f32``: ``(O_pad,)`` f32,
+    zero past O."""
+    wk: torch.Tensor
+    bias_f32: torch.Tensor
+    o: int
+    o_pad: int
+
+    @property
+    def w_pieces(self) -> int:
+        return self.wk.shape[0]
+
+
+def _check_weights(w: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+    if w.ndim != 4 or tuple(w.shape[:2]) != (7, 7) or w.shape[2] > 4:
+        raise ValueError(f"fused_stem needs a (7, 7, C <= 4, O) kernel, got "
+                         f"{tuple(w.shape)}")
+    if bias is not None and bias.numel() != w.shape[3]:
+        raise ValueError(f"bias must have {w.shape[3]} values, got "
+                         f"{tuple(bias.shape)}")
+
+
+def stem_weights(w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> StemWeights:
+    """:class:`StemWeights` of ``(7, 7, C, O)`` HWIO ``w`` (BN folded, any
+    float dtype) and ``(O,)`` ``bias`` or None, on ``w``'s device."""
+    _check_weights(w, bias)
+    c, o = w.shape[2], w.shape[3]
+    o_pad = -(-o // OCB) * OCB
+    with torch.no_grad():
+        p = pieces(w.dtype)
+        split = split_pieces(w.detach())[:p].reshape(p, TAPS, c, o)
+        wk = torch.zeros((p, o_pad, K_TAPS, 4), dtype=torch.bfloat16,
+                         device=w.device)
+        wk[:, :o, :TAPS, :c] = split.permute(0, 3, 1, 2)
+        # (tap 4s + u, channel 2h + e) -> K index 16s + 8h + 2u + e
+        wk = (wk.reshape(p, o_pad, K_TAPS // 4, 4, 2, 2)
+              .permute(0, 1, 2, 4, 3, 5).reshape(p, o_pad, KP).contiguous())
+        bias_f32 = torch.zeros(o_pad, dtype=torch.float32, device=w.device)
+        if bias is not None:
+            bias_f32[:o] = bias.detach().reshape(-1).to(
+                device=w.device, dtype=torch.float32)
+    return StemWeights(wk, bias_f32, o, o_pad)
+
+
+def kept_stem(w: torch.Tensor, bias: Optional[torch.Tensor]) -> StemWeights:
+    """:func:`stem_weights` of ``w`` and ``bias``, made once and kept while
+    they live unchanged (``_blocks.KEPT``): what the kernels' CUDA
+    implementations read."""
+    return KEPT.get([w, bias], ("stem",), lambda: stem_weights(w, bias))
+
+
+def check_x(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
+    """Raise unless ``x`` is a contiguous f32/bf16 tensor on ``w``'s CUDA
+    device."""
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"{name} needs x and w on one CUDA device, got "
+                         f"{x.device} and {w.device}")
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"{name} takes f32/bf16 x, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous NHWC x")
+
+
+def fused_stem_cuda(x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The ``fused_stem`` operator's CUDA implementation: one launch of the
+    kernel, with the kept :class:`StemWeights` of ``w`` and ``bias``."""
+    _check_geometry(x, w)
+    check_x(x, w, "fused_stem")
+    sw = kept_stem(w, bias)
+    n, h, ws, c = x.shape
+    out = torch.empty((n, h // 4, ws // 4, sw.o), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    err = _kernel()(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), sw.wk.data_ptr(),
+        sw.w_pieces, sw.bias_f32.data_ptr(), out.data_ptr(), n, h, ws, c,
+        sw.o, sw.o_pad, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
+    fused_stem.launches += 1
+    return out
+
+
 class StemDesc:
-    """The stem's weights as the kernels take them, built once.
+    """The stem's weights as the kernels take them.
 
     ``w``: ``(7, 7, C, O)`` HWIO (BN folded), any float dtype; ``bias``:
-    ``(O,)`` or None. ``wk``: the K-major bf16 pieces ``(P, O_pad, 208)``
-    (P = 1 for bf16 weights, else the 3 exact pieces of :func:`split_pieces`),
-    element ``(o, k)`` holding piece p of ``w[ky, kx, c, o]`` where
-    :func:`k_tap_channel` of ``k`` is ``(7 * ky + kx, c)``, zero in the padded
-    channels (c >= C), taps (49-51) and output channels (o >= O);
-    ``bias_f32``: ``(O_pad,)`` f32, zero past
-    O. ``key`` is :func:`stem_key` of the tensors it was built from: a holder
-    rebuilds it when that changes (it keeps ``w`` and ``bias``, so no other
-    tensor takes their addresses meanwhile). Calling it runs the stem: the
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    ``(O,)`` or None; ``wk`` and ``bias_f32``: their :class:`StemWeights`.
+    ``key`` is :func:`stem_key` of the tensors it was built from
+    (``fused_stem_chain``'s ``stem=`` refuses a descriptor of other
+    tensors). Calling it runs the stem through :func:`fused_stem`: the
+    kernel on CUDA tensors (whose operator keeps its own
+    :func:`kept_stem`), the plain version on CPU tensors."""
 
     def __init__(self, w: torch.Tensor, bias: Optional[torch.Tensor] = None):
-        if w.ndim != 4 or tuple(w.shape[:2]) != (7, 7) or w.shape[2] > 4:
-            raise ValueError(f"fused_stem needs a (7, 7, C <= 4, O) kernel, got "
-                             f"{tuple(w.shape)}")
-        c, o = w.shape[2], w.shape[3]
-        if bias is not None and bias.numel() != o:
-            raise ValueError(f"bias must have {o} values, got {tuple(bias.shape)}")
+        _check_weights(w, bias)
         self.key = stem_key(w, bias)
         self.w, self.bias = w, bias
-        self.c, self.o = c, o
-        self.o_pad = -(-o // OCB) * OCB
-        with torch.no_grad():
-            p = pieces(w.dtype)
-            split = split_pieces(w.detach())[:p].reshape(p, TAPS, c, o)
-            wk = torch.zeros((p, self.o_pad, K_TAPS, 4), dtype=torch.bfloat16,
-                             device=w.device)
-            wk[:, :o, :TAPS, :c] = split.permute(0, 3, 1, 2)
-            # (tap 4s + u, channel 2h + e) -> K index 16s + 8h + 2u + e
-            self.wk = (wk.reshape(p, self.o_pad, K_TAPS // 4, 4, 2, 2)
-                       .permute(0, 1, 2, 4, 3, 5).reshape(p, self.o_pad, KP)
-                       .contiguous())
-            self.bias_f32 = torch.zeros(self.o_pad, dtype=torch.float32,
-                                        device=w.device)
-            if bias is not None:
-                self.bias_f32[:o] = bias.detach().reshape(-1).to(
-                    device=w.device, dtype=torch.float32)
+        self.c = w.shape[2]
+        sw = stem_weights(w, bias)
+        self.wk, self.bias_f32, self.o, self.o_pad = sw
 
     @property
     def w_pieces(self) -> int:
         return self.wk.shape[0]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        _check_geometry(x, self.w)
-        if x.device.type == "cpu":
-            return fused_stem_reference(x, self.w, self.bias)
-        self.check(x, "fused_stem")
-        n, h, ws, c = x.shape
-        out = torch.empty((n, h // 4, ws // 4, self.o), dtype=x.dtype, device=x.device)
-        if out.numel() == 0:
-            return out
-        err = _kernel()(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), self.wk.data_ptr(),
-            self.w_pieces, self.bias_f32.data_ptr(), out.data_ptr(), n, h, ws, c,
-            self.o, self.o_pad, torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
-        fused_stem.launches += 1
-        return out
-
-    def check(self, x: torch.Tensor, name: str) -> None:
-        """Raise unless ``x`` is a contiguous f32/bf16 tensor on this
-        descriptor's CUDA device."""
-        if x.device.type != "cuda" or self.wk.device != x.device:
-            raise ValueError(f"{name} needs x and w on one CUDA device, got "
-                             f"{x.device} and {self.wk.device}")
-        if x.dtype not in _X_DTYPES:
-            raise TypeError(f"{name} takes f32/bf16 x, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} needs a contiguous NHWC x")
+        return fused_stem(x, self.w, self.bias)
 
     def plan(self, x: torch.Tensor) -> dict:
         """The launch the kernel makes for ``x``: pooled rows per work item,
@@ -212,7 +255,9 @@ class StemDesc:
 
 def fused_stem(x: torch.Tensor, w: torch.Tensor,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``maxpool3x3/s2/p1(relu(conv7x7/s2/p3(x, w) + bias))``.
+    """``maxpool3x3/s2/p1(relu(conv7x7/s2/p3(x, w) + bias))``, as the
+    ``bnn_tpu_torch::fused_stem`` operator (``kernels/ops.py``): the kernel
+    on CUDA tensors, :func:`fused_stem_reference` on CPU tensors.
 
     Args:
         x: ``(N, H, W, C)`` NHWC input, f32 or bf16, C <= 4, H % 8 == 0,
@@ -220,16 +265,10 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor,
         w: ``(7, 7, C, O)`` HWIO kernel (BN already folded).
         bias: ``(O,)`` folded bias, or None.
     Returns:
-        ``(N, H/4, W/4, O)`` in x's dtype. A caller that runs the same
-        weights again keeps a :class:`StemDesc` and calls it instead.
+        ``(N, H/4, W/4, O)`` in x's dtype.
     """
     _check_geometry(x, w)
-    if x.device.type == "cpu":
-        return fused_stem_reference(x, w, bias)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"fused_stem needs x and w on one CUDA device, got "
-                         f"{x.device} and {w.device}")
-    return StemDesc(w, bias)(x)
+    return torch.ops.bnn_tpu_torch.fused_stem(x, w, bias)
 
 
 fused_stem.launches = 0

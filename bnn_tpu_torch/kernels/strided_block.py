@@ -6,8 +6,11 @@
     ds  = conv1x1(sign(avgpool2x2(x) - thresholdd), wd) * scaled + addd
     out = act2(y2 + ds)           (pre=True: act2(y2) + ds)
 
-:func:`fused_downsample_block` launches the hand-written Hopper kernel
-``bnn_tpu_torch/csrc/fused_downsample_block.cu`` for CUDA tensors and takes
+:func:`fused_downsample_block` calls the
+``bnn_tpu_torch::fused_downsample_block`` operator (``kernels/ops.py``),
+which launches the hand-written Hopper kernel
+``bnn_tpu_torch/csrc/fused_downsample_block.cu`` for CUDA tensors
+(:func:`fused_downsample_block_cuda`) and takes
 :func:`fused_downsample_block_reference`, its plain version, only for CPU
 tensors; both compute the same f32 values bit for bit. Both take conv1's
 weights as taps or in the JAX kernel's 2x2 space-to-depth form
@@ -19,9 +22,9 @@ Bound on an H100 at ResNet-34 layer4.0's serving shape (1, 14, 14, 256) ->
 int8 taps; the s2d form's other 7*Ci*Co bytes are zeros) against 0.36 G
 int8 operations, so bytes bound it (1.14 us). The design is
 fused_basic_block's: the convs run on the int8 tensor cores over K-major
-weight copies, conv1 as its 9*Ci taps; :func:`downsample_block_desc` makes
-the descriptor that keeps them, and :func:`fused_downsample_block_plan`
-reports the launch.
+weight copies, conv1 as its 9*Ci taps, made once per weights and kept
+(``_blocks.KEPT``); :func:`downsample_block_desc` makes a descriptor of one
+block, and :func:`fused_downsample_block_plan` reports the launch.
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ import torch.nn.functional as F
 from . import _blocks as B
 
 __all__ = ["desc_key", "downsample_block_desc", "fused_downsample_block",
-           "fused_downsample_block_plan", "fused_downsample_block_reference"]
+           "fused_downsample_block_cuda", "fused_downsample_block_plan",
+           "kept_args",
+           "fused_downsample_block_reference"]
 
 
 def _transform_w1(w1: torch.Tensor) -> torch.Tensor:
@@ -84,12 +89,11 @@ def desc_key(w1, w2, wd, scale1, add1, scale2, add2, scaled, addd, *,
 def downsample_block_desc(w1, w2, wd, scale1, add1, scale2, add2, scaled,
                           addd, *, prelu1=None, prelu2=None, threshold1=None,
                           threshold2=None, thresholdd=None) -> B.Desc:
-    """The kernel's descriptor of one block, for
-    :func:`fused_downsample_block`'s ``desc``: a caller that runs the block
-    again keeps it, and with it the K-major weight copies and flat arrays
-    that it makes once per device. Its ``key`` is :func:`desc_key` of the
-    tensors it was built from: a call whose weights or rows differ, or were
-    changed in place since, refuses it, and a holder rebuilds it."""
+    """The kernel's descriptor of one block (the one the operator's CUDA
+    implementation builds, with its K-major weight copies and flat arrays),
+    for :func:`fused_downsample_block`'s ``desc``. Its ``key`` is
+    :func:`desc_key` of the tensors it was built from: a call whose weights
+    or rows differ, or were changed in place since, refuses it."""
     co = w2.shape[-1]
     ci = wd.numel() // co
     rows = dict(prelu1=prelu1, prelu2=prelu2, threshold1=threshold1,
@@ -132,15 +136,16 @@ def fused_downsample_block(
         threshold1, thresholdd: optional ``(C_in,)`` thresholds of conv1's
             input sign and of the pooled shortcut's sign; threshold2:
             ``(C_out,)`` of conv2's input sign.
-        desc: :func:`downsample_block_desc` of these weights and rows where
-            the caller keeps one (else one is made per call; a descriptor of
-            other tensors, or of tensors changed in place since, is refused).
+        desc: :func:`downsample_block_desc` of these weights and rows,
+            checked: a descriptor of other tensors, or of tensors changed in
+            place since, is refused. The operator keeps its own kernel
+            arguments per weights and rows
+            (:func:`fused_downsample_block_cuda`).
     Returns:
         ``(N, H/2, W/2, C_out)`` in ``out_dtype`` (default x's dtype).
     """
-    ci, co = _check(x, w1, w2, wd)
-    acts = B.split_act(act)
-    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check(x, w1, w2, wd)
+    act1, act2 = B.split_act(act)
     rows = dict(prelu1=prelu1, prelu2=prelu2, threshold1=threshold1,
                 threshold2=threshold2, thresholdd=thresholdd)
     if desc is not None and desc.key != desc_key(
@@ -148,19 +153,51 @@ def fused_downsample_block(
         raise ValueError("fused_downsample_block's descriptor was built from "
                          "other weights or rows than the call's, or from "
                          "these before an in-place change")
-    if x.device.type == "cpu":
-        return fused_downsample_block_reference(
-            x, w1, w2, wd, scale1, add1, scale2, add2, scaled, addd, act=acts,
-            prelu1=prelu1, prelu2=prelu2, threshold1=threshold1,
-            threshold2=threshold2, thresholdd=thresholdd, pre=pre,
-            zero_to_one=zero_to_one, out_dtype=out_dtype)
+    rows = [B.as_tensor_row(v, x.device) for v in (
+        scale1, add1, scale2, add2, scaled, addd, prelu1, prelu2, threshold1,
+        threshold2, thresholdd)]
+    return torch.ops.bnn_tpu_torch.fused_downsample_block(
+        x, w1, w2, wd, *rows, act1, act2, pre, zero_to_one, out_dtype)
+
+
+def kept_args(w1, w2, wd, scale1, add1, scale2, add2, scaled, addd, prelu1,
+              prelu2, threshold1, threshold2, thresholdd, device) -> B.KeptBlocks:
+    """The block's kernel arguments on ``device`` (``_blocks.kept_blocks``:
+    K-major copies, flat arrays; where ``w1`` comes as taps, its s2d form),
+    made once per weights and rows and kept while they live unchanged."""
+    co = w2.shape[-1]
+    ci = wd.numel() // co
+    rows = _rows(scale1, add1, scale2, add2, scaled, addd, prelu1, prelu2,
+                 threshold1, threshold2, thresholdd)
+
+    def descs():
+        ws = _transform_w1(w1.to(torch.int8)) if w1.ndim == 4 else w1
+        return [B.Desc(True, ci, co, ws, w2.reshape(9 * co, co),
+                       wd.reshape(ci, co), rows,
+                       derived=[] if ws is w1 else [ws])]
+
+    return B.kept_blocks("fused_downsample_block", [w1, w2, wd, *rows], device,
+                         descs)
+
+
+def fused_downsample_block_cuda(x, w1, w2, wd, scale1, add1, scale2, add2,
+                                scaled, addd, prelu1, prelu2, threshold1,
+                                threshold2, thresholdd, act1, act2, pre,
+                                zero_to_one, out_dtype) -> torch.Tensor:
+    """The ``fused_downsample_block`` operator's CUDA implementation: one
+    launch, with the kernel arguments kept per weights and rows
+    (``_blocks.KEPT``; where ``w1`` comes as taps, its s2d form is derived
+    once with them)."""
+    ci, co = _check(x, w1, w2, wd)
     n, h, w, _ = x.shape
-    out = torch.empty((n, h // 2, w // 2, co), dtype=out_dtype, device=x.device)
-    if desc is None:
-        desc = downsample_block_desc(w1, w2, wd, scale1, add1, scale2, add2,
-                                     scaled, addd, **rows)
-    B.launch("fused_downsample_block", x, [desc], out, acts=acts, pre=pre,
-             zero_to_one=zero_to_one)
+    out = torch.empty((n, h // 2, w // 2, co),
+                      dtype=x.dtype if out_dtype is None else out_dtype,
+                      device=x.device)
+    blocks = kept_args(w1, w2, wd, scale1, add1, scale2, add2, scaled, addd,
+                       prelu1, prelu2, threshold1, threshold2, thresholdd,
+                       x.device)
+    B.launch("fused_downsample_block", x, blocks, out, acts=(act1, act2),
+             pre=pre, zero_to_one=zero_to_one)
     fused_downsample_block.launches += 1
     return out
 

@@ -116,9 +116,13 @@ def restore_into(model: nn.Module, payload: Dict, strict: bool = True) -> List[s
 
 def restore_optimizer(optimizer: torch.optim.Optimizer, payload: Dict,
                       strict: bool = True) -> List[str]:
-    """Restore a checkpoint's ``opt_state`` into a live optimizer: moments,
-    step counts and hyperparameters, so a resumed run continues the saved
-    trajectory. Raises ``KeyError`` when the checkpoint has no optimizer
+    """Restore a checkpoint's ``opt_state`` into a live optimizer: its
+    moments and step counts, so a resumed run continues the saved
+    trajectory. The hyperparameters (``lr``, betas, ``weight_decay``, flags)
+    stay the live optimizer's, as in the JAX package, where an optax
+    transform keeps them in its closure: a *different* base LR passed at
+    resume time re-parameterizes the run while the step counts keep its
+    position. Raises ``KeyError`` when the checkpoint has no optimizer
     state. A parameter's saved state fits when each of its tensors (the
     step count aside) has the parameter's shape; the parameters are named
     ``state.<i>`` in ``state_dict`` order. ``strict=True`` raises
@@ -151,9 +155,9 @@ def restore_optimizer(optimizer: torch.optim.Optimizer, payload: Dict,
             skipped.append(f"state.{cid}")
             moments = current["state"].get(cid)
         if moments is not None:
-            state[sid] = moments
+            state[cid] = moments
     if strict and skipped:
         raise ValueError(f"optimizer state mismatch on {skipped[:5]}"
                          f"{'...' if len(skipped) > 5 else ''}")
-    optimizer.load_state_dict({"state": state, "param_groups": saved_groups})
+    optimizer.load_state_dict({"state": state, "param_groups": groups})
     return skipped

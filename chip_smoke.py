@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # phases 1 and 2 only, no result lines
+    cd <checkout> && python3 <path to>/chip_smoke.py --forwards
+                                     # the checkout's live forwards, timed
 
 Phases, each reported on its own lines:
 
@@ -115,8 +117,30 @@ Phases, each reported on its own lines:
    ``binary_gemm`` a batch) and the device busy share under
    torch.profiler; (e) ``python -m bnn_tpu_torch.examples.serve --ckpt``
    with ``--requests 4``, and with ``--continuous``, each exiting 0;
-7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+7. the frozen serving bundle: (a) ``torch.library.opcheck`` of each of the
+   nine kernel operators on CUDA tensors at one phase-2 case; (b) each
+   serving path above (ResNet-18 at batch 1 and 8, ResNet-34 and ResNet-50
+   at batch 1, paths A, B and C, the int8 head at batch 1 and 8) exported
+   with ``export_serving``, the live predictor bit-identical before and
+   after, then every bundle loaded in one fresh ``python -c`` process that
+   builds no model: its logits bit-identical to the live predictor's, its
+   launches per forward, by kernel name under torch.profiler, phase 3's;
+   export and load seconds, ``program.pt2`` bytes and ``state_bytes``;
+   (c) host time per call of a do-nothing operator through a plain call,
+   ``torch.library.Library`` and ``custom_op``, and of each kernel
+   operator through the dispatcher beside its CUDA implementation called
+   directly; (d) 64 single-image requests through ``ContinuousBatcher``
+   over the loaded batch-8 bundle, each row within 1e-5 of a direct call;
+   (e) the serve CLI's ``--export``, ``--load`` and ``--load
+   --continuous``, each exiting 0;
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
+
+``--forwards`` builds the kernels of the ``bnn_tpu_torch`` in the current
+directory and times its live forwards at ResNet-18 batch 1 and 8 and
+ResNet-50 batch 1 (host clock and device busy), one JSON line each: run from
+a parent unpacked with ``git archive`` and from the change in turns, it
+shows what operator dispatch costs a forward.
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. Imports nothing of JAX.
@@ -1721,6 +1745,284 @@ def serve_phase(kernels, Predictor, dev, card, trained, opt, images) -> dict:
     return launches
 
 
+# phase 7 loads each bundle in a fresh process that builds no model: it
+# runs the saved input through the bundle and counts the kernels a forward
+# launches, by their names in a torch.profiler trace
+BUNDLE_LOADER = r"""
+import json, re, sys, time
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from bnn_tpu_torch.inference import load_serving
+KERNELS, ITERS = json.loads(sys.argv[1]), 3
+pattern = re.compile(r"(?:^|[^A-Za-z0-9_])(" + "|".join(KERNELS) + r")_kernel\b")
+for where in sys.argv[2:]:
+    t0 = time.perf_counter()
+    server = load_serving(where + "/bundle")
+    load_s = time.perf_counter() - t0
+    x, want = torch.load(where + "/io.pt")
+    got = server(x).cpu()
+    attempts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                server(x)
+            torch.cuda.synchronize()
+        counts = {}
+        for e in prof.events():
+            m = pattern.search(e.name) if e.device_type == DeviceType.CUDA else None
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+        attempts.append({k: v / ITERS for k, v in counts.items()})
+    server(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        server(x)
+    torch.cuda.synchronize()
+    print(json.dumps({"where": where, "equal": bool(torch.equal(got, want)),
+                      "max_abs": float((got.float() - want.float()).abs().max()),
+                      "load_s": load_s, "launches": attempts,
+                      "forward_ms": (time.perf_counter() - t0) / 10 * 1e3,
+                      "state_bytes": server.state_bytes()}), flush=True)
+"""
+
+
+def op_cases(kernels, gen, dev):
+    """{operator: arguments} at one phase-2 case each, CUDA tensors, bf16
+    activations and rows, as the serving paths give them."""
+    bf = torch.bfloat16
+
+    def vec(n, loc=0.0):
+        return (loc + 0.3 * torch.randn(n, generator=gen)).to(dev)
+
+    x = torch.randint(-1, 2, (392, 256), generator=gen).to(dev, bf)
+    wp = kernels.pack_bits(torch.randn((256, 512), generator=gen), axis=-2).to(dev)
+    xc = torch.randn((8, 56, 56, 64), generator=gen).to(dev, bf)
+    wc = pm1((64, 64, 3, 3), gen).to(dev).permute(2, 3, 1, 0)
+    xs = torch.randn((1, SIZE, SIZE, 3), generator=gen).to(dev, bf)
+    ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, bf)
+    chain = [rand_block(kernels, "down", 64, 128, gen, dev, bf, options=True),
+             rand_block(kernels, "basic", 128, 128, gen, dev, bf, options=True)]
+    layer1 = [rand_block(kernels, "basic", 64, 64, gen, dev, bf, options=False)
+              for _ in range(2)]
+    basic = rand_block(kernels, "basic", 512, 512, gen, dev, bf, options=False)
+    w1, w2, w3, kw = rand_bottleneck(256, 64, 256, gen, dev, bf, prelu=True,
+                                     thresholds=True)
+    tail = ("relu", "relu", False, False, None)
+    p, q = basic.prm, None
+    return {
+        "binary_gemm": (x, wp, 256, vec(512, 1.0), vec(512), False),
+        "popcount_gemm": (kernels.pack_bits(x, axis=-1), wp, 256, vec(512, 1.0),
+                          vec(512)),
+        "binary_conv2d_s1": (xc, wc, vec(64, 1.0), vec(64)),
+        "fused_stem": (xs, ws, ws[0, 0, 0]),
+        "fused_chain": (torch.randn((1, 56, 56, 64), generator=gen).to(dev, bf),
+                        *kernels.model.flatten(chain), None, None, "prelu", "prelu",
+                        False, True, None),
+        "fused_stem_chain": (xs, ws, ws[0, 0, 0], *kernels.model.flatten(layer1),
+                             *tail),
+        "fused_basic_block": (torch.randn((1, 7, 7, 512), generator=gen).to(dev, bf),
+                              basic.w1.reshape(3, 3, 512, 512),
+                              basic.w2.reshape(3, 3, 512, 512), p[0], p[1], p[3],
+                              p[4], q, q, q, q, *tail),
+        "fused_downsample_block": (
+            torch.randn((1, 14, 14, 256), generator=gen).to(dev, bf),
+            pm1((3, 3, 256, 512), gen).to(dev), pm1((3, 3, 512, 512), gen).to(dev),
+            pm1((256, 512), gen).to(dev), *[vec(512, v) for v in (1, 0, 1, 0, 1, 0)],
+            q, q, q, q, q, *tail),
+        "fused_bottleneck": (
+            torch.randn((1, 56, 56, 256), generator=gen).to(dev, bf), w1, w2, w3,
+            None, [kw.get(r) for r in kernels.bottleneck.ROWS], "prelu", "prelu",
+            "prelu", True, None),
+    }
+
+
+def route_costs(card) -> None:
+    """Phase 7 (c): host time of one call through each registration route,
+    on an operator whose CUDA implementation allocates its output and
+    launches nothing: a plain Python call, ``torch.library.Library``
+    (``DEF`` + ``impl``, the port's route) and
+    ``@torch.library.custom_op``."""
+    lib = torch.library.Library("bnn_smoke", "DEF")
+    lib.define("empty_like(Tensor x) -> Tensor")
+
+    def empty_like(x: torch.Tensor) -> torch.Tensor:
+        return torch.empty_like(x)
+
+    lib.impl("empty_like", empty_like, "CUDA")
+    custom = torch.library.custom_op("bnn_smoke::empty_like_custom", empty_like,
+                                     mutates_args=())
+    x = torch.zeros(4, device="cuda")
+    us = {name: [] for name in ("python call", "Library DEF + impl", "custom_op")}
+    for _ in range(3):
+        for name, fn in (("python call", lambda: empty_like(x)),
+                         ("Library DEF + impl",
+                          lambda: torch.ops.bnn_smoke.empty_like(x)),
+                         ("custom_op", lambda: custom(x))):
+            us[name].append(1e3 * host_ms(fn, iters=2000))
+    print("phase 7: host us per call of an operator that allocates its output, "
+          "in turns: " + "; ".join(
+              f"{k} {[round(v, 2) for v in vs]}" for k, vs in us.items())
+          + f" | {card}")
+
+
+def dispatch_costs(kernels, cases, card) -> None:
+    """Phase 7 (c): host time per call of each kernel operator through the
+    dispatcher beside its CUDA implementation called directly, on the same
+    CUDA arguments (the implementation's arguments kept): what operator
+    dispatch costs a call."""
+    from bnn_tpu_torch.kernels import ops
+
+    rows = []
+    for name, args in cases.items():
+        op = getattr(torch.ops.bnn_tpu_torch, name)
+        impl = ops.OPS[name][0]
+        t = {"op": [], "impl": []}
+        for _ in range(2):
+            t["op"].append(1e3 * host_ms(lambda: op(*args), iters=200))
+            t["impl"].append(1e3 * host_ms(lambda: impl(*args), iters=200))
+        d = min(t["op"]) - min(t["impl"])
+        rows.append(d)
+        print(f"phase 7: {name}: host us per call through the operator "
+              f"{[round(v, 2) for v in t['op']]}, its CUDA implementation called "
+              f"directly {[round(v, 2) for v in t['impl']]}: dispatch {d:.2f} us "
+              f"| {card}")
+    print(f"phase 7: operator dispatch over the nine kernels: {min(rows):.2f} to "
+          f"{max(rows):.2f} us a call | {card}")
+
+
+def bundle_phase(kernels, paths, images, dev, card) -> None:
+    """Phase 7: (a) torch.library.opcheck of each operator on CUDA tensors;
+    (b) each serving path exported, then loaded in a fresh process that
+    builds no model: its logits bit-identical to the live predictor's, the
+    live predictor bit-identical before and after the export, its launches
+    per forward by kernel name equal to phase 3's; (c) what dispatch costs;
+    (d) a loaded bundle behind ContinuousBatcher; (e) the serve CLI's
+    --export and --load."""
+    from bnn_tpu_torch.inference import (ContinuousBatcher, export_serving,
+                                         load_serving, state_bytes)
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cases = op_cases(kernels, gen, dev)
+    for name, args in cases.items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(getattr(torch.ops.bnn_tpu_torch, name).default, args)
+        print(f"phase 7: opcheck {name} on CUDA tensors passed in "
+              f"{time.perf_counter() - t0:.1f} s")
+    root = SMOKE_DIR / "bundles"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        live = {}
+        for name, (pred, want) in paths.items():
+            where = root / name
+            x = images[:pred.batch_size]
+            before = pred(x)
+            t0 = time.perf_counter()
+            export_serving(pred, str(where / "bundle"), (3, SIZE, SIZE))
+            export_s = time.perf_counter() - t0
+            after = pred(x)
+            if not torch.equal(before, after):
+                raise AssertionError(f"{name}: the live predictor changed after "
+                                     "its export")
+            torch.save((x, before.cpu()), where / "io.pt")
+            live[str(where)] = (name, want, export_s, state_bytes(pred.model),
+                                (where / "bundle" / "program.pt2").stat().st_size)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", BUNDLE_LOADER, json.dumps(KERNELS), *live],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"the bundle loader exited {run.returncode}")
+        print(f"phase 7: {len(live)} bundles loaded in a fresh process in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for line in run.stdout.splitlines():
+            r = json.loads(line)
+            name, want, export_s, live_bytes, pt2 = live[r["where"]]
+            ok_counts = [a for a in r["launches"] if a == want]
+            print(f"phase 7: {name}: exported in {export_s:.2f} s "
+                  f"({pt2} B program.pt2), loaded in {r['load_s']:.2f} s; logits "
+                  f"{'bit-identical to' if r['equal'] else 'DIFFER from'} the live "
+                  f"predictor's (max |diff| {r['max_abs']:.3g}); the live predictor "
+                  f"unchanged by the export; launches per forward {r['launches'][0]} "
+                  f"(want {want}); state_bytes {r['state_bytes']} B (the "
+                  f"predictor's {live_bytes} B); loaded forward "
+                  f"{r['forward_ms']:.3f} ms | {card}")
+            if not r["equal"] or not ok_counts:
+                raise AssertionError(f"{name}: the loaded bundle is not the live "
+                                     f"predictor: {r}")
+        route_costs(card)
+        dispatch_costs(kernels, cases, card)
+        # (d) a loaded batch-8 bundle (the int8 head) behind the batcher
+        server = load_serving(str(root / "int8_head_b8" / "bundle"))
+        reqs = [images[i:i + 1].numpy() for i in range(16)] * 4
+        with ContinuousBatcher(server, max_delay_ms=5.0) as srv:
+            futs = [srv.submit(r) for r in reqs]
+            rows = [f.result(timeout=300) for f in futs]
+            st = srv.stats()
+        err = max(float((row.float() - server(r).cpu().float()).abs().max())
+                  for row, r in zip(rows, reqs))
+        print(f"phase 7: ContinuousBatcher over the loaded batch-8 bundle: "
+              f"{st.requests} single-image requests in {st.batches} batches "
+              f"(occupancy {100 * st.mean_occupancy:.1f}%), every row against a "
+              f"direct call: max |diff| {err:.3g} (limit 1e-5)")
+        if err > 1e-5 or st.requests != 64:
+            raise AssertionError("the batcher over a loaded bundle is off")
+        # (e) the serve CLI
+        cli = str(root / "cli")
+        for extra in (["--export", cli], ["--load", cli], ["--load", cli, "--continuous"]):
+            cmd = [sys.executable, "-m", "bnn_tpu_torch.examples.serve",
+                   "--requests", "2", *extra]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                                 timeout=600)
+            flag = " ".join(a for a in extra if a != cli)
+            for line in run.stdout.splitlines():
+                print(f"phase 7: serve CLI ({flag}): {line}")
+            print(f"phase 7: serve CLI ({flag}) exited {run.returncode} after "
+                  f"{time.perf_counter() - t0:.1f} s | {card}")
+            if run.returncode != 0:
+                print(run.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"the serve CLI ({flag}) exited {run.returncode}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def forwards_only() -> int:
+    """``--forwards``: the live predictor's forward at ResNet-18 batch 1 and
+    8 and ResNet-50 batch 1 (bf16, 224x224, the flagship recipe's random
+    weights), host clock (three runs of 50 synchronised forwards, and three
+    of 50 issued back to back: the host's own time) and device busy, for the
+    ``bnn_tpu_torch`` of the current directory: run from a parent unpacked
+    with ``git archive`` and from the change, in turns, it shows what a
+    change costs a forward on the host. Prints the card line, then one JSON
+    line a path."""
+    import os
+
+    sys.path.insert(0, os.getcwd())
+    from bnn_tpu_torch.inference import Predictor
+    from bnn_tpu_torch.kernels import _build
+
+    _build.build()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    images = torch.randn((BATCH, 3, SIZE, SIZE), generator=torch.Generator().manual_seed(SEED))
+    for depth, b in ((18, 1), (18, BATCH), (50, 1)):
+        pred = Predictor(flagship(torch.Generator().manual_seed(SEED), depth=depth),
+                         batch_size=b)
+        xb = images[:b].to(dev)
+        fwd = [fwd_ms(pred, xb, iters=50) for _ in range(3)]
+        issue = [host_ms(lambda: pred(xb), iters=50) for _ in range(3)]
+        by_kernel, _ = device_profile(lambda: pred(xb), iters=10, whole=False)
+        print(json.dumps({"label": os.path.basename(os.getcwd()),
+                          "path": f"ResNet-{depth} batch {b}", "forward_ms": fwd,
+                          "host_issue_ms": issue, "busy_ms": sum(by_kernel.values()),
+                          "card": card}))
+    return 0
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -1728,6 +2030,8 @@ def main() -> int:
               "measures the port on a GPU and has nothing to run here",
               file=sys.stderr)
         return 1
+    if "--forwards" in sys.argv[1:]:
+        return forwards_only()
     from bnn_tpu_torch import kernels
     from bnn_tpu_torch.inference import Predictor
     from bnn_tpu_torch.kernels import _build
@@ -1983,13 +2287,13 @@ def main() -> int:
     xs = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen).to(dev, torch.bfloat16)
     ws = (0.1 * torch.randn((7, 7, 3, 64), generator=gen)).to(dev, torch.bfloat16)
     bs = (0.1 * torch.randn(64, generator=gen)).to(dev, torch.bfloat16)
-    stem_desc = kernels.StemDesc(ws, bs)  # kept, as FusedStem keeps it
+    stem_desc = kernels.StemDesc(ws, bs)
 
     def time_stem(x):
-        """The stem at x's shape: the kernel (its kept descriptor, the
-        kernels line's ``ms``), the public call (which builds the descriptor
-        each call), its plain version and cuDNN's conv + relu + max_pool,
-        three calls."""
+        """The stem at x's shape: the kernel through a descriptor (the
+        kernels line's ``ms``) and through the public call (both on the
+        operator's kept weights), its plain version and cuDNN's conv + relu
+        + max_pool, three calls."""
         xn, wn = x.permute(0, 3, 1, 2).contiguous(), ws.permute(3, 2, 0, 1).contiguous()
 
         def stem():
@@ -2070,12 +2374,21 @@ def main() -> int:
     x1 = images[:1].to(dev)
     for label, fn, plain, _, head in chain_calls(pred34, x1):
         check_call("fused_chain", "ResNet-34 " + label, fn, plain, head)
-    # FusedBottleneck runs its kept BottleneckDesc: capture its calls
+    # FusedBottleneck calls the fused_bottleneck operator: capture its calls
+    def bottleneck_calls(xb):
+        """(x, BottleneckDesc of the call's weights and rows, its options) of
+        each fused_bottleneck call of ``pred50[1 or 4]`` on ``xb``."""
+        calls = []
+        for args, kw in capture_calls(megablock, "fused_bottleneck",
+                                      lambda: pred50[xb.shape[0]](xb)):
+            xh, w1, w2, w3 = args
+            rows = {r: kw[r] for r in kernels.bottleneck.ROWS if r in kw}
+            desc = kernels.BottleneckDesc(xh.shape[-1], w1, w2, w3, kw.get("wd"), rows)
+            calls.append((xh, desc, (kw["act"], kw["zero_to_one"], kw["out_dtype"])))
+        return calls
+
     for b in (1, 4):
-        xb = images[:b].to(dev)
-        for args, _ in capture_calls(kernels.BottleneckDesc, "__call__",
-                                     lambda: pred50[b](xb)):
-            desc, xh = args[0], args[1]
+        for xh, desc, opts in bottleneck_calls(images[:b].to(dev)):
             if b == 4:
                 plan = desc.plan(xh)
                 print(f"phase 4: ResNet-50 B=4 fused_bottleneck {tuple(xh.shape)} "
@@ -2084,39 +2397,16 @@ def main() -> int:
                           f"{k} {v}" for k, v in plan.items() if v is not None))
             record(f"fused_bottleneck@{b}",
                    f"ResNet-50 fused_bottleneck {tuple(xh.shape)} -> {desc.cout} bf16",
-                   lambda a=args: a[0](*a[1:]),
-                   lambda a=args: a[0].reference(*a[1:]),
+                   lambda d=desc, x=xh, o=opts: d(x, *o),
+                   lambda d=desc, x=xh, o=opts: d.reference(x, *o),
                    bottleneck_bound(xh, desc))
-    # the kept descriptor against one made per call (the public wrapper's
-    # way): host time of R50's 13 B=1 calls, and the B=1 forward, alternated
-    kept_us = fresh_us = 0.0
-    for args, _ in capture_calls(kernels.BottleneckDesc, "__call__",
-                                 lambda: pred50[1](x1)):
-        desc, rest = args[0], args[1:]
-        w2 = desc.w2.reshape(3, 3, desc.width, desc.width)
-        rows = dict(zip(kernels.bottleneck.ROWS, desc.rows))
-        kept_us += 1e3 * host_ms(lambda: desc(*rest))
-        fresh_us += 1e3 * host_ms(lambda: kernels.fused_bottleneck(
-            rest[0], desc.w1, w2, desc.w3, wd=desc.wd, act=rest[1],
-            zero_to_one=rest[2], out_dtype=rest[3], **rows))
-    fused50 = [m for m in pred50[1].model.modules()
-               if isinstance(m, megablock.FusedBottleneck)]
-
-    def desc_per_call(xb):
-        for m in fused50:
-            m._desc = None
-        return pred50[1](xb)
-
-    ab_fwd = {"kept": [], "per call": []}
-    for _ in range(3):
-        ab_fwd["kept"].append(fwd_ms(pred50[1], x1))
-        ab_fwd["per call"].append(fwd_ms(desc_per_call, x1))
+    # host time of R50's 13 B=1 calls through the operator, its kernel
+    # arguments kept
+    calls50 = bottleneck_calls(x1)
+    kept_us = sum(1e3 * host_ms(lambda d=desc, x=xh, o=opts: d(x, *o))
+                  for xh, desc, opts in calls50)
     print(f"phase 4: ResNet-50 B=1 fused_bottleneck host time per call, summed "
-          f"over its {len(fused50)} calls: kept descriptor {kept_us:.2f} us, "
-          f"descriptor made per call {fresh_us:.2f} us | {card}")
-    print(f"phase 4: ResNet-50 Predictor(batch_size=1) bf16 forward, alternated: "
-          f"kept descriptor {[round(v, 3) for v in ab_fwd['kept']]} ms, made per "
-          f"call {[round(v, 3) for v in ab_fwd['per call']]} ms | {card}")
+          f"over its {len(calls50)} calls: {kept_us:.2f} us | {card}")
     # every binary_gemm call of the ResNet-50 paths (the strided blocks'
     # pointwise convs; all of them at B=8) on its own inputs
     gemm_calls = {}
@@ -2178,20 +2468,15 @@ def main() -> int:
             else:
                 plan = kernels.strided_block.fused_downsample_block_plan(
                     xh, args[2].shape[-1])
-            if kw.get("desc") is None:
-                raise AssertionError(f"ResNet-34's {kname} call came without the "
-                                     "descriptor its module keeps")
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            print(f"phase 4: ResNet-34 {kname} {tuple(xh.shape)}, kept descriptor: "
+            print(f"phase 4: ResNet-34 {kname} {tuple(xh.shape)}, kept arguments: "
                   f"a grid of {plan['blocks']} blocks ({plan['blocks'] / sms:g} an "
                   f"SM, {plan['resident_per_sm']} resident), each conv "
                   f"{plan['tiles']} tiles, K slices {plan['k_slices']}")
-            # the plain version takes the block's tensors, not its kept descriptor
-            plain_kw = {k: v for k, v in kw.items() if k != "desc"}
             record(kname, f"{kname} {tuple(xh.shape)} bf16",
                    lambda a=args, k=kw: fn(*a, **k),
-                   lambda a=args, k=plain_kw: plain(*a, **k),
-                   block_bound(kname, args, plain_kw, bound_ms))
+                   lambda a=args, k=kw: plain(*a, **k),
+                   block_bound(kname, args, kw, bound_ms))
     for kname, rows in block_t.items():
         for label, (d, c), (pd, pc), bound, by in rows:
             print(f"phase 4: {label}: kernel {d * 1e3:.2f} us device / "
@@ -2206,15 +2491,13 @@ def main() -> int:
         xb = images[:b].to(dev)
         (args, kw), = capture_calls(stages, "fused_stem_chain", lambda: pred_a[b](xb))
         xh, w, bias, blocks = args
-        # the plain version and the split pair take the stem's weights, not
-        # the kernel's descriptor: the split pair as the unmerged predictor
-        # runs it, the stem's kept descriptor, then fused_chain
-        chain_kw = {k: v for k, v in kw.items() if k != "stem"}
+        # the split pair as the unmerged predictor runs it: the stem, then
+        # fused_chain
         fn = lambda a=args, k=kw: kernels.fused_stem_chain(*a, **k)
-        plain = lambda a=args, k=chain_kw: kernels.fused_stem_chain_reference(*a, **k)
-        split = lambda a=args, k=chain_kw: kernels.fused_chain(
-            kw["stem"](a[0]), a[3], **k)
-        plan = kernels.model.fused_stem_chain_plan(xh, kw["stem"])
+        plain = lambda a=args, k=kw: kernels.fused_stem_chain_reference(*a, **k)
+        split = lambda a=args, k=kw: kernels.fused_chain(
+            kernels.fused_stem(a[0], a[1], a[2]), a[3], **k)
+        plan = kernels.model.fused_stem_chain_plan(xh, kernels.StemDesc(w, bias))
         print(f"phase 4: path A batch {b} fused_stem_chain's stem phase: items of "
               f"{plan['rows']} pooled row(s) x 7 columns, {plan['items']} items on a "
               f"cooperative grid of {plan['blocks']} blocks ({plan['blocks_per_sm']} an SM)")
@@ -2428,7 +2711,26 @@ def main() -> int:
     # phase 5's trained weights; its counted launches join the others
     add(serve_phase(kernels, Predictor, dev, card, trained, opt, images))
     del trained, opt
-    print("phase 7: fused_chain's numbers are the sums over the four stages of "
+    # phase 7: every serving path frozen into a bundle and loaded in a fresh
+    # process; its launches are counted there, not in the kernels line's
+    r18 = {"fused_stem": 1, "fused_chain": 4}
+    r18_8 = {"fused_stem": 1, "binary_gemm": 1}
+    bundle_phase(kernels, {
+        "r18_b1": (small[1], r18),
+        "r18_b8": (pred, r18_8),
+        "r34_b1": (pred34, {"fused_stem": 1, "fused_chain": 3,
+                            "fused_downsample_block": 1, "fused_basic_block": 2}),
+        "r50_b1": (pred50[1], {"fused_stem": 1, "fused_bottleneck": 13,
+                               "binary_gemm": 8}),
+        "entry_b1": (pred_a[1], {"fused_stem_chain": 1, "fused_chain": 3}),
+        "pallas_conv_b8": (served_b, {"binary_conv2d_s1": 13, "binary_gemm": 1}),
+        "popcount_b8": (pred_c[BATCH], {"popcount_gemm": 36}),
+        "int8_head_b1": (Predictor(copy.deepcopy(qat), batch_size=1,
+                                   quantize_float_bits=8), r18),
+        "int8_head_b8": (Predictor(copy.deepcopy(qat), batch_size=BATCH,
+                                   quantize_float_bits=8), r18_8),
+    }, images, dev, card)
+    print("phase 8: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "

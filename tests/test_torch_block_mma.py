@@ -35,6 +35,7 @@ from bnn_tpu_torch.inference.megablock import _act_kind, _z21
 from bnn_tpu_torch.kernels import (BlockParams, _blocks, fused_basic_block,
                                    fused_basic_block_reference,
                                    fused_stem_chain, fused_stem_chain_reference)
+from bnn_tpu_torch.kernels import block
 from bnn_tpu_torch.kernels.block import basic_block_desc
 from bnn_tpu_torch.ops import binarizers as tops
 
@@ -202,35 +203,49 @@ def _fused_block():
         ignore_layers_name=["_first_", "_last_"]).eval()
     m = Predictor(model, batch_size=1, device="cpu", dtype=None).model
     fb = m.layer1.stage[0]
-    assert isinstance(fb, FusedBlock) and fb._desc is None
+    assert isinstance(fb, FusedBlock) and not hasattr(fb, "_desc")
     return fb
 
 
-def test_fused_block_keeps_its_desc():
-    """FusedBlock makes its descriptor at the first fused forward and runs
-    every later one with it, until a cast replaces the tensors."""
+def _kept(fb):
+    """The kernel arguments the operator's CUDA implementation keeps for
+    the tensors FusedBlock passes it (made on the CPU here)."""
+    b = fb.block
+    return block.kept_args(fb.w1, fb.w2, b.conv1.scale, b.conv1.add,
+                           b.conv2.scale, b.conv2.add, _act_kind(b.act1)[1],
+                           _act_kind(b.act2)[1], b.conv1.threshold,
+                           b.conv2.threshold, torch.device("cpu"))
+
+
+def test_fused_block_keeps_its_desc(monkeypatch):
+    """The kernel arguments of FusedBlock's tensors (K-major copies, flat
+    arrays) are made once and serve every later forward, until a cast
+    replaces the tensors."""
+    monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
     fb = _fused_block()
     x = torch.randn(1, 64, 8, 8, generator=torch.Generator().manual_seed(1))
     first = fb(x)
-    desc = fb._desc
-    assert desc is not None and desc.w1.data_ptr() == fb.w1.data_ptr()
+    kept = _kept(fb)
+    assert kept.ptrs[0] == fb.w1.data_ptr()
     torch.testing.assert_close(fb(x), first, rtol=0, atol=0)
-    assert fb._desc is desc
+    assert _kept(fb) is kept
     torch.testing.assert_close(first, fb.block(x), rtol=1e-5, atol=1e-5)
     fb.double().float()
     torch.testing.assert_close(fb(x), first, rtol=0, atol=0)
-    assert fb._desc is not None and fb._desc is not desc
+    assert _kept(fb) is not kept
 
 
 @pytest.mark.parametrize("how", ["in_place", "load_state_dict"])
-def test_fused_block_rebuilds_its_desc_after_an_in_place_update(how):
+def test_fused_block_rebuilds_its_desc_after_an_in_place_update(monkeypatch, how):
     """A weight changed in place after the first fused forward (by hand or
-    by load_state_dict) makes FusedBlock build a new descriptor, so the
-    next forward computes with the new weights, as the original block."""
+    by load_state_dict) makes the operator build new kernel arguments, whose
+    K-major copy is the new weights', and the next forward computes with the
+    new weights, as the original block."""
+    monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
     fb = _fused_block()
     x = torch.randn(1, 64, 8, 8, generator=torch.Generator().manual_seed(2))
     first = fb(x)
-    desc = fb._desc
+    kept = _kept(fb)
     if how == "in_place":
         fb.w1.neg_()
     else:
@@ -238,7 +253,9 @@ def test_fused_block_rebuilds_its_desc_after_an_in_place_update(how):
         state["w1"] = -state["w1"]
         fb.load_state_dict(state)
     again = fb(x)
-    assert fb._desc is not desc and fb._desc.key[0][1] == fb.w1._version
+    new = _kept(fb)
+    assert new is not kept and new.ptrs[3] == new.derived[0].data_ptr()
+    assert torch.equal(new.derived[0], -kept.derived[0])  # w1's K-major copy
     assert not torch.equal(again, first)
     b = fb.block
     a1, p1 = _act_kind(b.act1)

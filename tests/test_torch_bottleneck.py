@@ -29,6 +29,7 @@ from bnn_tpu_torch.inference import (FusedBottleneck, Predictor, deploy,
                                      fuse_blocks, optimize_deployed)
 from bnn_tpu_torch.kernels import (BottleneckDesc, fused_bottleneck,
                                    fused_bottleneck_reference)
+from bnn_tpu_torch.kernels import _blocks
 from bnn_tpu_torch.kernels import bottleneck as tbn
 from bnn_tpu_torch.models.layers import Bottleneck
 from bnn_tpu_torch.ops import binarizers as tops
@@ -166,16 +167,20 @@ def test_fused_bottleneck_rejects_bad_shapes_and_acts():
 
 
 def test_fused_bottleneck_refuses_other_devices():
-    """Off the CPU the wrapper launches its kernel or raises: weights on
-    another device than x raise before anything is built, and so do channel
-    counts the kernel's 4-byte gathers cannot take, and a device that is not
-    CUDA. Without a card here, the meta device stands in for it."""
+    """Off the CPU the operator launches its kernel or raises: its CUDA
+    implementation refuses weights on another device than x before anything
+    is built, and so channel counts the kernel's 4-byte gathers cannot take,
+    and a device that is not CUDA. Without a card here, the meta device
+    stands in for it."""
     def call(x, c, width, dev):
+        # the operator's CUDA implementation, as the dispatcher calls it
         w1 = torch.ones(c, width, dtype=torch.int8, device=dev)
         w2 = torch.ones(3, 3, width, width, dtype=torch.int8, device=dev)
         w3 = torch.ones(width, c, dtype=torch.int8, device=dev)
         one = torch.ones(c, device=dev)
-        return fused_bottleneck(x, w1, w2, w3, None, None, None, None, one, one)
+        rows = [one if r in ("scale3", "add3") else None for r in tbn.ROWS]
+        return tbn.fused_bottleneck_cuda(x, w1, w2, w3, None, rows, "relu",
+                                         "relu", "relu", True, None)
 
     with pytest.raises(ValueError, match="every tensor on meta"):
         call(torch.zeros(1, 4, 4, 8, device="meta"), 8, 4, "cpu")
@@ -215,7 +220,7 @@ def _resnet50():
         ignore_layers_name=["_first_", "_last_"]).eval()
 
 
-def test_fuse_blocks_wraps_resnet50s_stride1_bottlenecks():
+def test_fuse_blocks_wraps_resnet50s_stride1_bottlenecks(monkeypatch):
     """13 of ResNet-50's 16 blocks: layer1.0's stride-1 projection included,
     the three strided blocks left on the deployed convs. The wrapper's
     descriptor hands the kernel each row at its place in the kernel's order,
@@ -238,17 +243,26 @@ def test_fuse_blocks_wraps_resnet50s_stride1_bottlenecks():
     x = torch.randn(1, 64, 8, 8)
     want = first.block(x)
     torch.testing.assert_close(first(x), want, rtol=1e-5, atol=1e-5)
-    desc = first._desc
+    # what the operator's CUDA implementation keeps for the module's tensors
+    monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
+
+    def kept():
+        rows = first._rows()
+        return tbn.kept_args(first.w1, first.w2, first.w3, first.wd,
+                             [rows.get(r) for r in tbn.ROWS], torch.device("cpu"))
+
     rows = first._rows()
-    assert [v is rows.get(r) for r, v in zip(tbn.ROWS, desc.rows)] == [True] * len(tbn.ROWS)
     assert rows["scaled"] is first.block.downsample[1].scale
+    args = kept()
+    # the rows are read where the module holds them: no copies
+    assert [p == (0 if rows.get(r) is None else rows[r].data_ptr()) for r, p in
+            zip(tbn.ROWS, args.ptrs[8:])] == [True] * len(tbn.ROWS)
     first(x)
-    assert first._desc is desc  # made once
+    assert kept() is args  # made once
     model.to(torch.bfloat16)
     first(x.to(torch.bfloat16))
-    assert first._desc is not desc
-    assert first._desc.key == tbn.desc_key(first.w1, first.w2, first.w3, first.wd,
-                                           first._rows())
+    again = kept()
+    assert again is not args and again.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("batch", [1, 4])

@@ -9,6 +9,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from flax import nnx
@@ -22,8 +23,9 @@ from bnn_tpu_torch.ops import binarizers as tops
 from bnn_tpu_torch.parallel import make_train_step
 from bnn_tpu_torch.utils import (cast_floats, load_checkpoint, restore_into,
                                  restore_optimizer, save_checkpoint)
+from bnn_tpu_torch.utils import jax_to_port
 from test_torch_training import (_OPTIMIZERS, _assert_state_close, _batches,
-                                 _nchw, _pair)
+                                 _flat, _nchw, _pair)
 
 BC = bt.BConfig(tops.BasicInputBinarizer, tops.BasicScaleBinarizer,
                 tops.XNORWeightBinarizer)
@@ -251,7 +253,8 @@ def test_restore_optimizer_refusals(tmp_path):
         restore_optimizer(opt7, load_checkpoint(path))
     skipped = restore_optimizer(opt7, load_checkpoint(path), strict=False)
     assert skipped == ["state.4", "state.5"]  # the head's weight and bias
-    assert opt7.param_groups[0]["lr"] == 1e-3
+    # the live optimizer's hyperparameters stay, as in the JAX package
+    assert opt7.param_groups[0]["lr"] == 1e-2
     assert torch.equal(opt7.state[other[0].weight]["exp_avg"],
                        opt.state[net[0].weight]["exp_avg"])
     assert other[5].weight not in opt7.state
@@ -305,3 +308,45 @@ def test_resume_matches_jax_in_float64(tmp_path):
         _assert_state_close(jm2, tm2, 1e-4)
         # the restored JAX model carries into the port as the port's does
         assert _jax_flat_state(jm2).keys() >= {"conv1.kernel", "fc.bias"}
+
+
+def test_resume_at_a_new_lr_matches_jax_in_float64(tmp_path):
+    """Both packages take one Adam step at 1e-3, save, resume into an
+    optimizer built at 1e-2 and step again (fp32 config, float64): the
+    resumed step keeps the live LR in both, so the two updates agree within
+    1e-4 (relative L2 of each tensor) and the port's ``lr`` reads 1e-2."""
+    batches = _batches(2)
+    with jax.enable_x64(True):
+        jm, tm = _pair("fp32")
+        bnn_tpu.utils.cast_floats(jm, jnp.float64)
+        tm.double()
+        jstep, tstep = jax_train_step(), make_train_step()
+
+        def step(j_model, j_opt, t_model, t_opt, x, y):
+            jstep(j_model, j_opt, jnp.asarray(x, jnp.float64), jnp.asarray(y))
+            tstep(t_model, t_opt, _nchw(x).double(), torch.from_numpy(y).long())
+
+        jopt = nnx.Optimizer(jm, optax.adam(1e-3), wrt=nnx.Param)
+        opt = torch.optim.Adam(tm.parameters(), lr=1e-3)
+        step(jm, jopt, tm, opt, *batches[0])
+        jckpt.save_checkpoint(str(tmp_path / "jax"), jm, opt_state=jopt)
+        save_checkpoint(str(tmp_path / "port"), tm, opt_state=opt)
+        jopt2 = nnx.Optimizer(jm, optax.adam(1e-2), wrt=nnx.Param)
+        opt2 = torch.optim.Adam(tm.parameters(), lr=1e-2)
+        jckpt.restore_optimizer(jopt2, jckpt.load_checkpoint(str(tmp_path / "jax")))
+        restore_optimizer(opt2, load_checkpoint(str(tmp_path / "port")))
+        assert opt2.param_groups[0]["lr"] == 1e-2
+        before_j = jax_to_port(tm, _flat(nnx.state(jm, nnx.Param)))
+        before_t = {k: v.clone() for k, v in tm.state_dict().items()}
+        step(jm, jopt2, tm, opt2, *batches[1])
+        after_j = jax_to_port(tm, _flat(nnx.state(jm, nnx.Param)))
+        after_t = tm.state_dict()
+        worst, largest = 0.0, 0.0
+        for k, v in after_j.items():
+            want = v.double() - before_j[k].double()
+            got = after_t[k].double() - before_t[k].double()
+            worst = max(worst, float((got - want).norm() / (want.norm() + 1e-12)))
+            largest = max(largest, float(got.abs().max()))
+        assert worst < 1e-4, worst
+        # Adam's first steps move a weight by about lr: the live 1e-2
+        assert 5e-3 < largest <= 1.1e-2, largest

@@ -35,6 +35,8 @@ from bnn_tpu_torch.kernels import (_blocks, fused_bottleneck_reference,
                                    fused_downsample_block,
                                    fused_downsample_block_reference)
 from bnn_tpu_torch.kernels.stem import stem_key
+from bnn_tpu_torch.kernels import bottleneck as tbn
+from bnn_tpu_torch.kernels import strided_block as tstrided
 from bnn_tpu_torch.kernels.strided_block import (_transform_w1,
                                                  downsample_block_desc)
 from bnn_tpu_torch.ops import binarizers as tops
@@ -187,22 +189,37 @@ def _down_reference(fb, x):
     return y.permute(0, 3, 1, 2)
 
 
+def _kept_down(fb):
+    """The kernel arguments the operator's CUDA implementation keeps for the
+    tensors FusedDownBlock passes it (made on the CPU here)."""
+    b = fb.block
+    dconv = b.downsample[1]
+    return tstrided.kept_args(
+        fb.w1, fb.w2, fb.wd, b.conv1.scale, b.conv1.add, b.conv2.scale,
+        b.conv2.add, dconv.scale, dconv.add, _act_kind(b.act1)[1],
+        _act_kind(b.act2)[1], b.conv1.threshold, b.conv2.threshold,
+        dconv.threshold, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("how", ["keep", "in_place", "load_state_dict"])
-def test_fused_down_block_keeps_its_desc_until_its_weights_change(r34_layer4, how):
-    """FusedDownBlock makes its descriptor at the first fused forward and
-    runs every later one with it; a weight changed in place since (by hand
-    or by load_state_dict) makes it build a new one, whose K-major copies
-    are the new weights', so the next forward computes with them."""
+def test_fused_down_block_keeps_its_desc_until_its_weights_change(
+        r34_layer4, monkeypatch, how):
+    """The kernel arguments of FusedDownBlock's tensors are made once and
+    serve every later forward; a weight changed in place since (by hand or
+    by load_state_dict) makes the operator build new ones, whose K-major
+    copies are the new weights', and the next forward computes with them."""
+    monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
     fb = copy.deepcopy(r34_layer4[0])
-    assert isinstance(fb, FusedDownBlock) and fb._desc is None
+    assert isinstance(fb, FusedDownBlock) and not hasattr(fb, "_desc")
     x = torch.randn(1, 256, 4, 4, generator=torch.Generator().manual_seed(4))
     first = fb(x)
-    desc = fb._desc
-    old_w1t = desc.kmajor("cpu")[0]
+    kept = _kept_down(fb)
+    old_w1t = kept.derived[0]  # conv1's K-major copy, its 9 * C_in taps
+    assert kept.ptrs[3] == old_w1t.data_ptr()
     torch.testing.assert_close(first, _down_reference(fb, x), rtol=0, atol=0)
     if how == "keep":
         torch.testing.assert_close(fb(x), first, rtol=0, atol=0)
-        assert fb._desc is desc and fb._desc.kmajor("cpu")[0] is old_w1t
+        assert _kept_down(fb) is kept and _kept_down(fb).derived[0] is old_w1t
         return
     if how == "in_place":
         fb.wd.neg_()
@@ -212,9 +229,9 @@ def test_fused_down_block_keeps_its_desc_until_its_weights_change(r34_layer4, ho
         state["w1"], state["wd"] = -state["w1"], -state["wd"]
         fb.load_state_dict(state)
     again = fb(x)
-    assert fb._desc is not desc
-    np.testing.assert_array_equal(fb._desc.kmajor("cpu")[0].numpy(),
-                                  -old_w1t.numpy())
+    new = _kept_down(fb)
+    assert new is not kept
+    np.testing.assert_array_equal(new.derived[0].numpy(), -old_w1t.numpy())
     assert not torch.equal(again, first)
     torch.testing.assert_close(again, _down_reference(fb, x), rtol=0, atol=0)
 
@@ -225,25 +242,32 @@ def _fused_bottleneck():
     model = _binary(ResNet(Bottleneck, [1, 1, 1, 1], num_classes=10,
                            generator=torch.Generator().manual_seed(0)))
     fb = Predictor(model, batch_size=1, device="cpu", dtype=None).model.layer1[0]
-    assert isinstance(fb, FusedBottleneck) and fb._desc is None
+    assert isinstance(fb, FusedBottleneck) and not hasattr(fb, "_desc")
     return fb
 
 
+def _kept_bottleneck(fb):
+    rows = fb._rows()
+    return tbn.kept_args(fb.w1, fb.w2, fb.w3, fb.wd, [rows.get(r) for r in tbn.ROWS],
+                         torch.device("cpu"))
+
+
 @pytest.mark.parametrize("how", ["in_place", "load_state_dict", "cast"])
-def test_fused_bottleneck_rebuilds_its_desc_after_its_weights_change(how):
-    """FusedBottleneck keeps its BottleneckDesc across forwards; after w1
-    changes in place (by hand or by load_state_dict) it builds a new one,
-    whose K-major copies are the new weights', and the forward equals
-    fused_bottleneck_reference on them; a cast that replaces tensors it was
-    made from rebuilds it too."""
+def test_fused_bottleneck_rebuilds_its_desc_after_its_weights_change(monkeypatch, how):
+    """The kernel arguments of FusedBottleneck's tensors are kept across
+    forwards; after w1 changes in place (by hand or by load_state_dict) the
+    operator builds new ones, whose K-major copies are the new weights', and
+    the forward equals fused_bottleneck_reference on them; a cast that
+    replaces tensors they were made from rebuilds them too."""
+    monkeypatch.setattr(_blocks, "_check_cuda", lambda name, device: None)
     fb = _fused_bottleneck()
     c = fb.w1.shape[0]
     x = torch.randn(1, c, 8, 8, generator=torch.Generator().manual_seed(5))
     first = fb(x)
-    desc = fb._desc
-    old_w1t = desc.kmajor("cpu")[0]
+    kept = _kept_bottleneck(fb)
+    old_w1t = kept.derived[0]
     torch.testing.assert_close(fb(x), first, rtol=0, atol=0)
-    assert fb._desc is desc
+    assert _kept_bottleneck(fb) is kept
     if how == "in_place":
         fb.w1.neg_()
     elif how == "load_state_dict":
@@ -253,8 +277,9 @@ def test_fused_bottleneck_rebuilds_its_desc_after_its_weights_change(how):
     else:
         fb.double().float()
     again = fb(x)
-    assert fb._desc is not desc and fb._desc.key[0][1] == fb.w1._version
-    w1t = fb._desc.kmajor("cpu")[0]
+    new = _kept_bottleneck(fb)
+    assert new is not kept
+    w1t = new.derived[0]
     np.testing.assert_array_equal(w1t.numpy(), fb.w1.t().numpy())
     if how == "cast":
         torch.testing.assert_close(again, first, rtol=0, atol=0)

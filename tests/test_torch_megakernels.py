@@ -28,6 +28,9 @@ from bnn_tpu_torch.kernels import (BlockParams, fused_basic_block,
                                    fused_downsample_block_reference, fused_pair,
                                    fused_pair_reference)
 from bnn_tpu_torch.kernels import strided_block as tstrided
+from bnn_tpu_torch.kernels.block import fused_basic_block_cuda
+from bnn_tpu_torch.kernels.model import flatten, fused_chain_cuda
+from bnn_tpu_torch.kernels.strided_block import fused_downsample_block_cuda
 
 
 def _pm1(rng, *shape):
@@ -292,19 +295,26 @@ def test_block_kernels_reject_bad_shapes():
 
 
 def _wrapper_call(kernel, x, w, one):
+    """The operator's CUDA implementation, called as the dispatcher calls it
+    on CUDA tensors (without a card, the meta device stands in)."""
+    tail = ("relu", "relu", False, True, None)
     if kernel == "basic":
-        return fused_basic_block(x, w, w, one, one, one, one)
+        return fused_basic_block_cuda(x, w, w, one, one, one, one, *[None] * 4,
+                                      *tail)
     if kernel == "down":
-        return fused_downsample_block(x, w, w, w[0, 0], *[one] * 6)
-    return fused_chain(x, [BlockParams("basic", w, w, scale1=one)])
+        return fused_downsample_block_cuda(x, w, w, w[0, 0], *[one] * 6,
+                                           *[None] * 5, *tail)
+    arrays, kinds = flatten([BlockParams("basic", w, w, scale1=one)])
+    return fused_chain_cuda(x, arrays, kinds, None, None, *tail)
 
 
 @pytest.mark.parametrize("kernel", ["basic", "down", "chain"])
 def test_cuda_wrappers_refuse_mixed_devices(kernel):
-    """Off the CPU a wrapper launches its kernel or raises: weights on
-    another device than x raise before anything is built, and so does a
-    device that is not CUDA. Without a card here, the meta device stands in
-    for it."""
+    """Off the CPU an operator launches its kernel or raises: its CUDA
+    implementation refuses weights on another device than x before anything
+    is built, and a device that is not CUDA. Without a card here, the meta
+    device stands in for it (through the dispatcher, meta tensors take the
+    fake implementation: shapes only)."""
     x = torch.zeros(1, 4, 4, 8, device="meta")
     w = torch.ones(3, 3, 8, 8, dtype=torch.int8)
     with pytest.raises(ValueError, match="every tensor on meta"):

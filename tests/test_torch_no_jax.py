@@ -39,10 +39,12 @@ def test_pattern_catches_what_it_must():
                                     "inference/compress.py",
                                     "inference/batching.py",
                                     "examples/__init__.py",
-                                    "examples/serve.py"])
+                                    "examples/serve.py",
+                                    "kernels/ops.py",
+                                    "inference/export.py"])
 def test_training_modules_are_checked(module):
-    """The training and serving slices' modules are among the sources
-    checked above."""
+    """The training and serving slices' modules, the kernel operators and
+    the serving bundle are among the sources checked above."""
     path = ROOT / "bnn_tpu_torch" / module
     assert path in _port_sources()
     assert not _FORBIDDEN.findall(path.read_text())

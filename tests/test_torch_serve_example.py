@@ -2,7 +2,10 @@
 32x32 with 10 classes: batched requests, a continuous stream, and serving a
 checkpoint, whose logits equal the JAX package's serve path on the same
 weights (carried by load_jax_state)."""
+import os
 import re
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,7 @@ from test_torch_serving import _flat, _nchw, _randomized, _write_flat
 
 ARGS = ["--device", "cpu", "--num-classes", "10", "--size", "32",
         "--batch-size", "4", "--requests", "2"]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_batched_requests(capsys):
@@ -70,3 +74,32 @@ def test_device_defaults_to_cuda():
         pytest.skip("a card is present: the default is served, not refused")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--num-classes", "10", "--size", "32", "--requests", "1"])
+
+
+def _cli(*args):
+    """``python -m bnn_tpu_torch.examples.serve`` as a subprocess."""
+    run = subprocess.run([sys.executable, "-m", "bnn_tpu_torch.examples.serve",
+                          *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    return run.stdout.splitlines()
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_export_then_load(tmp_path, stream):
+    """--export writes a bundle and exits; --load serves it (batched
+    requests, or with --continuous a stream) without building a model, and
+    prints the bundle's platforms, batch and state bytes first."""
+    path = str(tmp_path / "bundle")
+    out = _cli(*ARGS, "--export", path)
+    assert out[0].startswith("serving state: ")
+    assert out[-1] == f"exported serving bundle to {path} (serve it with --load {path})"
+    assert sorted(os.listdir(path)) == ["meta.json", "program.pt2"]
+    out = _cli("--device", "cpu", "--load", path, "--requests", "2",
+               *(["--continuous", "--stream-rps", "500"] if stream else []))
+    assert re.fullmatch(rf"loaded bundle {re.escape(path)}: platforms \['cpu'\], "
+                        r"batch 4, state [0-9.]+ MB", out[0]), out[0]
+    if stream:
+        assert re.match(r"stream: 8 requests \(8 images\)", out[-1]), out
+    else:
+        assert [line.split(":")[0] for line in out[1:]] == ["request 0", "request 1"]

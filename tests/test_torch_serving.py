@@ -179,15 +179,16 @@ def _tiny():
     (dict(binary_gemm_impl="popcount", fuse=True), ValueError,
      "incompatible with fuse=True"),
     (dict(mesh=object(), fuse=False), NotImplementedError, "multi-device"),
-    # the serving bundle waits for the kernels as torch.library custom ops
-    (dict(export=("bundle", (3, 8, 8))), NotImplementedError, "custom ops"),
+    # a serving bundle runs on the device type it is exported on
+    (dict(export=("bundle", (3, 8, 8), ["cuda"])), ValueError, "device type"),
 ])
-def test_predictor_loud_errors(kwargs, error, match):
+def test_predictor_loud_errors(kwargs, error, match, tmp_path):
     kwargs = {"batch_size": 8, "device": "cpu", **kwargs}
     export = kwargs.pop("export", None)
     with pytest.raises(error, match=match):
         pred = Predictor(_tiny(), **kwargs)
-        pred.export(*export)
+        path, shape, platforms = export
+        pred.export(str(tmp_path / path), shape, platforms=platforms)
 
 
 @pytest.mark.parametrize("kwargs", [dict(batch_size=4),

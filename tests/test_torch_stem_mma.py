@@ -17,8 +17,8 @@ from torch import nn
 from bnn_tpu.kernels import stem as jstem
 from bnn_tpu_torch.inference.stem import FusedStem
 from bnn_tpu_torch.kernels import StemDesc, fused_stem, fused_stem_reference
-from bnn_tpu_torch.kernels.stem import (KP, PASSES, k_tap_channel, split_pieces,
-                                        stem_key, stem_passes)
+from bnn_tpu_torch.kernels.stem import (KP, PASSES, k_tap_channel, kept_stem,
+                                        split_pieces, stem_passes)
 
 _HEADER = (Path(__file__).resolve().parent.parent / "bnn_tpu_torch" / "csrc"
            / "stem_common.cuh").read_text()
@@ -175,29 +175,33 @@ def test_window_reads_are_conflict_free():
 
 
 def test_fused_stem_desc_is_kept_and_rebuilt():
+    """The stem's kernel layout that the operator's CUDA implementation
+    reads for FusedStem's weights (``kept_stem``) is made once, and made
+    again after an in-place update, a cast, a replacement or a move."""
     torch.manual_seed(0)
     conv = nn.Conv2d(3, 64, 7, 2, 3)
     stem = FusedStem(conv)
-    d1 = stem.desc()
-    assert stem.desc() is d1
-    assert d1.key == stem_key(conv.weight.permute(2, 3, 1, 0), conv.bias)
+    d1 = kept_stem(*stem.weights())
+    assert kept_stem(*stem.weights()) is d1
+    assert stem.weights()[0].data_ptr() == conv.weight.data_ptr()
     with torch.no_grad():  # an in-place update bumps the version
         conv.weight.mul_(2.0)
-    d2 = stem.desc()
+    d2 = kept_stem(*stem.weights())
     assert d2 is not d1
     assert torch.equal(d2.wk, StemDesc(conv.weight.detach().permute(2, 3, 1, 0)).wk)
     with torch.no_grad():
         conv.bias.add_(1.0)
-    d3 = stem.desc()
+    d3 = kept_stem(*stem.weights())
     assert d3 is not d2 and torch.equal(d3.bias_f32, conv.bias.detach())
     stem.to(torch.bfloat16)  # a cast
-    d4 = stem.desc()
-    assert d4 is not d3 and d4.wk.shape[0] == 1 and d4.w.dtype == torch.bfloat16
+    d4 = kept_stem(*stem.weights())
+    assert d4 is not d3 and d4.wk.shape[0] == 1
+    assert stem.weights()[0].dtype == torch.bfloat16
     conv.weight = nn.Parameter(conv.weight.detach().float())  # replaced, not cast
-    d5 = stem.desc()
+    d5 = kept_stem(*stem.weights())
     assert d5 is not d4 and d5.wk.shape[0] == 3
     stem.to("meta")  # a device move
-    d6 = stem.desc()
+    d6 = kept_stem(*stem.weights())
     assert d6 is not d5 and d6.wk.device.type == "meta"
 
 
