@@ -17,6 +17,7 @@ from .binarize import (
     prepare_binary_model,
     swap_modules_by_name,
 )
+from .engine import BinaryChef, RecipeError
 from . import (functional, inference, kernels, layers, models, nn, ops,
                parallel, utils)
 
@@ -26,6 +27,8 @@ __all__ = [
     "get_modules_to_binarize",
     "swap_modules_by_name",
     "prepare_binary_model",
+    "BinaryChef",
+    "RecipeError",
     "functional",
     "inference",
     "kernels",

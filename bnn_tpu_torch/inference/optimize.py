@@ -150,6 +150,8 @@ def optimize_deployed(model: nn.Module) -> int:
         elif isinstance(m, (BasicBlock, Bottleneck)):
             folded += _fold_block(m, _BLOCK_PAIRS, after=True)
         elif isinstance(m, (PreBasicBlock, PreBottleneck)):
+            # HBlock is not one of these: an activation sits between each of
+            # its BNs and convs, which breaks the threshold identity
             folded += _fold_block(m, _BLOCK_PAIRS, after=False)
         elif isinstance(m, ResNet) and m.stem_type == "basic":
             if isinstance(m.bn1, nn.BatchNorm2d) and fold_bn_after(m.conv1, m.bn1):

@@ -1,10 +1,10 @@
 """BNN-adapted ResNet family (counterpart of ``bnn_tpu/models/resnet.py``).
 
 BNN-specific deltas from a vanilla ResNet: a pluggable ``block_type`` and
-``activation``, and an AvgPool -> 1x1 conv -> BN shortcut on strided stages.
-Attribute names (``conv1``, ``layer1..4``, ``downsample.1`` ...) match the
-reference, so recipes and checkpoints address layers by the same paths.
-Only the basic stem is ported; the DaBNN stem is still to come.
+``activation``, ``stem_type='basic' | 'dabnn'`` (the DaBNN stem), and an
+AvgPool -> 1x1 conv -> BN shortcut on strided stages. Attribute names
+(``conv1``, ``layer1..4``, ``downsample.1`` ...) match the reference, so
+recipes and checkpoints address layers by the same paths.
 """
 from __future__ import annotations
 
@@ -17,9 +17,43 @@ from torch import nn
 from ..nn import BatchNorm2d, MaxPool2d
 from ..utils.precision import promote_call
 from .layers import BasicBlock, Bottleneck, conv1x1
+from .layers.common import make_activation
 
 _STAGE_WIDTHS = (64, 128, 256, 512)
 _STEM_WIDTH = 64
+
+
+def _cba(cin: int, cout: int, k: int, stride: int, norm: Callable,
+         activation) -> nn.Sequential:
+    """conv(k x k, no bias) -> norm -> activation."""
+    return nn.Sequential(
+        nn.Conv2d(cin, cout, kernel_size=k, stride=stride, padding=k // 2,
+                  bias=False),
+        norm(cout),
+        make_activation(activation, cout),
+    )
+
+
+class DaBNNStem(nn.Module):
+    """DaBNN efficient stem: a stride-2 3x3 trunk feeding a 1x1-squeeze /
+    3x3-stride-2 conv branch and a maxpool branch, whose concatenation a
+    1x1 conv mixes. It downsamples by 4, as conv7x7/s2 + maxpool does."""
+
+    def __init__(self, planes: int, norm_layer: Optional[Callable] = None,
+                 activation=nn.ReLU):
+        super().__init__()
+        norm = BatchNorm2d if norm_layer is None else norm_layer
+        half, quarter = planes // 2, planes // 4
+        self.conv1 = _cba(3, half, 3, 2, norm, activation)
+        self.conv2_1 = _cba(half, quarter, 1, 1, norm, activation)
+        self.conv2_2 = _cba(quarter, half, 3, 2, norm, activation)
+        self.conv3 = _cba(planes, planes, 1, 1, norm, activation)
+        self.maxpool = MaxPool2d(kernel_size=3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        trunk = self.conv1(x)
+        conv_path = self.conv2_2(self.conv2_1(trunk))
+        return self.conv3(torch.cat([conv_path, self.maxpool(trunk)], dim=1))
 
 
 def _avgpool_shortcut(cin: int, cout: int, stride: int,
@@ -78,16 +112,18 @@ class ResNet(nn.Module):
             raise ValueError(
                 "replace_stride_with_dilation should be None or a 3-element "
                 f"tuple, got {replace_stride_with_dilation}")
-        if stem_type == "dabnn":
-            raise NotImplementedError(
-                "the DaBNN stem (bnn_tpu/models/resnet.py DaBNNStem) is not "
-                "ported yet")
-        if stem_type != "basic":
-            raise ValueError(f"Unknown stem_type {stem_type!r}")
         self.stem_type = stem_type
-        self.conv1 = nn.Conv2d(3, _STEM_WIDTH, kernel_size=7, stride=2,
-                               padding=3, bias=False)
-        self.bn1 = norm(_STEM_WIDTH)
+        if stem_type == "basic":
+            self.conv1 = nn.Conv2d(3, _STEM_WIDTH, kernel_size=7, stride=2,
+                                   padding=3, bias=False)
+            self.bn1 = norm(_STEM_WIDTH)
+        elif stem_type == "dabnn":
+            # the requested activation reaches the stem too, as in the JAX
+            # package (the reference hard-codes ReLU there)
+            self.conv1 = DaBNNStem(_STEM_WIDTH, norm_layer=norm,
+                                   activation=activation)
+        else:
+            raise ValueError(f"Unknown stem_type {stem_type!r}")
         self.relu = nn.ReLU()
         self.maxpool = MaxPool2d(kernel_size=3, stride=2, padding=1)
 
@@ -132,7 +168,9 @@ class ResNet(nn.Module):
                 m.bn2.weight.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.conv1(x)
+        if self.stem_type == "basic":
+            x = self.maxpool(self.relu(self.bn1(x)))
         for i in (1, 2, 3, 4):
             x = getattr(self, f"layer{i}")(x)
         return promote_call(self.fc, torch.flatten(self.avgpool(x), 1))

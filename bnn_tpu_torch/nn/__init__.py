@@ -1,18 +1,24 @@
 """Float layers whose training semantics follow ``bnn_tpu/nn`` (counterpart
 of ``bnn_tpu/nn/__init__.py``).
 
-The model zoo builds these in place of ``torch.nn``'s: each subclasses the
-torch layer, so every ``isinstance`` test of the serving passes holds, and
-differs only where the JAX package trains differently.
+The model zoo builds these in place of ``torch.nn``'s: each norm and pool
+subclasses the torch layer, so every ``isinstance`` test of the serving
+passes holds, and differs only where the JAX package computes differently.
+``MultiheadAttention`` is the JAX package's own (four ``nn.Linear``
+projections, which ``prepare_binary_model`` binarizes), not torch's.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import functional as F
 
-__all__ = ["BatchNorm1d", "BatchNorm2d", "MaxPool2d"]
+__all__ = ["BatchNorm1d", "BatchNorm2d", "MaxPool2d", "LayerNorm",
+           "MultiheadAttention"]
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -78,3 +84,75 @@ class MaxPool2d(nn.MaxPool2d):
             return super().forward(x)
         return F.max_pool(x, self.kernel_size, self.stride, self.padding,
                           self.ceil_mode, self.dilation)
+
+
+class LayerNorm(nn.LayerNorm):
+    """Layer norm over the last axis with flax's arithmetic: the statistics
+    in at least f32, the variance in flax's default fast form
+    ``max(0, mean(x^2) - mean(x)^2)``, then ``(x - mean) * (rsqrt(var + eps)
+    * weight) + bias``; the output takes the promoted dtype of the input and
+    the parameters."""
+
+    def __init__(self, normalized_shape: int, eps: float = 1e-5,
+                 elementwise_affine: bool = True, **kwargs):
+        super().__init__(normalized_shape, eps=eps,
+                         elementwise_affine=elementwise_affine, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = tuple(range(-len(self.normalized_shape), 0))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims, keepdim=True)
+        var = torch.clamp_min(xf.square().mean(dims, keepdim=True)
+                              - mean.square(), 0.0)
+        mul = torch.rsqrt(var + self.eps)
+        out_dtype = x.dtype
+        if self.weight is not None:
+            mul = mul * self.weight
+            out_dtype = torch.promote_types(out_dtype, self.weight.dtype)
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
+            out_dtype = torch.promote_types(out_dtype, self.bias.dtype)
+        return y.to(out_dtype)
+
+
+class MultiheadAttention(nn.Module):
+    """Multi-head attention built from four ``nn.Linear`` projections, so
+    that ``prepare_binary_model`` binarizes them like any other dense layer.
+
+    Inputs are ``(N, L, E)``; ``key`` defaults to ``query`` and ``value`` to
+    ``key``; ``mask`` is additive, broadcastable to ``(N, heads, L, S)``.
+    The logits are scaled after the product ``q k^T``, as in the JAX
+    package."""
+
+    def __init__(self, embed_dim: int, num_heads: int, bias: bool = True):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+        self.k_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+        self.v_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        n, length, _ = t.shape
+        return t.reshape(n, length, self.num_heads, self.head_dim).transpose(1, 2)
+
+    def forward(self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
+                value: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        key = query if key is None else key
+        value = key if value is None else value
+        q = self._heads(self.q_proj(query))
+        k = self._heads(self.k_proj(key))
+        v = self._heads(self.v_proj(value))
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(self.head_dim)
+        if mask is not None:
+            logits = logits + mask
+        out = torch.softmax(logits, dim=-1) @ v
+        n, length = query.shape[:2]
+        return self.out_proj(out.transpose(1, 2).reshape(n, length, self.embed_dim))

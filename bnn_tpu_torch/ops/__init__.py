@@ -6,6 +6,7 @@ from .binarizers import (
     BasicInputBinarizer,
     BasicScaleBinarizer,
     BinarizerBase,
+    RandomStream,
     Identity,
     StochasticInputBinarizer,
     XNORScaleBinarizer,
@@ -24,6 +25,7 @@ __all__ = [
     "resolve",
     "registered_names",
     "BinarizerBase",
+    "RandomStream",
     "Identity",
     "BasicInputBinarizer",
     "StochasticInputBinarizer",

@@ -23,6 +23,7 @@ from .ste import (resolve_surrogate, sign_pm1_ste, sign_ste,
 
 __all__ = [
     "BinarizerBase",
+    "RandomStream",
     "Identity",
     "BasicInputBinarizer",
     "StochasticInputBinarizer",
@@ -89,20 +90,19 @@ class BasicInputBinarizer(BinarizerBase):
 _STOCHASTIC_SEED = itertools.count()
 
 
-@register
-class StochasticInputBinarizer(BinarizerBase):
-    """Stochastic sign binarizer with a stream of its own on each device.
+class RandomStream(nn.Module):
+    """A seeded random stream of its own on each device.
 
-    Its noise is drawn on the input's device, from a ``torch.Generator`` of
-    that device seeded with the instance's seed (``seed``, the given
-    ``generator``'s initial seed, or ``_STOCHASTIC_SEED``'s next value), made
-    at the first call there and kept.
+    Draws come from a ``torch.Generator`` of the tensor's device, seeded
+    with the instance's seed (``seed``, the given ``generator``'s initial
+    seed, or ``_STOCHASTIC_SEED``'s next value), made at the first call
+    there and kept.
 
     The seed and each device's generator state are the module's extra state
-    (``_extra_state`` in its ``state_dict``), as the JAX binarizer's
-    ``nnx.Rngs`` are part of its state: a restored binarizer draws on from
-    where the saved one stopped. A saved state of a device this process has
-    no generator on yet is applied when the generator is made."""
+    (``_extra_state`` in its ``state_dict``), as a JAX module's ``nnx.Rngs``
+    are part of its state: a restored stream draws on from where the saved
+    one stopped. A saved state of a device this process has no generator on
+    yet is applied when the generator is made."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None):
@@ -140,6 +140,13 @@ class StochasticInputBinarizer(BinarizerBase):
                 self._generators[device].set_state(s)
             else:
                 self._saved_states[name] = s
+
+
+@register
+class StochasticInputBinarizer(RandomStream, BinarizerBase):
+    """Stochastic sign binarizer with a stream of its own on each device
+    (:class:`RandomStream`: seed and generator states travel in its
+    ``state_dict``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return stochastic_sign_ste(x, self.generator(x.device))

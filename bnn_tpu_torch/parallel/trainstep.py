@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.binarizers import StochasticInputBinarizer
+from ..ops.binarizers import RandomStream
 from ..utils.precision import cast_float_tree
 
 __all__ = ["cross_entropy_mean", "make_train_step", "make_eval_step"]
@@ -53,10 +53,10 @@ def _mixed_forward(model: nn.Module, x: torch.Tensor, compute_dtype):
 @contextlib.contextmanager
 def _as_first_forward(model: nn.Module, generators, start_states):
     """Run a checkpointed forward again as it ran the first time: each
-    stochastic binarizer's generator draws from where it stood then, and
-    buffers that the recompute writes (BatchNorm statistics) are put back,
-    so that they are written once a step. On exit the generators stand
-    where the first forward left them."""
+    random stream's generator (stochastic binarizers, drop-path) draws from
+    where it stood then, and buffers that the recompute writes (BatchNorm
+    statistics) are put back, so that they are written once a step. On exit
+    the generators stand where the first forward left them."""
     after = [g.get_state() for g in generators]
     for g, s in zip(generators, start_states):
         g.set_state(s)
@@ -76,7 +76,7 @@ def _remat(fwd: Callable, model: nn.Module, x: torch.Tensor):
     """``fwd(x)`` under ``torch.utils.checkpoint``: activations are recomputed
     in the backward instead of stored."""
     generators = [m.generator(x.device) for m in model.modules()
-                  if isinstance(m, StochasticInputBinarizer)]
+                  if isinstance(m, RandomStream)]
     start = [g.get_state() for g in generators]
     return checkpoint(fwd, x, use_reentrant=False, context_fn=lambda: (
         contextlib.nullcontext(), _as_first_forward(model, generators, start)))
@@ -93,7 +93,8 @@ def make_train_step(loss_fn: Callable = cross_entropy_mean,
       ``aux_weight * loss_fn(aux, y)``. The loss is computed in f32.
     - ``remat=True`` recomputes the whole forward in the backward
       (``torch.utils.checkpoint``), BatchNorm statistics written once and
-      stochastic binarizers drawing the same noise again.
+      random streams (stochastic binarizers, drop-path) drawing the same
+      noise again.
     - ``compute_dtype=torch.bfloat16``: forward and backward on bf16 copies
       of the parameters; masters, their gradients, the optimizer's state and
       the BatchNorm statistics stay f32.

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # phases 1 and 2 only, no result lines
     cd <checkout> && python3 <path to>/chip_smoke.py --forwards
                                      # the checkout's live forwards, timed
+    python3 chip_smoke.py --zoo      # phases 1 and 8 only, no result lines
 
 Phases, each reported on its own lines:
 
@@ -133,7 +134,32 @@ Phases, each reported on its own lines:
    over the loaded batch-8 bundle, each row within 1e-5 of a direct call;
    (e) the serve CLI's ``--export``, ``--load`` and ``--load
    --continuous``, each exiting 0;
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+8. the recipes and the rest of the model zoo: (a) every recipe of the repo
+   through ``BinaryChef`` (which YAML loader ran; the port's block reader
+   gives the same steps); (b) path D, the reference's ImageNet
+   configuration (pre-activation ResNet-18, PReLU, the DaBNN stem, 1000
+   classes, 224x224), trained through both steps of
+   ``imagenet-baseline.yaml`` on one fixed batch of 256 in bf16 compute (8
+   steps, then 5), each step's lr against the schedule computed on the CPU
+   (1e-7 relative), the first step's lr 0 leaving the weights unchanged, a
+   checkpoint between the steps restored with the schedule's position; (c)
+   path D served at batch 1, 4 and 8 in bf16 with its launches (B <= 4:
+   ``fused_chain`` for layer1, ``fused_basic_block`` for layer2.1, 3.1 and
+   4.1), every kernel call of the batch 1 and 4 forwards held against its
+   plain version, ``fused_basic_block`` timed at R18's three stage shapes,
+   the f32 build against the CPU's plain versions from the card's first
+   conv output (1e-3), latency, images/s and device busy; then after
+   ``xnor-net-plus.yaml``'s two steps at batch 4 and 8; (d) path E, the
+   BATS CIFAR network (C = 36, 20 layers, groups 4, auxiliary head),
+   trained 5 f32 steps at batch 96 (aux weight 0.4, drop-path 0.2) and
+   served at batch 1 and 8 (``binary_gemm`` per pointwise conv in gemm
+   mode, each call held against its plain version), the f32 build against
+   the CPU (1e-3), latency, images/s and device busy; (e) two binarized
+   HBlocks and LayerNorm + binarized attention, one forward and backward
+   on the card against the CPU in float64 (1e-4); (f) path D's batch-4 and
+   path E's batch-8 predictors exported and loaded in a fresh process as in
+   phase 7;
+9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--forwards`` builds the kernels of the ``bnn_tpu_torch`` in the current
@@ -850,9 +876,9 @@ def host_ms(fn, iters: int = 50) -> float:
     return t / iters * 1e3
 
 
-def forward_times(pred, xb, card, name, phase: int = 4):
+def forward_times(pred, xb, card, name, phase: int = 4, profile_iters: int = 10):
     fwd = fwd_ms(pred, xb)
-    by_kernel, _ = device_profile(lambda: pred(xb), iters=10, whole=False)
+    by_kernel, _ = device_profile(lambda: pred(xb), iters=profile_iters, whole=False)
     busy = sum(by_kernel.values())
     n = xb.shape[0]
     print(f"phase {phase}: {name}: {fwd:.3f} ms per forward, "
@@ -1304,24 +1330,27 @@ def block_grads_on_card_vs_cpu(gen, dev):
 
 
 def train_case(make_train_step, model, opts, x, y, steps, label, card,
-               profile: bool = False):
+               profile: bool = False, opt=None, phase: int = 5, after_step=None):
     """``steps`` steps on one fixed batch, each timed by CUDA events; returns
     (losses, ms a step after the warm-up steps or None, peak bytes, the
-    optimizer). With
+    optimizer). ``opt`` defaults to :func:`adamw`; ``after_step(i)`` runs
+    after step ``i``. With
     ``profile``, five more steps follow, the last two under torch.profiler:
     the device busy share of a step and the kernels that take the time."""
-    opt = adamw(model)
+    opt = adamw(model) if opt is None else opt
     step = make_train_step(**opts)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events, losses = [], []
-    for _ in range(steps):
+    for i in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         losses.append(step(model, opt, x, y)["loss"])
         end.record()
         events.append((start, end))
+        if after_step is not None:
+            after_step(i)
     torch.cuda.synchronize()
     losses = [v.item() for v in losses]
     times = [s.elapsed_time(e) for s, e in events]
@@ -1332,7 +1361,7 @@ def train_case(make_train_step, model, opts, x, y, steps, label, card,
             f"{x.shape[0] / ms * 1e3:.1f} images/s" if ms is not None
             else f"not timed after warm-up ({steps} steps; step times "
                  f"{[round(t, 2) for t in times]} ms)")
-    print(f"phase 5: case {label}: losses {[round(v, 5) for v in losses]}; {rate}; "
+    print(f"phase {phase}: case {label}: losses {[round(v, 5) for v in losses]}; {rate}; "
           f"peak memory {peak / 2**30:.2f} GiB | {card}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"case {label}: a loss is not finite")
@@ -1340,10 +1369,11 @@ def train_case(make_train_step, model, opts, x, y, steps, label, card,
         by_kernel, wall = device_profile(lambda: step(model, opt, x, y), iters=2,
                                          whole=False)
         busy = sum(by_kernel.values())
-        print(f"phase 5: case {label}: device busy {busy:.2f} ms a step, {100 * busy / wall:.1f}% "
-              f"of its {wall:.2f} ms under the profiler; by device time:")
+        print(f"phase {phase}: case {label}: device busy {busy:.2f} ms a step, "
+              f"{100 * busy / wall:.1f}% of its {wall:.2f} ms under the profiler; by "
+              "device time:")
         for kname, kms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"phase 5:   {kms:8.3f} ms  {kname[:100]}")
+            print(f"phase {phase}:   {kms:8.3f} ms  {kname[:100]}")
     return losses, ms, peak, opt
 
 
@@ -1450,16 +1480,19 @@ def train_phase(kernels, Predictor, dev, card) -> tuple:
 
 
 def check_trained_serving(pred, ref_pred, images, b, phase: int = 5,
-                          name: str = "trained ResNet-18"):
+                          name: str = "trained ResNet-18",
+                          stem=lambda model: model.conv1):
     """The card's f32 ``Predictor`` against the plain versions of the same
     path on the CPU. A ternary sign flips wherever the stem's f32 sum lands
     within its rounding of 0, and a flip moves the logits by far more than
     1e-3; so the stem is held to its phase-2 bound (1e-5) on each forward's
     input, and the CPU's forward goes on from the card's stem output, which
     holds every later kernel on the same input (1e-3, argmax equal). The
-    logits of the CPU's own stem are printed beside them."""
+    logits of the CPU's own stem are printed beside them. ``stem`` picks the
+    module whose output is fed: the model's first float layer (its float
+    stem, or the stem's first conv where binary convs follow inside it)."""
     stems = []
-    hook = pred.model.conv1.register_forward_hook(
+    hook = stem(pred.model).register_forward_hook(
         lambda mod, args, out: stems.append(out.detach().cpu()))
     got = pred(images).cpu()
     hook.remove()
@@ -1471,7 +1504,7 @@ def check_trained_serving(pred, ref_pred, images, b, phase: int = 5,
         stem_err.append((card - out).abs().max().item())
         return card
 
-    hook = ref_pred.model.conv1.register_forward_hook(swap)
+    hook = stem(ref_pred.model).register_forward_hook(swap)
     ref = ref_pred(images)
     hook.remove()
     per_image = (got - own).abs().amax(1)
@@ -1892,6 +1925,54 @@ def dispatch_costs(kernels, cases, card) -> None:
           f"{max(rows):.2f} us a call | {card}")
 
 
+def export_and_load(root, paths, card, phase: int) -> None:
+    """Export each ``{name: (predictor, launches per forward, x)}`` with
+    ``export_serving`` (the live predictor bit-identical before and after),
+    then load every bundle in one fresh ``python -c`` process that builds no
+    model (``BUNDLE_LOADER``): its logits on ``x`` bit-identical to the live
+    predictor's, its launches per forward by kernel name the given ones."""
+    from bnn_tpu_torch.inference import export_serving, state_bytes
+
+    live = {}
+    for name, (pred, want, x) in paths.items():
+        where = root / name
+        before = pred(x)
+        t0 = time.perf_counter()
+        export_serving(pred, str(where / "bundle"), tuple(x.shape[1:]))
+        export_s = time.perf_counter() - t0
+        after = pred(x)
+        if not torch.equal(before, after):
+            raise AssertionError(f"{name}: the live predictor changed after "
+                                 "its export")
+        torch.save((x, before.cpu()), where / "io.pt")
+        live[str(where)] = (name, want, export_s, state_bytes(pred.model),
+                            (where / "bundle" / "program.pt2").stat().st_size)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", BUNDLE_LOADER, json.dumps(KERNELS), *live],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        print(run.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the bundle loader exited {run.returncode}")
+    print(f"phase {phase}: {len(live)} bundles loaded in a fresh process in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in run.stdout.splitlines():
+        r = json.loads(line)
+        name, want, export_s, live_bytes, pt2 = live[r["where"]]
+        ok_counts = [a for a in r["launches"] if a == want]
+        print(f"phase {phase}: {name}: exported in {export_s:.2f} s "
+              f"({pt2} B program.pt2), loaded in {r['load_s']:.2f} s; logits "
+              f"{'bit-identical to' if r['equal'] else 'DIFFER from'} the live "
+              f"predictor's (max |diff| {r['max_abs']:.3g}); the live predictor "
+              f"unchanged by the export; launches per forward {r['launches'][0]} "
+              f"(want {want}); state_bytes {r['state_bytes']} B (the "
+              f"predictor's {live_bytes} B); loaded forward "
+              f"{r['forward_ms']:.3f} ms | {card}")
+        if not r["equal"] or not ok_counts:
+            raise AssertionError(f"{name}: the loaded bundle is not the live "
+                                 f"predictor: {r}")
+
+
 def bundle_phase(kernels, paths, images, dev, card) -> None:
     """Phase 7: (a) torch.library.opcheck of each operator on CUDA tensors;
     (b) each serving path exported, then loaded in a fresh process that
@@ -1900,8 +1981,7 @@ def bundle_phase(kernels, paths, images, dev, card) -> None:
     per forward by kernel name equal to phase 3's; (c) what dispatch costs;
     (d) a loaded bundle behind ContinuousBatcher; (e) the serve CLI's
     --export and --load."""
-    from bnn_tpu_torch.inference import (ContinuousBatcher, export_serving,
-                                         load_serving, state_bytes)
+    from bnn_tpu_torch.inference import ContinuousBatcher, load_serving
 
     gen = torch.Generator().manual_seed(SEED + 7)
     cases = op_cases(kernels, gen, dev)
@@ -1913,45 +1993,8 @@ def bundle_phase(kernels, paths, images, dev, card) -> None:
     root = SMOKE_DIR / "bundles"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        live = {}
-        for name, (pred, want) in paths.items():
-            where = root / name
-            x = images[:pred.batch_size]
-            before = pred(x)
-            t0 = time.perf_counter()
-            export_serving(pred, str(where / "bundle"), (3, SIZE, SIZE))
-            export_s = time.perf_counter() - t0
-            after = pred(x)
-            if not torch.equal(before, after):
-                raise AssertionError(f"{name}: the live predictor changed after "
-                                     "its export")
-            torch.save((x, before.cpu()), where / "io.pt")
-            live[str(where)] = (name, want, export_s, state_bytes(pred.model),
-                                (where / "bundle" / "program.pt2").stat().st_size)
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-c", BUNDLE_LOADER, json.dumps(KERNELS), *live],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if run.returncode != 0:
-            print(run.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"the bundle loader exited {run.returncode}")
-        print(f"phase 7: {len(live)} bundles loaded in a fresh process in "
-              f"{time.perf_counter() - t0:.1f} s")
-        for line in run.stdout.splitlines():
-            r = json.loads(line)
-            name, want, export_s, live_bytes, pt2 = live[r["where"]]
-            ok_counts = [a for a in r["launches"] if a == want]
-            print(f"phase 7: {name}: exported in {export_s:.2f} s "
-                  f"({pt2} B program.pt2), loaded in {r['load_s']:.2f} s; logits "
-                  f"{'bit-identical to' if r['equal'] else 'DIFFER from'} the live "
-                  f"predictor's (max |diff| {r['max_abs']:.3g}); the live predictor "
-                  f"unchanged by the export; launches per forward {r['launches'][0]} "
-                  f"(want {want}); state_bytes {r['state_bytes']} B (the "
-                  f"predictor's {live_bytes} B); loaded forward "
-                  f"{r['forward_ms']:.3f} ms | {card}")
-            if not r["equal"] or not ok_counts:
-                raise AssertionError(f"{name}: the loaded bundle is not the live "
-                                     f"predictor: {r}")
+        export_and_load(root, {name: (pred, want, images[:pred.batch_size])
+                               for name, (pred, want) in paths.items()}, card, phase=7)
         route_costs(card)
         dispatch_costs(kernels, cases, card)
         # (d) a loaded batch-8 bundle (the int8 head) behind the batcher
@@ -1987,6 +2030,390 @@ def bundle_phase(kernels, paths, images, dev, card) -> None:
                 raise AssertionError(f"the serve CLI ({flag}) exited {run.returncode}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 8: the recipes and the rest of the model zoo. Path D is the
+# reference's ImageNet configuration (examples/imagenet.py: pre-activation
+# ResNet-18, PReLU, the DaBNN stem) trained through both steps of
+# imagenet-baseline.yaml and served; path E is the BATS CIFAR network of
+# benchmarks/serving_sweep.py (C = 36, 20 layers, groups 4)
+RECIPES = (sorted((ROOT / "examples" / "recipes").glob("*.yaml"))
+           + [ROOT / "tests" / "assets" / "test.yaml"])
+# path D's training: batch, steps of recipe step 0, steps of recipe step 1
+PATH_D_TRAIN = (256, 8, 5)
+# path E's training (DARTS's CIFAR settings, which BATS follows): batch,
+# steps, auxiliary loss weight, drop-path probability; SGD below
+PATH_E_TRAIN = (96, 5, 0.4, 0.2)
+BATS_SIZE, BATS_CLASSES = 32, 10
+
+
+def randomize_norms(model, gen):
+    """BN statistics (and affine parameters where the BN has them), output
+    scales and PReLU slopes random, as after training, so that every folded
+    add and threshold is non-zero (``flagship``'s draws, any BN)."""
+    from bnn_tpu_torch.ops import BasicScaleBinarizer
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(0.3 * torch.randn(c, generator=gen))
+                m.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=gen))
+                if m.affine:
+                    m.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen))
+                    m.bias.copy_(0.3 * torch.randn(c, generator=gen))
+            elif isinstance(m, BasicScaleBinarizer):
+                m.alpha.copy_(0.5 + torch.rand(m.alpha.shape, generator=gen))
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.copy_(0.05 + 0.45 * torch.rand(m.weight.shape, generator=gen))
+    return model
+
+
+def path_d_model(recipe: str, steps: int):
+    """The reference's ImageNet configuration, 1000 classes, weights from
+    seed 0, through the first ``steps`` steps of ``recipe`` (the second with
+    ``update=True``), and the chef."""
+    import bnn_tpu_torch as bt
+
+    chef = bt.BinaryChef(str(ROOT / "examples" / "recipes" / f"{recipe}.yaml"))
+    model = bt.models.resnet18(block_type=bt.models.PreBasicBlock,
+                               activation=torch.nn.PReLU, stem_type="dabnn",
+                               num_classes=1000,
+                               generator=torch.Generator().manual_seed(SEED))
+    for i in range(steps):
+        model = chef.run_step(model, i, update=i > 0)
+    return model, chef
+
+
+def recipes_check() -> str:
+    """(a) Every recipe of the repo through ``BinaryChef``; the port's block
+    reader gives the same steps. Returns the loader's name."""
+    from bnn_tpu_torch import BinaryChef, engine
+
+    loaders = set()
+    for path in RECIPES:
+        chef = BinaryChef(str(path))
+        mine = [dict(v) for v in engine.read_block_yaml(path.read_text()).values()]
+        loaders.add(chef.loader)
+        print(f"phase 8: {path.relative_to(ROOT)}: {len(chef)} steps read by "
+              f"{chef.loader}; the port's block reader gives the same steps: "
+              f"{mine == chef.config}")
+        if mine != chef.config:
+            raise AssertionError(f"{path}: the block reader disagrees with {chef.loader}")
+    return ", ".join(sorted(loaders))
+
+
+def train_path_d(make_train_step, dev, card):
+    """(b) Path D trained through both steps of imagenet-baseline.yaml on one
+    fixed batch, bf16 compute; each step's lr against the schedule computed
+    on the CPU (1e-7 relative), the first step's lr 0 and the weights it
+    leaves unchanged; a checkpoint between the steps restored into a fresh
+    model and optimizer (the schedule's position with it)."""
+    from bnn_tpu_torch.utils import (load_checkpoint, restore_into,
+                                     restore_optimizer, save_checkpoint)
+
+    batch, steps0, steps1 = PATH_D_TRAIN
+    gen = torch.Generator().manual_seed(SEED + 17)
+    x = torch.randn((batch, 3, SIZE, SIZE), generator=gen).to(dev)
+    y = torch.randint(0, 1000, (batch,), generator=gen).to(dev)
+    model, chef = path_d_model("imagenet-baseline", 1)
+    model = model.to(dev).train()
+    opts = {"compute_dtype": torch.bfloat16}
+    for recipe_step, steps in ((0, steps0), (1, steps1)):
+        if recipe_step == 1:
+            model = chef.run_step(model, 1, update=True).to(dev).train()
+        opt = chef.make_optimizer(model, recipe_step, steps_per_epoch=1)
+        schedule = chef.lr_schedule(recipe_step, steps_per_epoch=1)
+        start = [p.detach().clone() for p in model.parameters()]
+        lrs = []
+
+        def after(i, opt=opt, schedule=schedule, start=start, lrs=lrs):
+            lr, want = opt.param_groups[0]["lr"], schedule(i)
+            lrs.append((lr, want))
+            if abs(lr - want) > 1e-7 * abs(want):
+                raise AssertionError(f"path D step {i}: lr {lr}, schedule {want}")
+            if recipe_step == 0 and i == 0 and (lr != 0.0 or not all(
+                    torch.equal(p, q) for p, q in zip(model.parameters(), start))):
+                raise AssertionError("path D: the first step (lr 0) changed the weights")
+
+        label = (f"path D, imagenet-baseline.yaml step {recipe_step} "
+                 f"({opt.__class__.__name__}), bf16 compute, batch {batch}")
+        train_case(make_train_step, model, opts, x, y, steps, label, card, opt=opt,
+                   phase=8, after_step=after)
+        print(f"phase 8: path D step {recipe_step}: lr of each optimizer step beside the "
+              f"schedule computed on the CPU: {[(f'{a:.9g}', f'{b:.9g}') for a, b in lrs]}"
+              + ("; the first step's lr is 0 and the weights after it are bit-identical "
+                 "to those before" if recipe_step == 0 else ""))
+        if recipe_step == 0:
+            path = SMOKE_DIR / "path_d"
+            save_checkpoint(str(path), model, opt_state=opt, metadata={"recipe_step": 0})
+            fresh, _ = path_d_model("imagenet-baseline", 1)
+            fresh = fresh.to(dev)
+            payload = load_checkpoint(str(path))
+            restore_into(fresh, payload)
+            fresh_opt = chef.make_optimizer(fresh, 0, steps_per_epoch=1)
+            restore_optimizer(fresh_opt, payload)
+            same = all(torch.equal(a, b) for a, b in zip(
+                fresh.state_dict().values(), model.state_dict().values())
+                if isinstance(a, torch.Tensor))
+            print(f"phase 8: path D checkpoint after step 0: state restored bit-identical "
+                  f"{same}; the restored optimizer's next lr {fresh_opt.current_lr():.9g} "
+                  f"(the live one's {opt.current_lr():.9g})")
+            if not same or fresh_opt.current_lr() != opt.current_lr():
+                raise AssertionError("path D: the checkpoint does not restore the run")
+            del fresh, fresh_opt, payload
+            shutil.rmtree(path, ignore_errors=True)
+    return model.eval()
+
+
+def zoo_calls(kernels, megablock, stages, pred, xb):
+    """(kernel, label, kernel call, plain call, args, kw, head) of every
+    fused_chain and fused_basic_block call ``pred`` makes on ``xb``."""
+    calls = []
+    for kname, module in (("fused_chain", stages), ("fused_basic_block", megablock)):
+        for args, kw in capture_calls(module, kname, lambda: pred(xb)):
+            head = kname == "fused_chain" and len(args) > 2 and args[2] is not None
+            calls.append((kname, f"{kname} {tuple(args[0].shape)}{' +head' if head else ''} "
+                          f"{str(args[0].dtype)[6:]}",
+                          lambda a=args, k=kw, f=getattr(kernels, kname): f(*a, **k),
+                          lambda a=args, k=kw, f=getattr(kernels, kname + "_reference"):
+                          f(*a, **k), args, kw, head))
+    return calls
+
+
+def serve_path_d(kernels, Predictor, trained, images, dev, card, errs, totals):
+    """(c) Path D served at batch 1, 4 and 8 in bf16 with its launches; every
+    kernel call of the batch 1 and 4 forwards held against its plain
+    version, fused_basic_block timed at R18's three stage shapes; the f32
+    build at batch 4 against the CPU's plain versions; then xnor-net-plus.yaml's two
+    steps at batch 4 and 8. Returns the batch-4 predictor."""
+    from bnn_tpu_torch.inference import megablock, stages
+
+    preds = {}
+    plan = {1: {"fused_chain": 1, "fused_basic_block": 3},
+            4: {"fused_chain": 1, "fused_basic_block": 3}, 8: {}}
+    for b in (1, 4, 8):
+        preds[b] = Predictor(copy.deepcopy(trained), batch_size=b)
+        _, launches = serve_counted(
+            kernels, preds[b], (images[:b], images[b:2 * b + 1]),
+            f"path D: DaBNN pre-act PReLU ResNet-18 Predictor(batch_size={b}) bf16",
+            plan[b], phase=8)
+        for k, v in launches.items():
+            totals[k] += v
+    for b in (1, 4):
+        for kname, label, fn, plain, args, kw, head in zoo_calls(
+                kernels, megablock, stages, preds[b], images[:b].to(dev)):
+            errs[kname] = max(errs[kname], check_exact(
+                f"path D batch {b} {label}", fn(), plain(), head, phase=8))
+            if kname == "fused_basic_block":
+                p = kernels.block.fused_basic_block_plan(args[0])
+                bound, by = block_bound(kname, args, kw, bound_ms)
+                (k_dev, k_call), (p_dev, p_call) = time_kernel(fn, plain)
+                print(f"phase 8: path D batch {b} {label}: kernel {k_dev * 1e3:.2f} us "
+                      f"device / {k_call * 1e3:.2f} us per call, plain {p_dev * 1e3:.2f} "
+                      f"us device, bound {bound * 1e3:.3f} us ({by}); grid {p['blocks']} "
+                      f"blocks, {p['resident_per_sm']} resident an SM, {p['tiles']} "
+                      f"tiles, K slices {p['k_slices']} | {card}")
+    check_trained_serving(
+        Predictor(copy.deepcopy(trained), batch_size=4, dtype=None),
+        Predictor(copy.deepcopy(trained).cpu(), batch_size=4, dtype=None, device="cpu"),
+        images[:8], 4, phase=8, name="path D trained", stem=lambda m: m.conv1.conv1[0])
+    for b in (1, 4, 8):
+        forward_times(preds[b], images[:b].to(dev), card,
+                      f"path D Predictor(batch_size={b}) bf16 {SIZE}x{SIZE}", phase=8)
+    # xnor-net-plus.yaml: the downsample shortcuts binary too
+    plus, _ = path_d_model("xnor-net-plus", 2)
+    plus = randomize_norms(plus, torch.Generator().manual_seed(SEED + 18)).eval()
+    for b, want in ((4, {"fused_chain": 4}), (8, {"binary_gemm": 1})):
+        pred = Predictor(copy.deepcopy(plus), batch_size=b)
+        fused = sorted({type(m).__name__ for m in pred.model.modules()
+                        if type(m).__name__.startswith("Fused")})
+        _, launches = serve_counted(
+            kernels, pred, (images[:b], images[b:2 * b + 1]),
+            f"path D after xnor-net-plus.yaml Predictor(batch_size={b}) bf16 (fused "
+            f"modules {fused})", want, phase=8)
+        for k, v in launches.items():
+            totals[k] += v
+        if b == 4:
+            for kname, label, fn, plain, args, kw, head in zoo_calls(
+                    kernels, megablock, stages, pred, images[:b].to(dev)):
+                errs[kname] = max(errs[kname], check_exact(
+                    f"path D xnor-net-plus batch {b} {label}", fn(), plain(), head,
+                    phase=8))
+            forward_times(pred, images[:b].to(dev), card,
+                          f"path D after xnor-net-plus.yaml Predictor(batch_size={b}) bf16",
+                          phase=8)
+    return preds[4]
+
+
+def path_e(kernels, Predictor, make_train_step, dev, card, errs, totals):
+    """(d) Path E: the BATS CIFAR network trained (aux loss, drop-path) and
+    served at batch 1 and 8 with its launches (binary_gemm per pointwise
+    conv in gemm mode); every binary_gemm call held against its plain
+    version; the f32 build at batch 2 against the CPU's plain versions.
+    Returns the batch-8 predictor."""
+    import bnn_tpu_torch as bt
+    from bnn_tpu_torch.inference import DeployedConv, DeployedLinear
+    from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer,
+                                   XNORWeightBinarizer)
+
+    deploy = importlib.import_module("bnn_tpu_torch.inference.deploy")
+    batch, steps, aux_weight, drop = PATH_E_TRAIN
+    marks = [("start", time.perf_counter())]
+    net = bt.models.BATSNetworkCIFAR(36, BATS_CLASSES, 20, True, bt.models.BATS_EXAMPLE,
+                                     groups=4, generator=torch.Generator().manual_seed(SEED),
+                                     seed=SEED)
+    net = bt.prepare_binary_model(
+        net, bt.BConfig(BasicInputBinarizer, BasicScaleBinarizer, XNORWeightBinarizer),
+        ignore_layers_name=["_first_", "_last_"]).to(dev).train()
+    net.drop_path_prob = drop
+    gen = torch.Generator().manual_seed(SEED + 19)
+    x = torch.randn((batch, 3, BATS_SIZE, BATS_SIZE), generator=gen).to(dev)
+    y = torch.randint(0, BATS_CLASSES, (batch,), generator=gen).to(dev)
+    opt = torch.optim.SGD(net.parameters(), lr=0.025, momentum=0.9, weight_decay=3e-4)
+    marks.append(("build", time.perf_counter()))
+    train_case(make_train_step, net, {"aux_weight": aux_weight}, x, y, steps,
+               f"path E: BATS CIFAR (C=36, 20 layers, groups 4, auxiliary head, "
+               f"aux_weight {aux_weight}, drop_path_prob {drop}), f32, batch {batch}, "
+               "SGD 0.025 momentum 0.9", card, opt=opt, phase=8)
+    net.eval()
+    marks.append(("train", time.perf_counter()))
+    images = torch.randn((24, 3, BATS_SIZE, BATS_SIZE), generator=gen)
+    preds = {}
+    for b in (1, 8):
+        preds[b] = Predictor(copy.deepcopy(net), batch_size=b)
+        # the auxiliary head runs in train mode only
+        served = [m for n, m in preds[b].model.named_modules()
+                  if not n.startswith("auxiliary_head")]
+        convs = [m for m in served if isinstance(m, DeployedConv)]
+        gemm = sum(m.mode == "gemm" for m in convs)
+        gemm += sum(isinstance(m, DeployedLinear) for m in served)
+        if b == 1:
+            print(f"phase 8: path E deployed: {gemm} layers on binary_gemm (gemm mode), "
+                  f"{sum(m.mode == 'conv' and m.groups > 1 for m in convs)} grouped and "
+                  f"{sum(m.mode == 'conv' and m.groups == 1 for m in convs)} ungrouped "
+                  "convs in conv mode (unfold + torch._int_mm)")
+        _, launches = serve_counted(
+            kernels, preds[b], (images[:b], images[b:2 * b + 1]),
+            f"path E: BATS CIFAR Predictor(batch_size={b}) bf16", {"binary_gemm": gemm},
+            classes=BATS_CLASSES, phase=8)
+        for k, v in launches.items():
+            totals[k] += v
+        calls = capture_calls(deploy, "binary_gemm", lambda: preds[b](images[:b].to(dev)))
+        e = [hold_gemm(kernels, f"path E B={b} call {i}", a, k, phase=8)
+             for i, (a, k) in enumerate(calls)]
+        errs["binary_gemm"] = max([errs["binary_gemm"]] + e)
+        print(f"phase 8: path E batch {b}: {len(calls)} binary_gemm calls held against "
+              f"the plain version: bit-identical; (M, K, N) "
+              f"{sorted({(a[0].shape[0], a[2], a[1].shape[1]) for a, _ in calls})}")
+    marks.append(("serve", time.perf_counter()))
+    check_trained_serving(
+        Predictor(copy.deepcopy(net), batch_size=2, dtype=None),
+        Predictor(copy.deepcopy(net).cpu(), batch_size=2, dtype=None, device="cpu"),
+        images[:2], 2, phase=8, name="path E trained", stem=lambda m: m.stem[0])
+    marks.append(("f32 vs CPU", time.perf_counter()))
+    for b in (1, 8):
+        # a forward is about 3,000 launches: the profiler's trace of 10
+        # takes tens of seconds to read back
+        forward_times(preds[b], images[:b].to(dev), card,
+                      f"path E Predictor(batch_size={b}) bf16 {BATS_SIZE}x{BATS_SIZE}",
+                      phase=8, profile_iters=2)
+    marks.append(("times", time.perf_counter()))
+    print("phase 8: path E took " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f} s" for i, (name, t) in enumerate(marks[1:])))
+    return preds[8], images, gemm
+
+
+def grads_card_vs_cpu(name, module, x, dev, tol=1e-4):
+    """(e) One train-mode forward and backward of ``module`` on ``x`` on the
+    card and on the CPU, in float64: output, input gradient and every
+    parameter gradient within ``tol`` (each against the larger of its own
+    largest value and 1e-3 of the largest parameter gradient)."""
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        m = copy.deepcopy(module).double().to(device).train()
+        xi = x.double().to(device).requires_grad_(True)
+        out = m(xi)
+        out.backward(torch.ones_like(out) * torch.linspace(-1, 1, out.shape[-1],
+                                                            device=device, dtype=out.dtype))
+        runs.append((out.detach().cpu(), xi.grad.cpu(),
+                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    (o_c, g_c, p_c), (o, g, p) = runs
+    floor = 1e-3 * max(v.abs().max().item() for v in p.values())
+    worst = max((p_c[k] - v).abs().max().item() / max(v.abs().max().item(), floor)
+                for k, v in p.items())
+    out_err, in_err = rel_max(o_c, o), rel_max(g_c, g)
+    print(f"phase 8: {name}: one forward and backward, card vs CPU (float64): output "
+          f"{out_err:.3g}, input gradient {in_err:.3g}, worst parameter gradient "
+          f"{worst:.3g} of {len(p)} (limit {tol})")
+    if max(out_err, in_err, worst) > tol:
+        raise AssertionError(f"{name}: the card differs from the CPU")
+
+
+def no_serving_paths(dev):
+    """(e) HBlock and binarized attention, which no serving path runs."""
+    import bnn_tpu_torch as bt
+    from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer, Identity,
+                                   XNORWeightBinarizer)
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    torch.manual_seed(SEED + 20)
+    hb = bt.prepare_binary_model(
+        torch.nn.Sequential(bt.models.layers.HBlock(256, 256),
+                            bt.models.layers.HBlock(256, 256)),
+        bt.BConfig(BasicInputBinarizer, BasicScaleBinarizer, XNORWeightBinarizer))
+    grads_card_vs_cpu("two binarized HBlocks (256 channels, 28x28, batch 8)",
+                      randomize_norms(hb, gen),
+                      torch.randn((8, 256, 28, 28), generator=gen), dev)
+    attn = bt.prepare_binary_model(
+        torch.nn.Sequential(bt.nn.LayerNorm(256), bt.nn.MultiheadAttention(256, 8)),
+        bt.BConfig(BasicInputBinarizer, Identity, XNORWeightBinarizer))
+    grads_card_vs_cpu("LayerNorm + binarized MultiheadAttention (256 wide, 8 heads, "
+                      "64 tokens, batch 8)", attn,
+                      torch.randn((8, 64, 256), generator=gen), dev)
+
+
+def zoo_phase(kernels, Predictor, dev, card, errs, totals) -> None:
+    """Phase 8: the recipes, paths D and E, HBlock and attention, and the two
+    paths' bundles; the counted launches join ``totals`` and the largest
+    kernel differences ``errs``."""
+    from bnn_tpu_torch.parallel import make_train_step
+
+    t0 = time.perf_counter()
+    parts, last = [], [t0]
+
+    def done(part):
+        now = time.perf_counter()
+        parts.append(f"{part} {now - last[0]:.1f} s")
+        last[0] = now
+
+    loader = recipes_check()
+    print(f"phase 8: recipes read with {loader}")
+    gen = torch.Generator().manual_seed(SEED + 21)
+    images = torch.randn((24, 3, SIZE, SIZE), generator=gen)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    try:
+        trained = train_path_d(make_train_step, dev, card)
+        done("(a)+(b)")
+        pred_d = serve_path_d(kernels, Predictor, trained, images, dev, card, errs, totals)
+        del trained
+        torch.cuda.empty_cache()
+        done("(c)")
+        pred_e, images_e, gemm_e = path_e(kernels, Predictor, make_train_step, dev,
+                                          card, errs, totals)
+        torch.cuda.empty_cache()
+        done("(d)")
+        no_serving_paths(dev)
+        done("(e)")
+        export_and_load(SMOKE_DIR / "zoo_bundles", {
+            "path_d_b4": (pred_d, {"fused_chain": 1, "fused_basic_block": 3}, images[:4]),
+            "path_e_b8": (pred_e, {"binary_gemm": gemm_e}, images_e[:8]),
+        }, card, phase=8)
+        done("(f)")
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    print(f"phase 8: took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+
 
 
 def forwards_only() -> int:
@@ -2051,6 +2478,12 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 1: {log.name.split('-')[0]}: {line.strip()}")
+    if "--zoo" in sys.argv[1:]:
+        zoo_phase(kernels, Predictor, dev, card,
+                  {"fused_chain": 0.0, "fused_basic_block": 0.0, "binary_gemm": 0.0},
+                  dict.fromkeys(KERNELS, 0))
+        print("chip_smoke: --zoo: phases 1 and 8 passed", file=sys.stderr)
+        return 0
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
                  "fused_bottleneck", "fused_stem"):
@@ -2730,14 +3163,24 @@ def main() -> int:
         "int8_head_b8": (Predictor(copy.deepcopy(qat), batch_size=BATCH,
                                    quantize_float_bits=8), r18_8),
     }, images, dev, card)
-    print("phase 8: fused_chain's numbers are the sums over the four stages of "
+    # phase 8: the recipes, paths D and E, HBlock and attention
+    zoo_errs = {"fused_chain": block_errs["fused_chain"],
+                "fused_basic_block": block_errs["fused_basic_block"],
+                "binary_gemm": gemm_err}
+    zoo_phase(kernels, Predictor, dev, card, zoo_errs, totals)
+    block_errs["fused_chain"] = zoo_errs["fused_chain"]
+    block_errs["fused_basic_block"] = zoo_errs["fused_basic_block"]
+    gemm_err = zoo_errs["binary_gemm"]
+    print("phase 9: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
           "binary_conv2d_s1's and popcount_gemm's the sums over the 13 and 36 "
           "calls of one batch-8 forward of paths B and C; launches are totals "
           "over phase 3's serving runs, phase 5's serving of the trained "
-          "weights and phase 6's counted serving runs and streams")
+          "weights, phase 6's counted serving runs and streams and phase 8's "
+          "serving runs (paths D and E); max_abs_err is the largest over every "
+          "check, phase 8's included")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",

@@ -173,5 +173,10 @@ def test_resnet_structure_and_qat_forward_match_jax(depth, block):
 
 
 def test_dabnn_stem_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="DaBNN"):
-        bt.models.resnet18(stem_type="dabnn")
+    """The name is historical: the stem it once found missing is ported now,
+    so it checks that the DaBNN stem builds (and is held against JAX in
+    tests/test_torch_zoo.py) and that an unknown stem type is refused."""
+    model = bt.models.resnet18(stem_type="dabnn")
+    assert isinstance(model.conv1, bt.models.DaBNNStem)
+    with pytest.raises(ValueError, match="stem_type"):
+        bt.models.resnet18(stem_type="nope")
