@@ -18,7 +18,7 @@ from .binarize import (
     swap_modules_by_name,
 )
 from .engine import BinaryChef, RecipeError
-from . import (functional, inference, kernels, layers, models, nn, ops,
+from . import (data, functional, inference, kernels, layers, models, nn, ops,
                parallel, utils)
 
 __all__ = [
@@ -29,6 +29,7 @@ __all__ = [
     "prepare_binary_model",
     "BinaryChef",
     "RecipeError",
+    "data",
     "functional",
     "inference",
     "kernels",

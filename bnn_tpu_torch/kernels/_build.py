@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -19,7 +20,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "build", "load"]
+__all__ = ["SOURCES", "build", "load", "host_tag", "set_build_dir"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -32,6 +33,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+def host_tag() -> str:
+    """A fingerprint of the host CPU's ISA features. Code built with
+    ``-march=native`` (``bnn_tpu_torch.native``) runs only on CPUs that have
+    the features of the CPU that built it, so its library names and build directories carry
+    this tag, and a build directory copied to another machine is not loaded
+    there."""
+    feats = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("flags", "Features")):
+                    feats += " " + " ".join(sorted(line.split()[2:]))
+                    break
+    except OSError:
+        pass
+    return hashlib.sha1(feats.encode()).hexdigest()[:10]
+
+
+def set_build_dir(path) -> Path:
+    """Build (and look for) the CUDA and native libraries in ``path`` from
+    now on; libraries already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def _nvcc() -> str:

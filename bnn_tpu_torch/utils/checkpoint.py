@@ -38,10 +38,10 @@ PAYLOAD = "checkpoint.pt"
 def gather_replicated(tree):
     """Multi-host gathering of sharded state before a save. The port has no
     multi-device state yet: it waits for ``torch.distributed`` parallelism
-    (ROADMAP queue 1, item 7)."""
+    (ROADMAP queue 1, item 5)."""
     raise NotImplementedError(
         "gather_replicated is multi-host; the port's parallelism "
-        "(ROADMAP queue 1, item 7) is not ported yet")
+        "(ROADMAP queue 1, item 5) is not ported yet")
 
 
 def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> Dict:

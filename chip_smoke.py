@@ -6,6 +6,7 @@
     cd <checkout> && python3 <path to>/chip_smoke.py --forwards
                                      # the checkout's live forwards, timed
     python3 chip_smoke.py --zoo      # phases 1 and 8 only, no result lines
+    python3 chip_smoke.py --trainer  # phases 1 and 9 only, no result lines
 
 Phases, each reported on its own lines:
 
@@ -159,7 +160,27 @@ Phases, each reported on its own lines:
    on the card against the CPU in float64 (1e-4); (f) path D's batch-4 and
    path E's batch-8 predictors exported and loaded in a fresh process as in
    phase 7;
-9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+9. the host pipeline and the training utilities: (a) ``python -m
+   bnn_tpu_torch.examples.cifar10 --synthetic --epochs 2 --batch-size 256``
+   as a subprocess, then resumed with ``--epochs 3`` (images/s of each
+   epoch after the first, the checkpoint at epoch 3 with 24 Adam steps,
+   every loss finite); (b) a uint8 store of 2,048 images of 224x224x3
+   through ``NativeDataLoader`` (pad 4, flip, ImageNet mean/std, batch 256,
+   the native path) alone, its host-to-card copy, then with
+   ``prefetch_to_device`` feeding phase 5's bf16 batch-256 flagship step, in
+   turns with the step on a batch already on the card, and the device's
+   busy share and the kernels' launches (none) over the fed steps; (c)
+   ``loop_time`` of ``binary_gemm`` at M=196 K=1024 N=512 beside
+   torch.profiler's time, ``trace()`` of ten calls holding the kernel's
+   events (a trace or profiled run that CUPTI left without device events is
+   taken again, up to three times, here and in (b)),
+   ``compiled_stats`` of a flagship forward against ``count_ops``' 2 * MACs
+   and its peak memory, ``debug_nans()`` raising on a CUDA NaN; (d)
+   ``native.gemm`` at that shape on the host CPU against its plain version,
+   in GOPS; (e) (a)'s trained model saved as ``{'state_dict', 'epoch'}`` and
+   imported into a fresh model with ``import_torch_checkpoint``: logits
+   bit-identical;
+10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--forwards`` builds the kernels of the ``bnn_tpu_torch`` in the current
@@ -2416,6 +2437,440 @@ def zoo_phase(kernels, Predictor, dev, card, errs, totals) -> None:
 
 
 
+# phase 9's host pipeline: ImageNet's normalisation and a store of 2,048
+# images of 224x224x3 (uint8, 308 MB), as NativeDataLoader feeds a trainer
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+STORE_IMAGES = 2048
+TRAINER_BATCH = 256
+FED_STEPS = STORE_IMAGES // TRAINER_BATCH
+TRACE_CALLS = 10  # binary_gemm calls inside phase 9 (c)'s trace()
+
+
+def run_trainer(extra, out, card) -> list:
+    """``python -m bnn_tpu_torch.examples.cifar10 --synthetic`` at batch 256
+    on the card as a subprocess with ``extra`` flags: its epochs' lines
+    ``(epoch, images, seconds, images/s)``, each printed."""
+    import re
+
+    cmd = [sys.executable, "-m", "bnn_tpu_torch.examples.cifar10", "--synthetic",
+           "--batch-size", str(TRAINER_BATCH), "--out", str(out), *extra]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the CIFAR-10 trainer {extra} exited {run.returncode}:\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    epochs = [(int(e), int(n), float(s), float(r)) for e, n, s, r in re.findall(
+        r"Epoch (\d+): trained (\d+) images in ([\d.]+) s \(([\d.]+) images/s\)",
+        run.stdout)]
+    losses = [float(v) for v in re.findall(r"\tLoss (\S+) \(", run.stdout)]
+    tests = re.findall(r"Epoch (\d+): test acc ([\d.]+)% \(loss (\S+)\)", run.stdout)
+    if (not epochs or len(tests) != len(epochs) or "Best accuracy" not in run.stdout
+            or not all(math.isfinite(v) for v in losses + [float(t[2]) for t in tests])):
+        raise AssertionError(f"the CIFAR-10 trainer {extra} printed:\n{run.stdout[-3000:]}")
+    print(f"phase 9: (a) trainer {' '.join(extra)}: exited 0 after {wall:.1f} s; first "
+          f"losses of its epochs {losses}; test acc / loss "
+          f"{[(float(a), float(b)) for _, a, b in tests]}")
+    return epochs
+
+
+def trainer_run(out, card) -> None:
+    """(a): the CIFAR-10 trainer for 2 epochs, then resumed to 3; the
+    checkpoint's epoch, Adam's step count and every state tensor finite."""
+    from bnn_tpu_torch.utils import assert_finite, load_checkpoint
+
+    epochs = run_trainer(["--epochs", "2"], out, card)
+    epochs += run_trainer(["--epochs", "3", "--resume", str(out)], out, card)
+    if [e[0] for e in epochs] != [0, 1, 2]:
+        raise AssertionError(f"trainer epochs {epochs}")
+    for e, n, s, r in epochs[1:]:
+        note = ("the first epoch of the resumed process" if e == 2
+                else "after the first epoch of its process")
+        print(f"phase 9: (a) CIFAR-10 ResNet-18 (10 classes, 32x32, batch 256, Adam) "
+              f"epoch {e} ({note}): {n} images in {s:.3f} s, {r:.1f} images/s | {card}")
+    payload = load_checkpoint(out)
+    steps = {float(st["step"]) for st in payload["opt_state"]["state"].values()}
+    meta = payload["metadata"]
+    if meta["epoch"] != 3 or steps != {3.0 * FED_STEPS}:
+        raise AssertionError(f"checkpoint epoch {meta['epoch']}, Adam steps {steps}")
+    assert_finite(payload["model"], "the trained CIFAR-10 model")
+    print(f"phase 9: (a) checkpoint: epoch {meta['epoch']}, best_acc "
+          f"{meta['best_acc']:.2f}, Adam's step count {int(steps.pop())} on every "
+          f"parameter, every state tensor finite")
+    cifar_step_breakdown(epochs[1], card)
+
+
+def cifar_step_breakdown(epoch, card) -> None:
+    """Where the trainer's time goes: its host work for one batch (numpy crop
+    and flip, normalisation, NCHW copy to the card) and its train step on a
+    batch already on the card, with the device's busy share."""
+    import numpy as np
+
+    from bnn_tpu_torch.examples import cifar10
+    from bnn_tpu_torch.parallel import make_train_step
+
+    dev = torch.device("cuda", 0)
+    (x_train, y_train), _ = cifar10.synthetic_cifar10()
+    rng = np.random.default_rng(SEED)
+    idx = rng.permutation(len(x_train))[:TRAINER_BATCH]
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        xb, yb = cifar10.to_device(cifar10.normalize(cifar10.augment(x_train[idx], rng)),
+                                   y_train[idx], dev)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    model = cifar10.build_model(SEED).to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = make_train_step()
+    by_kernel, wall = device_profile(lambda: step(model, opt, xb, yb), iters=5,
+                                     whole=False)
+    busy = sum(by_kernel.values())
+    per_epoch = epoch[2] / (epoch[1] / TRAINER_BATCH) * 1e3
+    print(f"phase 9: (a) the trainer's {per_epoch:.2f} ms a step (epoch {epoch[0]}): "
+          f"host work for a batch (crop, flip, normalise, copy) {min(host):.2f} ms; the "
+          f"step on a batch on the card (TF32 off, as in this script) {wall:.2f} ms under "
+          f"torch.profiler, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%), {len(by_kernel)} distinct kernels "
+          f"| {card}")
+    del model, opt
+
+
+def interval_union_ms(events) -> float:
+    """The length of the union of ``(start_us, end_us)`` intervals, in ms."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(events):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def fed_training(kernels, dev, card) -> None:
+    """(b): NativeDataLoader and prefetch_to_device feeding phase 5's bf16
+    batch-256 flagship step, beside the step on a batch already on the card."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bnn_tpu_torch import native
+    from bnn_tpu_torch.data import NativeDataLoader, prefetch_to_device
+    from bnn_tpu_torch.parallel import make_train_step
+
+    rng = np.random.default_rng(SEED)
+    store = rng.integers(0, 256, (STORE_IMAGES, SIZE, SIZE, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, STORE_IMAGES).astype(np.int32)
+    loader = NativeDataLoader(store, labels, batch_size=TRAINER_BATCH, pad=4,
+                              flip=True, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                              seed=SEED)
+    if not loader.use_native or len(loader) != FED_STEPS:
+        raise AssertionError("NativeDataLoader did not take the native path")
+    batch_mb = TRAINER_BATCH * 3 * SIZE * SIZE * 4 / 1e6
+    epochs = []
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        n = sum(x.shape[0] for x, _ in loader)
+        epochs.append(time.perf_counter() - t0)
+    best = min(epochs)
+    print(f"phase 9: (b) NativeDataLoader alone (pad 4, flip, ImageNet mean/std, "
+          f"{STORE_IMAGES} uint8 images of {SIZE}x{SIZE}x3, batch {TRAINER_BATCH}): "
+          f"{n / best:.1f} images/s, {best / FED_STEPS * 1e3:.2f} ms a batch of "
+          f"{batch_mb:.1f} MB of float32 (epochs {[round(t, 3) for t in epochs]} s), "
+          f"loader_num_threads() {native.loader_num_threads()}, use_native "
+          f"{loader.use_native} | {card}")
+
+    x, y = next(iter(loader))
+    pin_ms = []
+    for _ in range(2):  # the first allocates page-locked memory, the second reuses it
+        t0 = time.perf_counter()
+        pinned = x.pin_memory()
+        pin_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(pin_ms) == 1:
+            del pinned
+    copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), iters=10, warmup=2)
+    print(f"phase 9: (b) host-to-card copy of one batch: {copy_ms:.3f} ms from pinned "
+          f"memory ({x.numel() * 4 / copy_ms / 1e6:.1f} GB/s); pin_memory() on the host "
+          f"{pin_ms[0]:.3f} ms the first time (page-locking new memory), "
+          f"{pin_ms[1]:.3f} ms from the host allocator's cache | {card}")
+    del pinned
+
+    model = flagship(torch.Generator().manual_seed(SEED + 30)).train().to(dev)
+    opt = adamw(model)
+    step = make_train_step(compute_dtype=torch.bfloat16)
+    resident = (x.to(dev), y.to(dev))
+    for _ in range(WARMUP_STEPS):
+        step(model, opt, *resident)
+    torch.cuda.synchronize()
+
+    def fed():
+        return [step(model, opt, xb, yb)["loss"]
+                for xb, yb in prefetch_to_device(iter(loader), size=2, device=dev)]
+
+    def on_card():
+        return [step(model, opt, *resident)["loss"] for _ in range(FED_STEPS)]
+
+    def timed(run, epoch) -> float:
+        loader.set_epoch(epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / FED_STEPS * 1e3
+        if len(losses) != FED_STEPS or not all(math.isfinite(v.item()) for v in losses):
+            raise AssertionError(f"steps: {[v.item() for v in losses]}")
+        return ms
+
+    first = timed(fed, 2)  # the prefetcher's first page-locked buffers are made here
+    runs = {"fed": [], "on the card": []}
+    for i, name in enumerate(("fed", "on the card", "on the card", "fed")):
+        runs[name].append(timed(fed if name == "fed" else on_card, 3 + i))
+    print(f"phase 9: (b) flagship bf16 batch-{TRAINER_BATCH} train step, in turns: "
+          f"fed by NativeDataLoader + prefetch_to_device "
+          f"{[round(v, 2) for v in runs['fed']]} ms a step, on a batch already on the "
+          f"card {[round(v, 2) for v in runs['on the card']]} ms a step (host clock "
+          f"over {FED_STEPS} steps, the fed runs from the first batch's wait; the first "
+          f"fed epoch, which page-locks the prefetcher's buffers, {first:.2f}) | {card}")
+
+    # CUPTI now and then delivers no device event: the profiled run is taken
+    # again, up to three times, as device_profile does
+    for attempt in range(1, 4):
+        for k in KERNELS:
+            getattr(kernels, k).launches = 0
+        loader.set_epoch(6 + attempt)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fed()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: getattr(kernels, k).launches for k in KERNELS}
+        device = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if device:
+            break
+    copies = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "Memcpy" in e.name]
+    busy = interval_union_ms(device) / FED_STEPS
+    fed_ms = min(runs["fed"])
+    print(f"phase 9: (b) fed steps under torch.profiler: {wall / FED_STEPS:.2f} ms a "
+          f"step, device busy {busy:.2f} ms a step ({100 * busy * FED_STEPS / wall:.1f}% "
+          f"of the profiled wall; {100 * busy / fed_ms:.1f}% of the unprofiled fed step's "
+          f"{fed_ms:.2f} ms), of which host-to-card copies "
+          f"{interval_union_ms(copies) / FED_STEPS:.2f} ms; launches of the port's "
+          f"kernels {launches} (the training step runs none); profiled run "
+          f"{attempt} of 3 | {card}")
+    if not device:
+        raise AssertionError("three traces of the fed steps hold no device event")
+    del model, opt, resident, store
+    torch.cuda.empty_cache()
+
+
+def gemm_case(kernels, dev) -> tuple:
+    """(c)'s ``binary_gemm`` call: ResNet-50 batch 8's widest K among its
+    N=512 calls, bf16 inputs already signed, from the seed."""
+    gen = torch.Generator().manual_seed(SEED + 31)
+    m, k, n = 196, 1024, 512
+    x = torch.where(torch.randn((m, k), generator=gen) >= 0, 1.0, -1.0).to(
+        dev, torch.bfloat16)
+    wp = kernels.pack_bits(torch.randn((k, n), generator=gen), axis=-2).to(dev)
+    scale = (0.5 + torch.rand(n, generator=gen)).to(dev)
+    add = torch.randn(n, generator=gen).to(dev)
+    return x, wp, k, scale, add
+
+
+def trace_gemm(log_dir: str) -> dict:
+    """``trace()`` of TRACE_CALLS of (c)'s ``binary_gemm`` calls, written
+    into ``log_dir``: the file, its events, and the kernel's among them."""
+    from bnn_tpu_torch import kernels
+    from bnn_tpu_torch.utils import trace
+
+    x, wp, k, scale, add = gemm_case(kernels, torch.device("cuda"))
+    kernels.binary_gemm(x, wp, k, scale, add, sign_inputs=False)
+    torch.cuda.synchronize()
+    with trace(log_dir):
+        for _ in range(TRACE_CALLS):
+            kernels.binary_gemm(x, wp, k, scale, add, sign_inputs=False)
+        torch.cuda.synchronize()
+    files = sorted(pathlib.Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace() wrote {files}, not one trace file")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    hits = [e for e in events if "binary_gemm_kernel" in e.get("name", "")]
+    return {"file": files[0].name, "bytes": files[0].stat().st_size,
+            "events": len(events), "hits": len(hits),
+            "first": [hits[0].get("cat"), hits[0].get("dur")] if hits else None}
+
+
+# (c)'s trace in a process of its own: argv[1] is the log directory
+TRACE_CHILD = """
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.trace_gemm(sys.argv[1])), flush=True)
+"""
+
+
+def utilities_on_card(kernels, dev, card) -> None:
+    """(c): loop_time, trace, compiled_stats, debug_nans and count_ops on
+    the card."""
+    from bnn_tpu_torch.utils import (compiled_stats, count_ops, debug_nans,
+                                     loop_time)
+
+    x, wp, k, scale, add = gemm_case(kernels, dev)
+    m, n = x.shape[0], add.shape[0]
+
+    def call(a, *rest):
+        return kernels.binary_gemm(a, *rest, sign_inputs=False)
+
+    lt = loop_time(call, x, wp, k, scale, add, iters=200, rounds=3)
+    feedback = loop_time(lambda a: a, x, iters=200, rounds=3)
+    own, rest = own_ms(lambda: call(x, wp, k, scale, add), "binary_gemm_kernel")
+    print(f"phase 9: (c) loop_time(binary_gemm) M={m} K={k} N={n} bf16: "
+          f"{lt * 1e6:.2f} us a call, of which loop_time's feedback (an identity call: "
+          f"sum, multiply, add) {feedback * 1e6:.2f} us; torch.profiler: the kernel "
+          f"{own * 1e3:.2f} us, the call's other kernels {rest * 1e3:.2f} us | {card}")
+    if not 0 < lt < 1:
+        raise AssertionError(f"loop_time {lt}")
+
+    # CUPTI now and then delivers no device event to a trace, and more often
+    # in a process where an earlier profile saw another thread drive the
+    # card (phase 6's stream): up to three traces here, then one in a fresh
+    # process
+    tries = []
+    for attempt in range(3):
+        tries.append(trace_gemm(str(SMOKE_DIR / f"trace{attempt}")))
+        if tries[-1]["hits"]:
+            break
+    else:
+        run = subprocess.run([sys.executable, "-c", TRACE_CHILD,
+                              str(SMOKE_DIR / "trace_fresh")],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if run.returncode:
+            raise AssertionError(f"(c)'s trace in a fresh process exited "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        tries.append(json.loads(run.stdout.strip().splitlines()[-1]))
+        if not tries[-1]["hits"]:
+            raise AssertionError(f"four traces without the kernel's event: {tries}")
+    got = tries[-1]
+    where = "a fresh process" if len(tries) == 4 else "this process"
+    print(f"phase 9: (c) trace() wrote {got['file']} ({got['bytes']} B) in {where}: "
+          f"{got['events']} events of {TRACE_CALLS} calls, the kernel's {got['hits']} "
+          f"({got['first'][0]}, {got['first'][1]} us); trace {len(tries)} of 4"
+          f"{f' (before it: {tries[:-1]})' if len(tries) > 1 else ''}")
+
+    model = flagship(torch.Generator().manual_seed(SEED + 32)).to(dev)
+    x1 = torch.randn((1, 3, SIZE, SIZE),
+                     generator=torch.Generator().manual_seed(SEED + 35)).to(dev)
+    ops = count_ops(model, (1, 3, SIZE, SIZE))
+    with torch.no_grad():
+        stats = compiled_stats(model, x1)
+    print(f"phase 9: (c) count_ops(flagship, (1, 3, {SIZE}, {SIZE})): {ops.flops:,} "
+          f"FLOPs, {ops.bops:,} BOPs, {ops.effective_flops:,.0f} effective; "
+          f"compiled_stats of one f32 QAT forward: {stats['flops']:,} flops, peak "
+          f"memory {stats['peak_memory_bytes']:,} B | {card}")
+    if stats["flops"] != ops.flops + ops.bops or ops.bops == 0:
+        raise AssertionError("compiled_stats' flops differ from count_ops' 2 * MACs")
+
+    t = torch.ones(4, device=dev)
+    bad = torch.tensor([1.0, float("nan"), 1.0, 1.0], device=dev)
+    try:
+        with debug_nans():
+            t.mul_(bad)
+    except FloatingPointError as e:
+        print(f"phase 9: (c) debug_nans() on the card raised FloatingPointError: {e}")
+    else:
+        raise AssertionError("debug_nans() let a NaN into a CUDA tensor pass")
+    del model
+
+
+def native_gemm_on_host(kernels, card) -> None:
+    """(d): the CPU XNOR GEMM at (c)'s shape, held against the plain
+    version and timed on the card machine's CPU."""
+    import numpy as np
+
+    from bnn_tpu_torch import native
+
+    rng = np.random.default_rng(SEED + 33)
+    m, k, n = 196, 1024, 512
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    wp = native.pack_weights(rng.normal(size=(k, n)).astype(np.float32))
+    scale = np.abs(rng.normal(size=n)).astype(np.float32)
+    add = rng.normal(size=n).astype(np.float32)
+    got = native.gemm(x, wp, k, scale, add)
+    want = kernels.binary_gemm_reference(
+        torch.from_numpy(x), torch.from_numpy(wp.view(np.int32)), k,
+        torch.from_numpy(scale), torch.from_numpy(add)).numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        native.gemm(x, wp, k, scale, add)
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    print(f"phase 9: (d) native.gemm M={m} K={k} N={n} on the host CPU: "
+          f"{best * 1e3:.3f} ms ({2 * m * k * n / best / 1e9:.1f} GOPS), "
+          f"num_threads() {native.num_threads()}; against the plain version max "
+          f"|diff| / max |value| {err:.3g} (limit 1e-6) | {card}")
+    if err > 1e-6:
+        raise AssertionError("native.gemm differs from the plain version")
+
+
+def reference_import(out, dev, card) -> None:
+    """(e): (a)'s trained model saved in the reference's format and imported
+    into a fresh model on the card: logits bit-identical."""
+    from bnn_tpu_torch.examples import cifar10
+    from bnn_tpu_torch.utils import (import_torch_checkpoint, load_checkpoint,
+                                     restore_into)
+
+    payload = load_checkpoint(out)
+    path = SMOKE_DIR / "cifar10_reference.pth.tar"
+    torch.save({"state_dict": payload["model"],
+                "epoch": payload["metadata"]["epoch"]}, path)
+    trained = cifar10.build_model(0).to(dev)
+    restore_into(trained, payload)
+    fresh = cifar10.build_model(1).to(dev)
+    missing, unexpected = import_torch_checkpoint(fresh, str(path))
+    xs = torch.randn((64, 3, 32, 32), generator=torch.Generator().manual_seed(SEED + 34))
+    with torch.no_grad():
+        a, b = trained.eval()(xs.to(dev)), fresh.eval()(xs.to(dev))
+    if missing or unexpected or not torch.equal(a, b):
+        raise AssertionError(f"reference import: missing {missing[:3]}, unexpected "
+                             f"{unexpected[:3]}, max |diff| {(a - b).abs().max().item()}")
+    print(f"phase 9: (e) the trained CIFAR-10 model as {{'state_dict', 'epoch'}} "
+          f"({path.stat().st_size} B) imported into a fresh model on the card: missing "
+          f"[], unexpected [], logits of 64 images bit-identical | {card}")
+
+
+def trainer_phase(kernels, dev, card) -> None:
+    """Phase 9: the host pipeline and the training utilities."""
+    t0 = time.perf_counter()
+    parts, last = [], [t0]
+
+    def done(part):
+        now = time.perf_counter()
+        parts.append(f"{part} {now - last[0]:.1f} s")
+        last[0] = now
+
+    out = SMOKE_DIR / "cifar10"
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    try:
+        trainer_run(out, card)
+        done("(a)")
+        # (b) last: a trace taken while the prefetcher's thread drives the
+        # card left later traces in the process without device events
+        utilities_on_card(kernels, dev, card)
+        done("(c)")
+        native_gemm_on_host(kernels, card)
+        done("(d)")
+        reference_import(out, dev, card)
+        done("(e)")
+        fed_training(kernels, dev, card)
+        done("(b)")
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    print(f"phase 9: took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+
+
 def forwards_only() -> int:
     """``--forwards``: the live predictor's forward at ResNet-18 batch 1 and
     8 and ResNet-50 batch 1 (bf16, 224x224, the flagship recipe's random
@@ -2483,6 +2938,10 @@ def main() -> int:
                   {"fused_chain": 0.0, "fused_basic_block": 0.0, "binary_gemm": 0.0},
                   dict.fromkeys(KERNELS, 0))
         print("chip_smoke: --zoo: phases 1 and 8 passed", file=sys.stderr)
+        return 0
+    if "--trainer" in sys.argv[1:]:
+        trainer_phase(kernels, dev, card)
+        print("chip_smoke: --trainer: phases 1 and 9 passed", file=sys.stderr)
         return 0
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
@@ -3171,7 +3630,10 @@ def main() -> int:
     block_errs["fused_chain"] = zoo_errs["fused_chain"]
     block_errs["fused_basic_block"] = zoo_errs["fused_basic_block"]
     gemm_err = zoo_errs["binary_gemm"]
-    print("phase 9: fused_chain's numbers are the sums over the four stages of "
+    # phase 9: the host pipeline and the training utilities; its trainers
+    # launch none of the kernels, (c) times binary_gemm outside the counts
+    trainer_phase(kernels, dev, card)
+    print("phase 10: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
