@@ -57,15 +57,19 @@ def prefetch_to_device(iterator: Iterable, size: int = 2, device=None,
 
     An exception in ``iterator`` is raised in the consumer; closing the
     generator (a ``break``, an exception in the step) stops the thread and
-    drops the queued batches. ``mesh=`` and ``host_shards=True`` (batches
-    sharded over several devices or hosts) wait for the port's parallelism
-    (``ROADMAP.md`` queue 1, item 5) and raise ``NotImplementedError``.
+    drops the queued batches.
+
+    ``mesh=`` (``parallel.make_mesh``) stages onto the mesh's device and
+    shards each batch over its ``data`` axis: the rank's rows of a batch
+    that is the same on every rank (``parallel.shard_batch``), or with
+    ``host_shards=True`` the rank's own batch as its shard
+    (``parallel.shard_host_batch``: a ``NativeDataLoader`` per rank).
+    Without a mesh ``host_shards`` changes nothing, as in the JAX package.
     """
-    if mesh is not None or host_shards:
-        raise NotImplementedError(
-            "prefetch_to_device(mesh=, host_shards=True) shards batches over "
-            "devices; the port's parallelism (ROADMAP.md queue 1, item 5) is "
-            "not ported yet")
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -81,6 +85,16 @@ def prefetch_to_device(iterator: Iterable, size: int = 2, device=None,
     stop = threading.Event()
 
     def _put(batch):
+        if mesh is not None:
+            # this rank's rows, cut on the host before the copy
+            from .parallel.mesh import batch_rows, tag_rows
+            if not host_shards:
+                batch = _tree_map(lambda t: batch_rows(t, mesh), batch)
+            out, done = _copy(batch)
+            return tag_rows(out, mesh), done
+        return _copy(batch)
+
+    def _copy(batch):
         if device.type != "cuda":
             return _tree_map(lambda t: t.to(device), batch), None
         with torch.cuda.device(device), torch.cuda.stream(side):

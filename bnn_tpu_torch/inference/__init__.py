@@ -12,6 +12,9 @@ from .serving import Predictor
 from .stages import (FusedEntry, FusedStage, fuse_entry, fuse_head,
                      fuse_stages)
 from .stem import FusedStem, SpaceToDepthConv, fuse_stem, space_to_depth_stem
+from .tp import shard_tp_state, tag_tensor_parallel, tp_state_specs
+from .tp_packed import (PackedTPLayer, ici_bytes_per_layer, pack_chain_weights,
+                        packed_tp_chain, reference_chain)
 
 __all__ = [
     "BatcherStats",
@@ -48,4 +51,12 @@ __all__ = [
     "SpaceToDepthConv",
     "fuse_stem",
     "space_to_depth_stem",
+    "tag_tensor_parallel",
+    "tp_state_specs",
+    "shard_tp_state",
+    "PackedTPLayer",
+    "pack_chain_weights",
+    "packed_tp_chain",
+    "ici_bytes_per_layer",
+    "reference_chain",
 ]

@@ -134,6 +134,33 @@ def _as_2d(x: torch.Tensor, kernel_size, stride, padding, dilation):
             (0,) + tuple(padding), (1,) + tuple(dilation))
 
 
+def _tp_gather(layer, y: torch.Tensor, dim: int) -> torch.Tensor:
+    """The full out-channels from a tensor-parallel shard: a no-op unless
+    :func:`~bnn_tpu_torch.inference.tp.tag_tensor_parallel` (or
+    ``parallel.shard_model``) marked the layer, whose ``w_packed`` then holds
+    this rank's out-channels; gathered over the mark's mesh axis."""
+    axis = getattr(layer, "tp_axis", None)
+    if axis is None:
+        return y
+    from ..parallel.collectives import gather
+
+    return gather(y, layer.tp_mesh.group(axis), dim % y.ndim)
+
+
+def _local_channels(layer, v: torch.Tensor) -> torch.Tensor:
+    """A per-out-channel row cut to the layer's shard where the row itself
+    was left whole (a sharded ``w_packed`` beside a ``scale`` under the
+    rules' size gate)."""
+    axis = getattr(layer, "tp_axis", None)
+    if axis is None:
+        return v
+    n = layer.w_packed.shape[1 if layer.w_packed.ndim == 2 else 0]
+    if v.shape[0] == n:
+        return v
+    i = layer.tp_mesh.index(axis)
+    return v[i * n:(i + 1) * n]
+
+
 class DeployedLinear(nn.Module):
     """Bit-packed dense layer executing through :func:`binary_gemm`."""
 
@@ -158,17 +185,16 @@ class DeployedLinear(nn.Module):
         x2d = x.reshape(-1, x.shape[-1])
         if self.gemm_impl == "popcount":
             y = _call_popcount(self, x2d)
-            y = y.reshape(lead + (-1,))
-            if self.spatial_post is not None:
-                y = self.spatial_post(y, x)
-            return y
-        # zero_to_one signs inside the kernel; the torch-parity sign(0) = 0
-        # pre-signs to ternary values the kernel takes as they are
-        if not self.zero_to_one:
-            x2d = _sign(x2d, 0.0, False, x2d.dtype)
-        y = binary_gemm(x2d.contiguous(), self.w_packed, self.k, self.scale,
-                        self.add, sign_inputs=self.zero_to_one)
-        y = y.to(self.scale.dtype).reshape(lead + (-1,))
+        else:
+            # zero_to_one signs inside the kernel; the torch-parity sign(0) = 0
+            # pre-signs to ternary values the kernel takes as they are
+            if not self.zero_to_one:
+                x2d = _sign(x2d, 0.0, False, x2d.dtype)
+            y = binary_gemm(x2d.contiguous(), self.w_packed, self.k,
+                            _local_channels(self, self.scale),
+                            _local_channels(self, self.add),
+                            sign_inputs=self.zero_to_one).to(self.scale.dtype)
+        y = _tp_gather(self, y.reshape(lead + (-1,)), -1)
         if self.spatial_post is not None:
             y = self.spatial_post(y, x)
         return y
@@ -300,6 +326,7 @@ class DeployedConv(nn.Module):
             y = self._call_pallas_conv(x)
         else:
             y = self._call_im2col(x)
+        y = _tp_gather(self, y, 1)
         if self.spatial_post is not None:
             y = self.spatial_post(y, x)
         return y
@@ -315,16 +342,17 @@ class DeployedConv(nn.Module):
         # bf16 holds {-1, 0, +1} exactly and F.unfold takes no int8
         patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
         a = patches.to(torch.int8)
-        w = self._int8_weight().reshape(self.out_channels, -1)
+        w = self._int8_weight().reshape(self.w_packed.shape[0], -1)
         g = self.groups
-        kg, og = a.shape[1] // g, self.out_channels // g
+        kg, og = a.shape[1] // g, w.shape[0] // g
         acc = torch.cat([_int_mm(a[:, i * kg:(i + 1) * kg],
                                  w[i * og:(i + 1) * og]) for i in range(g)],
                         dim=1) if g > 1 else _int_mm(a, w)
         acc = self._to_nc(acc, x.shape[0], out_sp)
         # epilogue in the scale's dtype (f32, or bf16 after cast_floats)
-        return (acc.to(self.scale.dtype) * _per_channel(self.scale, x.ndim)
-                + _per_channel(self.add, x.ndim))
+        scale, add = _local_channels(self, self.scale), _local_channels(self, self.add)
+        return (acc.to(self.scale.dtype) * _per_channel(scale, x.ndim)
+                + _per_channel(add, x.ndim))
 
     def _call_pallas_conv(self, x: torch.Tensor) -> torch.Tensor:
         # the kernel signs x - threshold with sign(0) = +1 and returns f32,
@@ -334,7 +362,8 @@ class DeployedConv(nn.Module):
         w = self._int8_weight().permute(2, 3, 1, 0)
         xin = x if self.threshold is None else x - _per_channel(self.threshold, x.ndim)
         y = binary_conv2d_s1(xin.permute(0, 2, 3, 1).contiguous(), w,
-                             self.scale, self.add)
+                             _local_channels(self, self.scale),
+                             _local_channels(self, self.add))
         return y.permute(0, 3, 1, 2)
 
     def _call_popcount(self, x: torch.Tensor) -> torch.Tensor:
@@ -348,7 +377,8 @@ class DeployedConv(nn.Module):
     def _call_im2col(self, x: torch.Tensor) -> torch.Tensor:
         patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
         y = binary_gemm(patches.contiguous(), self.w_packed, self.k,
-                        self.scale, self.add, sign_inputs=False)
+                        _local_channels(self, self.scale),
+                        _local_channels(self, self.add), sign_inputs=False)
         return self._to_nc(y.to(self.scale.dtype), x.shape[0], out_sp)
 
 
@@ -361,7 +391,8 @@ def _call_popcount(layer, x2d: torch.Tensor) -> torch.Tensor:
     if thr is not None:
         x2d = x2d - thr
     y = popcount_gemm(pack_bits(x2d, axis=-1), layer.w_packed, layer.k,
-                      layer.scale, layer.add)
+                      _local_channels(layer, layer.scale),
+                      _local_channels(layer, layer.add))
     return y.to(layer.scale.dtype)
 
 

@@ -35,7 +35,8 @@ Bundle layout (a directory)::
                   NCHW), layout, input_dtype, platforms, nr_devices, mesh,
                   torch version
 
-Multi-device bundles (``mesh``) wait for the port's mesh serving.
+Multi-device bundles (``mesh``) are not ported yet (``ROADMAP.md`` queue 1,
+item 6).
 """
 from __future__ import annotations
 
@@ -102,7 +103,8 @@ def export_serving(predictor, path: str, input_shape: Sequence[int], *,
             f"predictor serves on {device.type!r}, platforms={list(platforms)} "
             "asks for another; build the predictor there and export it there")
     if getattr(predictor, "mesh", None) is not None:
-        raise NotImplementedError("multi-device bundles are not ported yet")
+        raise NotImplementedError("multi-device bundles are not ported yet "
+                                  "(ROADMAP.md queue 1, item 6)")
     model = predictor.model
     x = torch.zeros((predictor.batch_size, *input_shape), dtype=predictor.dtype,
                     device=device)
@@ -180,7 +182,8 @@ def load_serving(path: str, device=None) -> ExportedServer:
         raise ValueError(f"unsupported bundle format {meta.get('format_version')!r} "
                          f"(this loader reads {_FORMAT_VERSION})")
     if meta.get("mesh"):
-        raise NotImplementedError("multi-device bundles are not ported yet")
+        raise NotImplementedError("multi-device bundles are not ported yet "
+                                  "(ROADMAP.md queue 1, item 6)")
     platforms = list(meta["platforms"])
     device = torch.device(platforms[0] if device is None else device)
     if device.type not in platforms:

@@ -27,8 +27,22 @@ BN folds (``popcount_layers`` names them), as the JAX ``Predictor`` does.
 
 :meth:`Predictor.export` writes the frozen serving bundle
 (``inference/export.py``), which ``load_serving`` serves without building a
-model. Not ported yet, and raising ``NotImplementedError``: multi-device
-serving (``mesh=``, ``tensor_parallel=``).
+model.
+
+Multi-device serving (one process per device, every rank builds the same
+``Predictor`` and calls it with the same requests):
+
+- ``mesh=`` (``parallel.make_mesh``): each forward's ``batch_size`` rows
+  split over the mesh's ``data`` axis, weights replicated; each rank serves
+  its rows (so the fused kernels decide on its share: at ``batch_size=8``
+  over two ranks each runs the batch-4 path) and the logits are
+  all-gathered, so ``__call__`` returns the whole batch on every rank, as
+  ``np.asarray`` of JAX's output does. A mesh with a model axis only serves
+  replicated batches.
+- ``tensor_parallel=True`` (a model axis over 1): every eligible deployed
+  layer holds its out-channel shard of the packed weights and gathers its
+  output over the axis (:mod:`~bnn_tpu_torch.inference.tp`); served unfused,
+  since the block kernels reduce over whole channels.
 """
 from __future__ import annotations
 
@@ -38,14 +52,16 @@ import torch
 from torch import nn
 
 from ..utils.checkpoint import load_checkpoint, restore_into
+from ..parallel.collectives import gather
 from ..utils.precision import cast_floats
 from .compress import quantize_float_layers, state_bytes
-from .deploy import deploy, set_gemm_impl
+from .deploy import DeployedConv, DeployedLinear, deploy, set_gemm_impl
 from .export import batched_call, export_serving
 from .megablock import fuse_blocks
 from .optimize import optimize_deployed
 from .stages import fuse_head, fuse_stages
 from .stem import fuse_stem, space_to_depth_stem
+from .tp import shard_tp_state, tag_tensor_parallel, tp_state_specs
 
 __all__ = ["Predictor"]
 
@@ -60,31 +76,37 @@ class Predictor:
                  mesh=None, tensor_parallel: bool = False,
                  binary_gemm_impl: str = "mxu",
                  quantize_float_bits: Optional[int] = None,
-                 device="cuda"):
+                 device=None, batch_axis: str = "data",
+                 model_axis: str = "model"):
         if tensor_parallel:
-            if mesh is None:
-                raise ValueError(
-                    "tensor_parallel needs a mesh with a >1 model axis")
             if fuse is True:
                 raise ValueError(
                     "tensor_parallel=True is incompatible with fuse=True: "
                     "block megakernels reduce over full channels and "
                     "cannot consume a channel shard")
+            if mesh is None or mesh.size(model_axis) <= 1:
+                raise ValueError(
+                    "tensor_parallel needs a mesh with a >1 model axis")
+            fuse = False
         if binary_gemm_impl != "mxu" and fuse is True:
             raise ValueError(
                 "binary_gemm_impl='%s' is incompatible with fuse=True: the "
                 "stage/block megakernels always run the int8 product, so "
                 "fusion would override the requested GEMM implementation"
                 % binary_gemm_impl)
-        if mesh is not None or tensor_parallel:
-            raise NotImplementedError(
-                "multi-device serving (mesh=, tensor_parallel=) is not "
-                "ported yet")
+        if mesh is not None and batch_size % mesh.size(batch_axis):
+            raise ValueError(
+                f"batch_size {batch_size} must divide evenly over the "
+                f"{mesh.size(batch_axis)}-way '{batch_axis}' mesh axis")
         if binary_gemm_impl != "mxu":
             # the block and stage kernels run the int8 product: serve
             # unfused so that every eligible layer takes the requested form
             fuse = False
-        device = torch.device(device)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Predictor runs on CUDA by default and no CUDA device is "
@@ -118,6 +140,17 @@ class Predictor:
         self.batch_size = batch_size
         self.dtype = dtype or torch.float32
         self.device = device
+        self.mesh = mesh
+        self.batch_axis, self.model_axis = batch_axis, model_axis
+        self.tensor_parallel = tensor_parallel
+        if tensor_parallel:
+            # each rank keeps an out-channel shard of every eligible layer's
+            # packed weights and epilogue; the forward gathers per layer
+            self.tp_layers = tag_tensor_parallel(model, mesh, axis=model_axis)
+            self.tp_total = sum(1 for m in model.modules()
+                                if isinstance(m, (DeployedConv, DeployedLinear)))
+            self.tp_specs = tp_state_specs(model, axis=model_axis)
+            shard_tp_state(model, self.tp_specs, mesh)
 
     def export(self, path: str, input_shape, *, platforms=None) -> None:
         """Freeze this predictor into a serving bundle at ``path``
@@ -132,8 +165,20 @@ class Predictor:
         return self.model
 
     def state_bytes(self) -> int:
-        """Bytes of every tensor in the served model's state (weights,
-        scales, norm statistics, the fused modules' kernel-layout copies)."""
+        """Logical bytes of every tensor in the served model's state
+        (weights, scales, norm statistics, the fused modules' kernel-layout
+        copies). With ``tensor_parallel=True`` the tagged layers' shards
+        count whole, as in JAX: a rank holds less (``local_state_bytes``)."""
+        total = state_bytes(self.model)
+        if self.tensor_parallel:
+            n = self.mesh.size(self.model_axis)
+            sd = self.model.state_dict()
+            total += sum((n - 1) * sd[k].numel() * sd[k].element_size()
+                         for k, spec in self.tp_specs.items() if spec.names())
+        return total
+
+    def local_state_bytes(self) -> int:
+        """Bytes of the state this rank holds."""
         return state_bytes(self.model)
 
     @classmethod
@@ -151,8 +196,16 @@ class Predictor:
         return cls(model, **kwargs)
 
     def _forward(self, xb: torch.Tensor) -> torch.Tensor:
+        data = None
+        if self.mesh is not None and self.mesh.size(self.batch_axis) > 1:
+            # this rank's rows of the batch, then every rank's logits
+            n, i = self.mesh.size(self.batch_axis), self.mesh.index(self.batch_axis)
+            rows = xb.shape[0] // n
+            xb = xb[i * rows:(i + 1) * rows]
+            data = self.mesh.group(self.batch_axis)
         out = self.model(xb)
-        return out[0] if isinstance(out, tuple) else out
+        out = out[0] if isinstance(out, tuple) else out
+        return out if data is None else gather(out, data, 0)
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:

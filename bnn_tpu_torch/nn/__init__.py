@@ -31,7 +31,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     takes the unbiased one, a factor n / (n - 1) apart. The output keeps the
     input's dtype. In eval mode it is torch's forward; f32 running statistics
     beside a narrower weight and bias (``cast_floats(keep_batch_stats=True)``)
-    run with the weight and bias widened to the statistics' dtype."""
+    run with the weight and bias widened to the statistics' dtype.
+
+    ``sync_axis``: ``(axis, mesh)`` once ``parallel.shard_model`` places the
+    model on a mesh whose ``data`` axis is over 1: in train mode the mean and
+    the variance are then those of the whole batch over the axis, and the
+    running statistics take them on every rank."""
+
+    sync_axis = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() < 2:
@@ -48,9 +55,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dims, keepdim=True)
-        d = xf - mean
-        var = d.square().mean(dims, keepdim=True)
+        sync = self.sync_axis if self.training else None
+        if sync is None:
+            mean = xf.mean(dims, keepdim=True)
+            d = xf - mean
+            var = d.square().mean(dims, keepdim=True)
+        else:
+            # the statistics of the whole batch over the data axis: each
+            # pass's sums all-reduced (differentiably), in the same order
+            from ..parallel.collectives import all_reduce_sum
+
+            axis, mesh = sync
+            group = mesh.group(axis)
+            count = (xf.numel() // xf.shape[1]) * mesh.size(axis)
+            mean = all_reduce_sum(xf.sum(dims, keepdim=True), group) / count
+            d = xf - mean
+            var = all_reduce_sum(d.square().sum(dims, keepdim=True), group) / count
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight.view(shape)

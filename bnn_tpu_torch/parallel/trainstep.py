@@ -4,6 +4,14 @@ A step runs on the device of the model's parameters: the batch is moved
 there, the model never is. The model is updated in place (parameters,
 BatchNorm statistics, binarizer streams) through a ``torch.optim``
 optimizer.
+
+On a model placed on a mesh (:func:`~bnn_tpu_torch.parallel.shard_model`),
+the step does by hand what GSPMD does behind JAX's step: each rank passes
+its rows (:func:`~bnn_tpu_torch.parallel.shard_batch`); the gradients are
+averaged over the ``data`` axis (one all-reduce per dtype), BatchNorm has
+normalised with the whole batch's statistics, a tensor-parallel layer has
+gathered its output over ``model``; the metrics are the whole batch's, on
+every rank. With ``accum_steps`` each rank splits its own rows.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.binarizers import RandomStream
 from ..utils.precision import cast_float_tree
+from .mesh import mesh_of
 
 __all__ = ["cross_entropy_mean", "make_train_step", "make_eval_step"]
 
@@ -37,6 +46,39 @@ def _as_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
+
+
+def _data_group(model: nn.Module):
+    """``(group, size)`` of the model's data axis, or None off a mesh or on
+    a data axis of 1."""
+    mesh = mesh_of(model)
+    if mesh is None or mesh.size("data") == 1:
+        return None
+    return mesh.group("data"), mesh.size("data")
+
+
+def _data_sum(values: torch.Tensor, data) -> torch.Tensor:
+    if data is not None:
+        values = values.clone()
+        torch.distributed.all_reduce(values, group=data[0])
+    return values
+
+
+def _average_grads(model: nn.Module, data) -> None:
+    """Average every gradient over the data axis: one all-reduce per dtype."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    group, n = data
+    by_dtype = {}
+    for p in model.parameters():
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = _flatten_dense_tensors(grads)
+        torch.distributed.all_reduce(flat, group=group)
+        flat.div_(n)
+        for g, v in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(v)
 
 
 def _mixed_forward(model: nn.Module, x: torch.Tensor, compute_dtype):
@@ -136,8 +178,14 @@ def make_train_step(loss_fn: Callable = cross_entropy_mean,
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        data = _data_group(model)
+        if data is not None:
+            _average_grads(model, data)
         optimizer.step()
-        return {"loss": loss_sum / accum_steps, "top1": top1_sum / accum_steps}
+        metrics = torch.stack([loss_sum, top1_sum]) / accum_steps
+        if data is not None:
+            metrics = _data_sum(metrics, data) / data[1]
+        return {"loss": metrics[0], "top1": metrics[1]}
 
     return step
 
@@ -145,7 +193,7 @@ def make_train_step(loss_fn: Callable = cross_entropy_mean,
 def make_eval_step() -> Callable:
     """Build an eval step ``step(model, x, y)`` returning the summed ``loss``,
     ``top1`` and ``top5`` hits and the ``count``, for exact aggregation over
-    an epoch."""
+    an epoch; on a placed model, summed over the data axis."""
 
     @torch.no_grad()
     def step(model, x, y):
@@ -156,7 +204,9 @@ def make_eval_step() -> Callable:
         top1 = (logits.argmax(-1) == y).float().sum()
         k = min(5, logits.shape[-1])
         top5 = (logits.topk(k, -1).indices == y[:, None]).any(-1).float().sum()
-        return {"loss": loss * y.shape[0], "top1": top1, "top5": top5,
-                "count": torch.tensor(float(y.shape[0]), device=device)}
+        out = {"loss": loss * y.shape[0], "top1": top1, "top5": top5,
+               "count": torch.tensor(float(y.shape[0]), device=device)}
+        data = _data_group(model)
+        return out if data is None else {k: _data_sum(v, data) for k, v in out.items()}
 
     return step

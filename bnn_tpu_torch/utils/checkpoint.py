@@ -36,12 +36,45 @@ PAYLOAD = "checkpoint.pt"
 
 
 def gather_replicated(tree):
-    """Multi-host gathering of sharded state before a save. The port has no
-    multi-device state yet: it waits for ``torch.distributed`` parallelism
-    (ROADMAP queue 1, item 5)."""
-    raise NotImplementedError(
-        "gather_replicated is multi-host; the port's parallelism "
-        "(ROADMAP queue 1, item 5) is not ported yet")
+    """Every sharded tensor of ``tree`` made whole, on every rank: a
+    collective that every rank calls (the ranks of the axes a tensor is
+    split over take part in its gather).
+
+    ``tree``: a module placed by ``parallel.shard_model`` (its
+    ``state_dict`` with each tensor-parallel shard gathered), an optimizer
+    (its ``state_dict`` with each moment whole: ZeRO-1 shards over ``data``,
+    tensor-parallel ones over ``model``), a tensor a ``parallel`` function
+    recorded a spec on (a pipeline's flat row, a stacked stage state), or
+    tuples, lists and dicts of these. Anything else comes back as it is.
+    Then rank 0 saves; :func:`save_checkpoint` does both for a placed model.
+    """
+    from ..parallel.mesh import (gather_optimizer_state, gather_tensor,
+                                 layout_of, placement_of)
+
+    if isinstance(tree, torch.optim.Optimizer):
+        return gather_optimizer_state(tree)
+    if isinstance(tree, nn.Module):
+        state = tree.state_dict()
+        placement = placement_of(tree)
+        if placement is not None:
+            for k, spec in placement.sharded().items():
+                state[k] = gather_tensor(state[k], spec, placement.mesh)
+        return state
+    if isinstance(tree, torch.Tensor):
+        layout = layout_of(tree)
+        return tree if layout is None else gather_tensor(tree.detach(), layout[1], layout[0])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(gather_replicated(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: gather_replicated(v) for k, v in tree.items()}
+    return tree
+
+
+def _placed(obj):
+    """The mesh ``obj`` is placed on, or None."""
+    from ..parallel.mesh import mesh_of
+
+    return None if obj is None else mesh_of(obj)
 
 
 def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> Dict:
@@ -57,13 +90,43 @@ def save_checkpoint(path: str, model: nn.Module, opt_state: Any = None,
     ``state_dict``, and ``metadata``) into the directory ``path``. The
     payload is written under a temporary name and moved into place, so a
     reader never sees half a file. ``is_best=True`` also copies the
-    directory to ``best_path`` (default ``path + '.best'``)."""
+    directory to ``best_path`` (default ``path + '.best'``).
+
+    A model or optimizer placed on a mesh (``parallel.shard_model``,
+    ``shard_optimizer_zero1``) makes this a collective, as in the JAX
+    package: EVERY rank calls it, the shards are gathered whole
+    (:func:`gather_replicated`), rank 0 alone writes, and every rank
+    returns only after the checkpoint (and its ``.best`` copy) is in place,
+    so any rank may read it next. A failed write raises on every rank."""
     path = os.path.abspath(path)
-    payload = {"model": model.state_dict()}
+    mesh = _placed(model) or _placed(opt_state)
+    if mesh is None:
+        payload = {"model": model.state_dict()}
+        if opt_state is not None:
+            if isinstance(opt_state, torch.optim.Optimizer):
+                opt_state = optimizer_state_dict(opt_state)
+            payload["opt_state"] = opt_state
+        _write(path, payload, metadata, is_best, best_path)
+        return
+    payload = {"model": gather_replicated(model)}
     if opt_state is not None:
-        if isinstance(opt_state, torch.optim.Optimizer):
-            opt_state = optimizer_state_dict(opt_state)
-        payload["opt_state"] = opt_state
+        payload["opt_state"] = gather_replicated(opt_state)
+    written = torch.zeros((), device=mesh.device)
+    error = None
+    if torch.distributed.get_rank() == 0:
+        try:
+            _write(path, payload, metadata, is_best, best_path)
+            written.fill_(1)
+        except Exception as e:  # raised below, after the other ranks hear of it
+            error = e
+    torch.distributed.broadcast(written, 0)
+    if error is not None:
+        raise error
+    if not written.item():
+        raise RuntimeError(f"rank 0 failed to write the checkpoint {path}")
+
+
+def _write(path, payload, metadata, is_best, best_path) -> None:
     if metadata:
         payload["metadata"] = dict(metadata)
     os.makedirs(path, exist_ok=True)
@@ -102,8 +165,11 @@ def restore_into(model: nn.Module, payload: Dict, strict: bool = True) -> List[s
     mismatch (``load_state_dict``'s ``RuntimeError``) and returns ``[]``.
     ``strict=False`` restores only the entries whose name and shape match
     (the reference's mismatched-keys fallback) and returns the names of the
-    model's entries it left as they were."""
-    saved = payload["model"]
+    model's entries it left as they were. A model placed on a mesh takes
+    each whole saved tensor's shard."""
+    from ..parallel.mesh import localize_state_dict
+
+    saved = localize_state_dict(model, payload["model"])
     if strict:
         model.load_state_dict(saved, strict=True)
         return []
@@ -143,14 +209,18 @@ def restore_optimizer(optimizer: torch.optim.Optimizer, payload: Dict,
                              "parameters, the optimizer's "
                              f"{[len(g['params']) for g in groups]}")
         return skipped
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    ids = zip(params, (i for g in saved_groups for i in g["params"]),
+    from ..parallel.mesh import localize_optimizer_state, optimizer_whole_shapes
+
+    # a parameter's whole shape: a ZeRO-1 or tensor-parallel shard's moments
+    # are saved whole and cut again below
+    wholes = optimizer_whole_shapes(optimizer)
+    ids = zip(wholes, (i for g in saved_groups for i in g["params"]),
               (i for g in groups for i in g["params"]))
     state, skipped = {}, []
-    for p, sid, cid in ids:
+    for whole, sid, cid in ids:
         moments = saved["state"].get(sid)
         if moments is not None and not all(
-                v.shape == p.shape for v in moments.values()
+                tuple(v.shape) == tuple(whole) for v in moments.values()
                 if isinstance(v, torch.Tensor) and v.ndim > 0):
             skipped.append(f"state.{cid}")
             moments = current["state"].get(cid)
@@ -160,4 +230,5 @@ def restore_optimizer(optimizer: torch.optim.Optimizer, payload: Dict,
         raise ValueError(f"optimizer state mismatch on {skipped[:5]}"
                          f"{'...' if len(skipped) > 5 else ''}")
     optimizer.load_state_dict({"state": state, "param_groups": groups})
+    localize_optimizer_state(optimizer)
     return skipped

@@ -7,6 +7,9 @@
                                      # the checkout's live forwards, timed
     python3 chip_smoke.py --zoo      # phases 1 and 8 only, no result lines
     python3 chip_smoke.py --trainer  # phases 1 and 9 only, no result lines
+    python3 chip_smoke.py --parallel # phases 1 and 10 only, no result lines
+    python3 chip_smoke.py --gloo-probe
+                                     # which gloo collectives take CUDA tensors
 
 Phases, each reported on its own lines:
 
@@ -180,7 +183,29 @@ Phases, each reported on its own lines:
    in GOPS; (e) (a)'s trained model saved as ``{'state_dict', 'epoch'}`` and
    imported into a fresh model with ``import_torch_checkpoint``: logits
    bit-identical;
-10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+10. the parallel paths, each world in processes of its own (``--rank``):
+   (a) a world of one rank over NCCL: ``make_mesh()`` (1x1), the flagship
+   through ``Predictor(mesh=)`` at batch 4 and 8, bit-identical to the plain
+   ``Predictor`` with phase 3's launches; the data-parallel step with
+   ``shard_model`` and ``shard_optimizer_zero1`` on phase 5 (b)'s
+   configuration (bf16, batch 256, AdamW, 3 steps), each parameter's largest
+   difference from the plain step and both steps' ms; ``pipeline_apply`` and
+   ``HeteroPipeline`` with one stage against the stage; ``packed_tp_chain``
+   at P=1 bit-identical to ``reference_chain``; (b) two ranks on the one card
+   over gloo (``GLOO_CUDA``, the fixed table of the collectives gloo takes
+   with CUDA tensors, printed first): the data-parallel flagship at batch 8
+   (each rank's 4 rows through the stem and 4 ``fused_chain``), the
+   tensor-parallel one over a model axis of 2 (``binary_gemm`` at N=256),
+   each bit-identical to its single-process predictor, ``state_bytes`` and
+   card memory per rank; the flagship's data-parallel step with
+   ``shard_model`` and ``shard_optimizer_zero1`` (f32, batch 64, AdamW, 3
+   steps), each step bit-identical to AdamW on the whole parameters with the
+   averaged gradients, both ranks' parameters bit-identical, and against the
+   plain step on the whole batch its gradient, losses, each parameter's
+   largest difference and both steps' ms; a path whose collectives gloo does
+   not take (a two-stage ``HeteroPipeline``, ``packed_tp_chain`` at P=2) is
+   named with the reason;
+11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--forwards`` builds the kernels of the ``bnn_tpu_torch`` in the current
@@ -2871,6 +2896,491 @@ def trainer_phase(kernels, dev, card) -> None:
     print(f"phase 9: took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
 
 
+# phase 10: the parallel paths (bnn_tpu_torch.parallel, inference.tp and
+# inference.tp_packed), each world in processes of its own: (a) a world of
+# one rank over NCCL, (b) two ranks on the one card over gloo
+PHASE10_DIR = SMOKE_DIR / "phase10"
+PHASE10_TIMEOUT = 300
+# Which of gloo's collectives take CUDA tensors under the card's torch
+# (2.11), as ``python3 chip_smoke.py --gloo-probe`` found them on the H100:
+# a fixed table, so that the phase never decides by catching an exception.
+GLOO_CUDA = {"all_gather": True, "all_reduce": True, "broadcast": True,
+             "batch_isend_irecv": False}
+GLOO_REFUSES = {"batch_isend_irecv": "gloo's TCP pair writes the send from the "
+                "tensor's address (writev: Bad address) and the process aborts"}
+# the collectives each two-rank path hands gloo; pair_rank runs those that
+# GLOO_CUDA allows, and parallel_phase names the others
+PAIR_PATHS = {
+    "data-parallel ResNet-18": ("all_gather",),
+    "tensor-parallel ResNet-18": ("all_gather",),
+    "data-parallel ZeRO-1 training step": ("all_reduce", "all_gather"),
+    "HeteroPipeline, two stages": ("batch_isend_irecv", "broadcast"),
+    "packed_tp_chain, P=2": ("batch_isend_irecv", "all_gather"),
+}
+# phase 10 (b)'s data-parallel training step: the whole batch over both ranks
+PAIR_TRAIN_BATCH = 64
+PAIR_TRAIN_STEPS = 3
+# rank 0 holds the first step against the plain step on the whole batch:
+# the loss at JAX's data-parallel rtol (tests/test_parallel.py:112), and the
+# whole gradient by the norm of its difference over its own norm. The
+# BatchNorm sums are reduced in another order, which moves a few pre-sign
+# activations across zero and gives the output scales under a train-mode
+# BatchNorm (a gradient of noise) other values; a gradient not averaged, or
+# BatchNorm over a rank's rows alone, is off by far more. Later steps are
+# printed, not held: AdamW's first step moves each element by about lr
+# whatever the size of its gradient, so an element whose noise gradient
+# changed sign lies 2 lr apart, and the arms part from there
+PAIR_GRAD_TOL = 1e-3
+PAIR_LOSS_RTOL = 1e-5
+CHAIN_SIZES = (4096, 4096, 4096, 1024)
+
+
+def run_ranks(mode: str, world: int) -> list:
+    """``chip_smoke.py --rank <mode>`` in ``world`` processes (one world of
+    torch.distributed, rendezvous through a file in the checkout), each
+    result read back; raises on a failed rank or past PHASE10_TIMEOUT."""
+    d = PHASE10_DIR / mode.replace(":", "-")
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", mode,
+                               str(r), str(world), str(d)], cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + PHASE10_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    text = "\n".join(f"--- rank {r}\n" + (d / f"rank{r}.log").read_text()[-4000:]
+                     for r in range(world))
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"phase 10 ({mode}): a rank failed or ran past "
+                             f"{PHASE10_TIMEOUT} s:\n{text}")
+    for line in (d / "rank0.log").read_text().splitlines():
+        print(line)
+    return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _zero_counts(kernels):
+    for k in KERNELS:
+        getattr(kernels, k).launches = 0
+
+
+def _counts(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {k: getattr(kernels, k).launches for k in KERNELS
+            if getattr(kernels, k).launches}
+
+
+def _check_launches(name, got, want, forwards):
+    want = {k: v * forwards for k, v in want.items()}
+    if got != want:
+        raise AssertionError(f"{name}: expected launches {want}, got {got}")
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def single_rank(rank: int, world: int, card: str) -> dict:
+    """Phase 10 (a), a world of one rank over NCCL: the mesh Predictor, the
+    data-parallel ZeRO-1 step, both pipelines with one stage and the packed
+    chain at P=1, each against its plain version."""
+    from bnn_tpu_torch import kernels
+    from bnn_tpu_torch import parallel as P
+    from bnn_tpu_torch.inference import (Predictor, pack_chain_weights,
+                                         packed_tp_chain, reference_chain)
+
+    dev = torch.device("cuda", 0)
+    mesh = P.make_mesh()
+    print(f"phase 10: (a) make_mesh() over NCCL: {mesh.shape} on {mesh.device}")
+    qat = flagship(torch.Generator().manual_seed(SEED))
+    images = torch.randn((BATCH, 3, SIZE, SIZE), generator=torch.Generator().manual_seed(SEED))
+    launches: dict = {}
+    for b, want in ((4, {"fused_stem": 1, "fused_chain": 4}),
+                    (8, {"binary_gemm": 1, "fused_stem": 1})):
+        plain = Predictor(copy.deepcopy(qat), batch_size=b)
+        meshed = Predictor(copy.deepcopy(qat), batch_size=b, mesh=mesh)
+        x = images[:b].to(dev)
+        ref = plain(x)
+        _zero_counts(kernels)
+        got = meshed(x)
+        counts = _counts(kernels)
+        _check_launches(f"phase 10 (a) Predictor(mesh=) batch {b}", counts, want, 1)
+        _add(launches, counts)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"phase 10 (a): Predictor(mesh=) at batch {b} is not "
+                                 "bit-identical to the plain Predictor")
+        print(f"phase 10: (a) Predictor(mesh=1x1, batch_size={b}) bf16: logits "
+              f"bit-identical to the plain Predictor's; launches {counts}")
+        del plain, meshed
+
+    # the data-parallel step with ZeRO-1 on phase 5 (b)'s configuration
+    from bnn_tpu_torch.parallel import make_train_step
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn((256, 3, SIZE, SIZE), generator=gen).to(dev)
+    y = torch.randint(0, 1000, (256,), generator=gen).to(dev)
+    arms = {}
+    for tag in ("plain", "mesh"):
+        model = copy.deepcopy(qat).to(dev).train()
+        opt = adamw(model)
+        xb, yb = x, y
+        if tag == "mesh":
+            P.shard_model(model, mesh)
+            P.shard_model(opt, mesh)
+            P.shard_optimizer_zero1(opt, mesh)
+            xb, yb = P.shard_batch((x, y), mesh)
+        arms[tag] = (model, opt, xb, yb)
+    step = make_train_step(compute_dtype=torch.bfloat16)
+    times = {"plain": ([], []), "mesh": ([], [])}
+    with cudnn_deterministic():
+        for i in range(3):  # in turns, the order flipped each step
+            for tag in (("plain", "mesh") if i % 2 == 0 else ("mesh", "plain")):
+                model, opt, xb, yb = arms[tag]
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                loss = float(step(model, opt, xb, yb)["loss"])
+                end.record()
+                torch.cuda.synchronize()
+                times[tag][0].append(start.elapsed_time(end))
+                times[tag][1].append(loss)
+    states = {tag: {k: v.detach().clone() for k, v in arm[0].named_parameters()}
+              for tag, arm in arms.items()}
+    del arms
+    diffs = {k: float((states["mesh"][k].float() - v.float()).abs().max())
+             for k, v in states["plain"].items()}
+    worst = sorted(diffs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"phase 10: (a) data-parallel step (shard_model, shard_optimizer_zero1, "
+          f"bf16 compute, batch 256, AdamW, 3 steps, cuDNN deterministic) against the "
+          f"plain step: {sum(v == 0 for v in diffs.values())} of {len(diffs)} parameters "
+          f"bit-identical, largest difference per parameter max {max(diffs.values()):.3g} "
+          f"(worst {worst}); losses {times['mesh'][1]} vs {times['plain'][1]}; ms a step "
+          f"in turns (the first with cuDNN's warm-up) {[round(v, 2) for v in times['mesh'][0]]} "
+          f"vs plain {[round(v, 2) for v in times['plain'][0]]} | {card}")
+    if max(diffs.values()) != 0.0:
+        raise AssertionError("phase 10 (a): the data-parallel step at world size 1 "
+                             f"differs from the plain step: {worst}")
+    del states
+
+    # both pipelines with one stage: the flagship's layer1 in f32
+    stage = copy.deepcopy(qat.layer1).to(dev).float().eval()
+    h = torch.randn((8, 64, 56, 56), generator=torch.Generator().manual_seed(SEED + 4)).to(dev)
+    with torch.no_grad(), cudnn_deterministic():
+        direct = torch.cat([stage(c) for c in h.chunk(2)])
+        pmesh = P.make_pipeline_mesh(1)
+        stacked = P.shard_stacked_state(P.stack_stage_states([stage]), pmesh)
+        homo = P.pipeline_apply(P.make_stage_fn(stage), stacked, h, mesh=pmesh,
+                                n_microbatches=2)
+        hetero = P.HeteroPipeline([stage], (64, 56, 56), pmesh)
+        het = hetero.apply(hetero.flat_params, h, n_microbatches=2)
+    for name, got in (("pipeline_apply", homo), ("HeteroPipeline", het)):
+        if not torch.equal(got, direct):
+            raise AssertionError(f"phase 10 (a): {name} with one stage differs from the "
+                                 f"stage applied directly: {(got - direct).abs().max()}")
+    print("phase 10: (a) pipeline_apply and HeteroPipeline with one stage (ResNet-18 "
+          "layer1, f32, batch 8 in 2 microbatches): bit-identical to the stage applied "
+          "directly to each microbatch")
+
+    # the packed chain at P=1
+    chain, cx = _chain(dev)
+    t0 = time.perf_counter()
+    got = packed_tp_chain(chain, P.make_mesh(data=1, model=1))(cx)
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, reference_chain(chain)(cx)):
+        raise AssertionError("phase 10 (a): packed_tp_chain at P=1 differs from reference_chain")
+    print(f"phase 10: (a) packed_tp_chain at P=1, M=8, {' -> '.join(map(str, CHAIN_SIZES))}: "
+          f"bit-identical to reference_chain ({chain_ms:.1f} ms host clock, plain torch "
+          f"partial products) | {card}")
+    return {"launches": launches}
+
+
+def _chain(dev):
+    from bnn_tpu_torch.inference import pack_chain_weights
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    sizes = CHAIN_SIZES
+    ws = [torch.randn((k, n), generator=gen).sign().numpy() for k, n in zip(sizes, sizes[1:])]
+    scales = [(0.5 + torch.rand(n, generator=gen)).numpy() for n in sizes[1:]]
+    adds = [torch.randn(n, generator=gen).numpy() for n in sizes[1:]]
+    chain = [layer._replace(w_packed=layer.w_packed.to(dev), scale=layer.scale.to(dev),
+                            add=layer.add.to(dev))
+             for layer in pack_chain_weights(ws, scales, adds)]
+    return chain, torch.randn((8, sizes[0]), generator=gen).to(dev)
+
+
+def pair_rank(rank: int, world: int, card: str) -> dict:
+    """Phase 10 (b), two ranks on the one card over gloo: the paths whose
+    collectives gloo takes with CUDA tensors (GLOO_CUDA), each against its
+    single-process version."""
+    from bnn_tpu_torch import kernels
+    from bnn_tpu_torch import parallel as P
+    from bnn_tpu_torch.inference import Predictor
+
+    dev = torch.device("cuda", 0)
+    qat = flagship(torch.Generator().manual_seed(SEED))
+    images = torch.randn((BATCH, 3, SIZE, SIZE), generator=torch.Generator().manual_seed(SEED))
+    x = images.to(dev)
+    launches: dict = {}
+
+    mesh = P.make_mesh(device=dev)
+    pred = Predictor(copy.deepcopy(qat), batch_size=BATCH, mesh=mesh)
+    plain = Predictor(copy.deepcopy(qat), batch_size=4)
+    _zero_counts(kernels)
+    got = pred(x)
+    counts = _counts(kernels)
+    _check_launches("phase 10 (b) data-parallel ResNet-18", counts,
+                    {"fused_stem": 1, "fused_chain": 4}, 1)
+    _add(launches, counts)
+    for half in (0, 1):
+        if not torch.equal(got[4 * half:4 * half + 4], plain(x[4 * half:4 * half + 4])):
+            raise AssertionError(f"phase 10 (b): rank {rank}: data-parallel rows "
+                                 f"{4 * half}-{4 * half + 3} differ from Predictor(batch_size=4)")
+    plain8 = Predictor(copy.deepcopy(qat), batch_size=BATCH)
+    # host clock, both ranks at once on the one card; in turns
+    ms = [fwd_ms(pred, x, 10), fwd_ms(plain8, x, 10), fwd_ms(plain, x[:4], 10),
+          fwd_ms(pred, x, 10)]
+    print(f"phase 10: (b) data-parallel ResNet-18, Predictor(mesh=2x1, batch_size=8) "
+          f"bf16: this rank's 4 rows through {counts}; the gathered logits "
+          f"bit-identical to Predictor(batch_size=4) on each half; forward "
+          f"{ms[0]:.3f}, {ms[3]:.3f} ms against Predictor(batch_size=8) {ms[1]:.3f} ms "
+          f"and batch_size=4 {ms[2]:.3f} ms, host clock, both ranks serving | {card}")
+    del pred, plain, plain8
+
+    mesh = P.make_mesh(data=1, model=2, device=dev)
+    before = torch.cuda.memory_allocated()
+    tp = Predictor(copy.deepcopy(qat), batch_size=BATCH, mesh=mesh, tensor_parallel=True)
+    held = torch.cuda.memory_allocated() - before
+    ref = Predictor(copy.deepcopy(qat), batch_size=BATCH, fuse=False)
+    gemm = tp.model.layer4[0].downsample[1]
+    _zero_counts(kernels)
+    got = tp(x)
+    counts = _counts(kernels)
+    _check_launches("phase 10 (b) tensor-parallel ResNet-18", counts, {"binary_gemm": 1}, 1)
+    _add(launches, counts)
+    if gemm.w_packed.shape[1] != 256 or not torch.equal(got, ref(x)):
+        raise AssertionError(f"phase 10 (b): rank {rank}: tensor-parallel ResNet-18 "
+                             f"(layer4.0.downsample.1 {tuple(gemm.w_packed.shape)}) "
+                             "differs from the replicated unfused Predictor")
+    ms = [fwd_ms(tp, x, 10), fwd_ms(ref, x, 10), fwd_ms(tp, x, 10)]
+    print(f"phase 10: (b) tensor-parallel ResNet-18, Predictor(mesh=1x2, "
+          f"tensor_parallel=True, batch_size=8) bf16: {len(tp.tp_layers)} of "
+          f"{tp.tp_total} deployed layers sharded, layer4.0.downsample.1 on "
+          f"binary_gemm at N={gemm.w_packed.shape[1]}; logits bit-identical to the "
+          f"replicated unfused Predictor; launches {counts}; state_bytes "
+          f"{tp.state_bytes()} B (logical), {tp.local_state_bytes()} B on this rank "
+          f"against {ref.state_bytes()} B replicated; card memory the predictor holds "
+          f"{held / 1e6:.1f} MB; forward {ms[0]:.3f}, {ms[2]:.3f} ms against the "
+          f"replicated unfused {ms[1]:.3f} ms, host clock, both ranks serving | {card}")
+    del tp, ref
+
+    return {"launches": launches, "train": pair_train(rank, qat, dev, card)}
+
+
+def pair_train(rank: int, qat, dev, card: str) -> dict:
+    """Phase 10 (b): the flagship's data-parallel step with shard_model and
+    shard_optimizer_zero1 over the two ranks (f32, AdamW, BatchNorm over the
+    whole batch), held (1) after every step to AdamW stepping the whole
+    parameters on the same averaged gradients, bit for bit (ZeRO-1's cut
+    update and its all-gather), (2) on rank 0 to the plain step on the whole
+    batch (the first step's loss and gradient within PAIR_LOSS_RTOL and
+    PAIR_GRAD_TOL; later losses and each parameter's largest difference
+    printed); returns a digest of the
+    parameters, which the ranks must share."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from bnn_tpu_torch import parallel as P
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn((PAIR_TRAIN_BATCH, 3, SIZE, SIZE), generator=gen).to(dev)
+    y = torch.randint(0, 1000, (PAIR_TRAIN_BATCH,), generator=gen).to(dev)
+    mesh = P.make_mesh(device=dev)
+    model = copy.deepcopy(qat).to(dev).train()
+    if rank == 0:
+        base = copy.deepcopy(model)
+        base_opt = adamw(base)
+    shadow = [p.detach().clone().requires_grad_() for p in model.parameters()]
+    shadow_opt = torch.optim.AdamW(shadow, lr=1e-3, weight_decay=1e-4)
+    opt = adamw(model)
+    P.shard_model(model, mesh)
+    P.shard_model(opt, mesh)
+    P.shard_optimizer_zero1(opt, mesh)
+    cut = len(opt._bnn_zero1.entries)
+    xb, yb = P.shard_batch((x, y), mesh)
+    step = P.make_train_step()
+    ms = {"mesh": [], "plain": []}
+    losses = {"mesh": [], "plain": []}
+    with cudnn_deterministic():
+        for i in range(PAIR_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses["mesh"].append(float(step(model, opt, xb, yb)["loss"]))
+            ms["mesh"].append((time.perf_counter() - t0) * 1e3)
+            for s, p in zip(shadow, model.parameters()):
+                s.grad = None if p.grad is None else p.grad.detach().clone()
+            shadow_opt.step()
+            bad = [n for (n, p), s in zip(model.named_parameters(), shadow)
+                   if not torch.equal(p, s)]
+            if bad:
+                raise AssertionError(f"phase 10 (b): rank {rank}: after ZeRO-1 step {i + 1} "
+                                     f"{len(bad)} parameters differ from AdamW on the whole "
+                                     f"parameters: {bad[:3]}")
+            if rank == 0:  # the other rank waits at the barrier meanwhile
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses["plain"].append(float(step(base, base_opt, x, y)["loss"]))
+                ms["plain"].append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    pairs = [(n, p.grad, q.grad) for (n, p), q in
+                             zip(model.named_parameters(), base.parameters())
+                             if q.grad is not None]
+                    grad_err = {n: float((g - h).abs().max() / h.abs().max().clamp_min(1e-30))
+                                for n, g, h in pairs}
+                    grad_norm = float(torch.stack([(g - h).double().norm() for _, g, h in pairs])
+                                      .norm() / torch.stack([h.double().norm()
+                                                             for _, _, h in pairs]).norm())
+            dist.barrier()
+    digest = hashlib.sha1()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    if rank != 0:
+        return {"digest": digest.hexdigest()}
+    diffs = {n: float((p - q).abs().max())
+             for (n, p), q in zip(model.named_parameters(), base.parameters())}
+    worst_grad = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    worst = sorted(diffs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"phase 10: (b) data-parallel ZeRO-1 training step over 2 ranks (flagship "
+          f"ResNet-18, f32, batch {PAIR_TRAIN_BATCH} = 2 x {PAIR_TRAIN_BATCH // 2}, AdamW, "
+          f"{PAIR_TRAIN_STEPS} steps, cuDNN deterministic; {cut} parameters' moments cut "
+          f"in two): every step bit-identical on each rank to AdamW on the whole "
+          f"parameters with the averaged gradients; against the plain step on the whole "
+          f"batch: step 1's whole gradient |g - g_plain| / |g_plain| {grad_norm:.3g} "
+          f"(limit {PAIR_GRAD_TOL}), per parameter as a share of its largest element max "
+          f"{max(grad_err.values()):.3g} (worst {worst_grad}); losses {losses['mesh']} vs "
+          f"{losses['plain']} (the first held at rtol {PAIR_LOSS_RTOL}); after "
+          f"{PAIR_TRAIN_STEPS} steps {sum(v == 0 for v in diffs.values())} of {len(diffs)} "
+          f"parameters bit-identical, largest difference per parameter max "
+          f"{max(diffs.values()):.3g} (worst {worst}; AdamW moves an element by about "
+          f"lr = 1e-3 a step); ms a step, host clock, {[round(v, 2) for v in ms['mesh']]} "
+          f"(gloo through the host) vs plain {[round(v, 2) for v in ms['plain']]} | {card}")
+    if not grad_norm <= PAIR_GRAD_TOL:
+        raise AssertionError(f"phase 10 (b): the data-parallel gradient differs from the "
+                             f"plain step's by {grad_norm} of its norm: {worst_grad}")
+    if abs(losses["mesh"][0] - losses["plain"][0]) > PAIR_LOSS_RTOL * abs(losses["plain"][0]):
+        raise AssertionError(f"phase 10 (b): the data-parallel first loss "
+                             f"{losses['mesh'][0]} against plain {losses['plain'][0]}")
+    return {"digest": digest.hexdigest()}
+
+
+PROBE_OPS = ("all_gather", "all_reduce", "broadcast", "batch_isend_irecv")
+
+
+def probe_rank(rank: int, world: int, card: str, op: str) -> dict:
+    """``--gloo-probe``: one collective the parallel paths use, on CUDA
+    tensors over gloo, by two ranks on the one card."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    if op == "all_gather":
+        dist.all_gather([torch.empty(4, device=dev) for _ in range(world)],
+                        torch.full((4,), float(rank), device=dev))
+    elif op == "all_reduce":
+        dist.all_reduce(torch.ones(4, device=dev))
+    elif op == "broadcast":
+        dist.broadcast(torch.full((4,), float(rank), device=dev), src=1)
+    else:
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, torch.full((4,), float(rank), device=dev), 1 - rank),
+                dist.P2POp(dist.irecv, torch.empty(4, device=dev), 1 - rank)]):
+            w.wait()
+    torch.cuda.synchronize()
+    return {}
+
+
+def gloo_probe() -> None:
+    """Each collective in a world of its own (a refusal can abort the
+    process): what gloo takes with CUDA tensors on this torch."""
+    for op in PROBE_OPS:
+        try:
+            run_ranks(f"probe:{op}", 2)
+            print(f"gloo probe, torch {torch.__version__}: {op} on CUDA tensors: ok")
+        except AssertionError as e:  # the probe's question: did the ranks fail
+            last = [line for line in str(e).splitlines() if line.strip()][-3:]
+            print(f"gloo probe, torch {torch.__version__}: {op} on CUDA tensors: "
+                  f"refused: {' | '.join(last)}")
+
+
+def rank_main(argv) -> int:
+    """``--rank <mode> <rank> <world> <dir>``: one rank of a phase-10 world."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    mode, rank, world, d = argv[0], int(argv[1]), int(argv[2]), pathlib.Path(argv[3])
+    mode, _, op = mode.partition(":")
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    backend = "nccl" if mode == "single" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{d / 'store'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = card_line()
+        if mode == "probe":
+            res = probe_rank(rank, world, card, op)
+        else:
+            res = {"single": single_rank, "pair": pair_rank}[mode](rank, world, card)
+        tmp = d / f"rank{rank}.json.tmp"
+        tmp.write_text(json.dumps(res))
+        os.replace(tmp, d / f"rank{rank}.json")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(card) -> dict:
+    """Phase 10: (a) a world of one rank over NCCL, then (b) two ranks on the
+    one card over gloo; returns the launches by kernel name of both."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    _add(launches, run_ranks("single", 1)[0]["launches"])
+    print("phase 10: (b) gloo with CUDA tensors on torch 2.11 (GLOO_CUDA, from "
+          f"chip_smoke.py --gloo-probe): {GLOO_CUDA}")
+    for name, need in PAIR_PATHS.items():
+        missing = [c for c in need if not GLOO_CUDA[c]]
+        if missing:
+            print(f"phase 10: (b) {name}: not run on the card: gloo takes no CUDA "
+                  f"tensors in {missing} ({'; '.join(GLOO_REFUSES[c] for c in missing)}); "
+                  "held by the CPU tests "
+                  "(tests/test_torch_parallel.py, test_torch_pipeline.py, "
+                  "test_torch_tp_serving.py)")
+    pair = run_ranks("pair", 2)
+    for r in pair:
+        _add(launches, r["launches"])
+    if pair[0]["train"]["digest"] != pair[1]["train"]["digest"]:
+        raise AssertionError("phase 10 (b): after the data-parallel ZeRO-1 steps the two "
+                             "ranks hold different parameters")
+    print("phase 10: (b) both ranks hold bit-identical parameters after the "
+          "data-parallel ZeRO-1 steps")
+    shutil.rmtree(PHASE10_DIR, ignore_errors=True)
+    print(f"phase 10: took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 def forwards_only() -> int:
     """``--forwards``: the live predictor's forward at ResNet-18 batch 1 and
     8 and ResNet-50 batch 1 (bf16, 224x224, the flagship recipe's random
@@ -2914,6 +3424,12 @@ def main() -> int:
         return 1
     if "--forwards" in sys.argv[1:]:
         return forwards_only()
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2:])
+    if "--gloo-probe" in sys.argv[1:]:
+        print(card_line())
+        gloo_probe()
+        return 0
     from bnn_tpu_torch import kernels
     from bnn_tpu_torch.inference import Predictor
     from bnn_tpu_torch.kernels import _build
@@ -2942,6 +3458,10 @@ def main() -> int:
     if "--trainer" in sys.argv[1:]:
         trainer_phase(kernels, dev, card)
         print("chip_smoke: --trainer: phases 1 and 9 passed", file=sys.stderr)
+        return 0
+    if "--parallel" in sys.argv[1:]:
+        parallel_phase(card)
+        print("chip_smoke: --parallel: phases 1 and 10 passed", file=sys.stderr)
         return 0
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
@@ -3633,15 +4153,19 @@ def main() -> int:
     # phase 9: the host pipeline and the training utilities; its trainers
     # launch none of the kernels, (c) times binary_gemm outside the counts
     trainer_phase(kernels, dev, card)
-    print("phase 10: fused_chain's numbers are the sums over the four stages of "
+    # phase 10: the parallel paths, in processes of their own; their
+    # launches (the mesh predictors', per rank) join the totals
+    add(parallel_phase(card))
+    print("phase 11: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
           "binary_conv2d_s1's and popcount_gemm's the sums over the 13 and 36 "
           "calls of one batch-8 forward of paths B and C; launches are totals "
           "over phase 3's serving runs, phase 5's serving of the trained "
-          "weights, phase 6's counted serving runs and streams and phase 8's "
-          "serving runs (paths D and E); max_abs_err is the largest over every "
+          "weights, phase 6's counted serving runs and streams, phase 8's "
+          "serving runs (paths D and E) and phase 10's mesh predictors (each "
+          "rank's); max_abs_err is the largest over every "
           "check, phase 8's included")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",

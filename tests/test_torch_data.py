@@ -218,10 +218,13 @@ def test_prefetch_propagates_errors():
 
 
 def test_prefetch_refusals():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        next(tdata.prefetch_to_device(iter([]), mesh=object(), device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        next(tdata.prefetch_to_device(iter([]), host_shards=True, device="cpu"))
+    # a mesh stages onto its own device; another one is refused
+    mesh = type("Mesh", (), {"device": torch.device("cpu")})()
+    with pytest.raises(ValueError, match="mesh's"):
+        next(tdata.prefetch_to_device(iter([]), mesh=mesh, device="meta"))
+    # without a mesh host_shards changes nothing, as in the JAX package
+    assert [b.tolist() for b in tdata.prefetch_to_device(
+        iter([np.ones(2)]), host_shards=True, device="cpu")] == [[1.0, 1.0]]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             next(tdata.prefetch_to_device(iter([np.ones(2)])))

@@ -48,7 +48,13 @@ def test_pattern_catches_what_it_must():
                                     "utils/timing.py", "utils/profiling.py",
                                     "utils/debug.py", "utils/cache.py",
                                     "utils/torch_import.py",
-                                    "examples/cifar10.py"])
+                                    "examples/cifar10.py",
+                                    "parallel/mesh.py",
+                                    "parallel/collectives.py",
+                                    "parallel/pipeline.py",
+                                    "parallel/hetero_pipeline.py",
+                                    "inference/tp.py",
+                                    "inference/tp_packed.py"])
 def test_training_modules_are_checked(module):
     """The training and serving slices' modules, the kernel operators, the
     serving bundle, the input pipeline, the native engines, the training
@@ -56,6 +62,34 @@ def test_training_modules_are_checked(module):
     path = ROOT / "bnn_tpu_torch" / module
     assert path in _port_sources()
     assert not _FORBIDDEN.findall(path.read_text())
+
+
+def test_distributed_worker_imports_no_jax():
+    """The ranks of the distributed tests run tests/torch_distributed_worker.py,
+    which imports torch and the port only (each rank also reports the JAX
+    modules it holds: none)."""
+    path = ROOT / "tests" / "torch_distributed_worker.py"
+    assert not _FORBIDDEN.findall(path.read_text())
+
+
+_PARALLEL = ["bnn_tpu_torch.parallel.mesh", "bnn_tpu_torch.parallel.collectives",
+             "bnn_tpu_torch.parallel.pipeline", "bnn_tpu_torch.parallel.hetero_pipeline",
+             "bnn_tpu_torch.inference.tp", "bnn_tpu_torch.inference.tp_packed"]
+
+
+def test_parallel_modules_import_no_jax():
+    """Importing the parallel modules in a fresh interpreter loads no jax,
+    flax, optax or bnn_tpu module."""
+    import subprocess
+    import sys
+
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            + "; ".join(f"import {m}" for m in _PARALLEL)
+            + "; print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'bnn_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
 
 
 _INTO_JAX_PACKAGE = re.compile(r"(?<![\w])bnn_tpu[/\\]")

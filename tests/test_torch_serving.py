@@ -172,13 +172,24 @@ def _tiny():
     return torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3))
 
 
+class _FakeMesh:
+    """The part of a parallel.Mesh that the Predictor's guards read."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+    def size(self, axis):
+        return self.shape.get(axis, 1)
+
+
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(tensor_parallel=True), ValueError, "needs a mesh"),
     (dict(tensor_parallel=True, mesh=object(), fuse=True), ValueError,
      "incompatible with fuse=True"),
     (dict(binary_gemm_impl="popcount", fuse=True), ValueError,
      "incompatible with fuse=True"),
-    (dict(mesh=object(), fuse=False), NotImplementedError, "multi-device"),
+    # a batch that does not split over the mesh's data axis
+    (dict(mesh=_FakeMesh(data=3), fuse=False), ValueError, "divide evenly"),
     # a serving bundle runs on the device type it is exported on
     (dict(export=("bundle", (3, 8, 8), ["cuda"])), ValueError, "device type"),
 ])
