@@ -142,9 +142,10 @@ def _tp_gather(layer, y: torch.Tensor, dim: int) -> torch.Tensor:
     axis = getattr(layer, "tp_axis", None)
     if axis is None:
         return y
-    from ..parallel.collectives import gather
+    from ..parallel.collectives import mesh_gather
 
-    return gather(y, layer.tp_mesh.group(axis), dim % y.ndim)
+    # an operator, which an exported program holds as one node
+    return mesh_gather(y, layer.tp_mesh, axis, dim)
 
 
 def _local_channels(layer, v: torch.Tensor) -> torch.Tensor:

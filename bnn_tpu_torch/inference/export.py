@@ -34,12 +34,30 @@ Bundle layout (a directory)::
     meta.json     format_version, batch_size, input_shape (per example,
                   NCHW), layout, input_dtype, platforms, nr_devices, mesh,
                   torch version
+    shards.pt     (mesh bundles with sharded weights) each sharded state
+                  tensor whole, by the program's state name
 
-Multi-device bundles (``mesh``) are not ported yet (``ROADMAP.md`` queue 1,
-item 6).
+Mesh bundles (format 2). A ``Predictor(mesh=...)`` (one process per device,
+data- and / or tensor-parallel) freezes as one program that every rank
+serves: the forward of one rank on its rows, the batch's ``batch_size /
+data`` rows, with each tensor-parallel layer's gather a
+``bnn_tpu_torch::mesh_gather`` node that names the mesh by its axes and sizes
+(``parallel/collectives.py``), never a rank or a process group. Every rank
+calls ``export_serving`` (the sharded weights are gathered whole, a
+collective); rank 0 writes. ``meta.json`` records ``nr_devices`` (the world
+size) and ``mesh``: ``axis_names``, ``axis_sizes``, ``x_spec`` (the request
+batch split over the data axis, as JAX's ``P(batch_axis)``) and
+``state_specs``, each state tensor's :class:`~bnn_tpu_torch.parallel.Spec`.
+``load_serving`` on every rank of a world of the same size rebuilds the mesh
+(``parallel.Mesh``), cuts each sharded tensor to this rank's shard and
+serves as the live predictor does: this rank's rows through the program,
+the logits gathered over the data axis, ``batched_call``'s pad / split /
+strip around it. A world of another size is refused, as JAX refuses too few
+devices, and so is ``platforms=`` with a mesh.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Optional, Sequence, Tuple
@@ -48,11 +66,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["batched_call", "export_serving", "load_serving", "ExportedServer"]
+__all__ = ["batched_call", "data_parallel_call", "export_serving", "load_serving",
+           "ExportedServer"]
 
-_FORMAT_VERSION = 1
+_FORMAT_VERSION = 1         # one device
+_MESH_FORMAT_VERSION = 2    # a mesh of ranks
 _PROGRAM = "program.pt2"
 _META = "meta.json"
+_SHARDS = "shards.pt"
 
 
 def batched_call(one_batch, x: torch.Tensor, batch_size: int) -> torch.Tensor:
@@ -73,8 +94,40 @@ def batched_call(one_batch, x: torch.Tensor, batch_size: int) -> torch.Tensor:
     return out[:n]
 
 
+def data_parallel_call(one_batch, x: torch.Tensor, mesh, batch_axis: str) -> torch.Tensor:
+    """``one_batch`` on this rank's rows of ``x`` (the ``batch_axis``
+    coordinate's share), then every rank's outputs gathered in rank order:
+    the whole batch's on every rank. Without a mesh, or on a batch axis of
+    one, ``one_batch(x)``. Shared by ``Predictor`` and
+    :class:`ExportedServer`."""
+    if mesh is None or mesh.size(batch_axis) <= 1:
+        return one_batch(x)
+    from ..parallel.collectives import gather
+    from ..parallel.mesh import batch_rows
+
+    return gather(one_batch(batch_rows(x, mesh, batch_axis)), mesh.group(batch_axis), 0)
+
+
+def _encode_spec(spec) -> list:
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _decode_spec(entries):
+    from ..parallel.mesh import Spec
+
+    return Spec(*[tuple(e) if isinstance(e, list) else e for e in entries])
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 class _Forward(nn.Module):
-    """``Predictor._forward`` as a module: the model's first output."""
+    """``Predictor._model_forward`` as a module: the model's first output."""
 
     def __init__(self, model: nn.Module):
         super().__init__()
@@ -97,17 +150,22 @@ def export_serving(predictor, path: str, input_shape: Sequence[int], *,
     that device's kernels and tensors.
     """
     device = torch.device(predictor.device)
+    mesh = getattr(predictor, "mesh", None)
+    if mesh is not None and platforms is not None:
+        raise ValueError(
+            "platforms= and a mesh predictor are mutually exclusive: a mesh "
+            "bundle runs on the device type its ranks serve on")
     if platforms is not None and list(platforms) != [device.type]:
         raise ValueError(
             f"a bundle runs on the device type it is exported on: this "
             f"predictor serves on {device.type!r}, platforms={list(platforms)} "
             "asks for another; build the predictor there and export it there")
-    if getattr(predictor, "mesh", None) is not None:
-        raise NotImplementedError("multi-device bundles are not ported yet "
-                                  "(ROADMAP.md queue 1, item 6)")
     model = predictor.model
-    x = torch.zeros((predictor.batch_size, *input_shape), dtype=predictor.dtype,
-                    device=device)
+    rows = predictor.batch_size
+    batch_axis = getattr(predictor, "batch_axis", "data")
+    if mesh is not None:
+        rows //= mesh.size(batch_axis)
+    x = torch.zeros((rows, *input_shape), dtype=predictor.dtype, device=device)
     training = model.training
     needs_grad = [p for p in model.parameters() if p.requires_grad]
     model.eval()
@@ -120,8 +178,6 @@ def export_serving(predictor, path: str, input_shape: Sequence[int], *,
         for p in needs_grad:
             p.requires_grad_(True)
         model.train(training)
-    os.makedirs(path, exist_ok=True)
-    torch.export.save(program, os.path.join(path, _PROGRAM))
     meta = {
         "format_version": _FORMAT_VERSION,
         "batch_size": predictor.batch_size,
@@ -133,14 +189,71 @@ def export_serving(predictor, path: str, input_shape: Sequence[int], *,
         "mesh": None,
         "torch": torch.__version__,
     }
+    if mesh is None:
+        _write_bundle(path, program, meta, {})
+        return
+    _export_mesh(predictor, path, program, meta, batch_axis)
+
+
+def _write_bundle(path: str, program, meta: dict, shards: dict) -> None:
+    os.makedirs(path, exist_ok=True)
+    torch.export.save(program, os.path.join(path, _PROGRAM))
+    if shards:
+        torch.save(shards, os.path.join(path, _SHARDS))
     with open(os.path.join(path, _META), "w") as f:
         json.dump(meta, f, indent=1)
 
 
-class ExportedServer:
-    """A loaded serving bundle: callable with ``Predictor`` semantics."""
+def _export_mesh(predictor, path: str, program, meta: dict, batch_axis: str) -> None:
+    """The mesh half of :func:`export_serving`, on every rank: each sharded
+    state tensor gathered whole (the program's own are this rank's shards,
+    the same shapes on every rank), then rank 0 writes and every rank
+    returns once the bundle is in place."""
+    import torch.distributed as dist
 
-    def __init__(self, program, meta: dict, device: torch.device):
+    from ..parallel.mesh import REPLICATED, gather_tensor
+
+    mesh = predictor.mesh
+    # one program file serves every rank only if no rank traced its own
+    code = hashlib.sha1(program.graph_module.code.encode()).hexdigest()
+    codes = [None] * dist.get_world_size()
+    dist.all_gather_object(codes, code)
+    if len(set(codes)) > 1:
+        raise RuntimeError("the ranks traced different programs: a mesh bundle "
+                           "holds one program that every rank serves")
+    specs = getattr(predictor, "tp_specs", None) or {}
+    state_specs = {k: specs.get(k.removeprefix("model."), REPLICATED)
+                   for k in program.state_dict}
+    shards = {k: gather_tensor(program.state_dict[k], spec, mesh).cpu()
+              for k, spec in sorted(state_specs.items()) if spec.names()}
+    meta.update(
+        format_version=_MESH_FORMAT_VERSION, nr_devices=dist.get_world_size(),
+        device=str(torch.device(predictor.device)),
+        mesh={"axis_names": list(mesh.axis_names),
+              "axis_sizes": [mesh.size(a) for a in mesh.axis_names],
+              "x_spec": [batch_axis] if batch_axis in mesh.shape else [],
+              "state_specs": {k: _encode_spec(s) for k, s in state_specs.items()}})
+    written = torch.zeros((), device=mesh.device)
+    error = None
+    if dist.get_rank() == 0:
+        try:
+            _write_bundle(path, program, meta, shards)
+            written.fill_(1)
+        except Exception as e:  # raised below, after the other ranks hear of it
+            error = e
+    dist.broadcast(written, 0)
+    if error is not None:
+        raise error
+    if not written.item():
+        raise RuntimeError(f"rank 0 failed to write the serving bundle {path}")
+
+
+class ExportedServer:
+    """A loaded serving bundle: callable with ``Predictor`` semantics. A mesh
+    bundle's ``mesh`` is the :class:`~bnn_tpu_torch.parallel.Mesh` rebuilt
+    over the current world; ``program`` then holds this rank's shards."""
+
+    def __init__(self, program, meta: dict, device: torch.device, mesh=None):
         self.program = program
         self.meta = meta
         self.batch_size = int(meta["batch_size"])
@@ -148,8 +261,13 @@ class ExportedServer:
         self.platforms: Tuple[str, ...] = tuple(meta["platforms"])
         self.dtype = getattr(torch, meta["input_dtype"])
         self.device = device
-        self.mesh = None
+        self.mesh = mesh
+        x_spec = meta["mesh"]["x_spec"] if mesh is not None else []
+        self.batch_axis = x_spec[0] if x_spec else None
         self._forward = program.module()
+
+    def _one_batch(self, xb: torch.Tensor) -> torch.Tensor:
+        return data_parallel_call(self._forward, xb, self.mesh, self.batch_axis)
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:
@@ -157,10 +275,11 @@ class ExportedServer:
         if tuple(x.shape[1:]) != self.input_shape:
             raise ValueError(f"input shape {tuple(x.shape[1:])} != exported "
                              f"signature {self.input_shape}")
-        return batched_call(self._forward, x, self.batch_size)
+        return batched_call(self._one_batch, x, self.batch_size)
 
     def state_bytes(self) -> int:
-        """Bytes of the program's weights, buffers and constants."""
+        """Bytes of the program's weights, buffers and constants: on a mesh,
+        this rank's shards."""
         tensors = list(self.program.state_dict.values())
         tensors += list(self.program.constants.values())
         return sum(t.numel() * t.element_size() for t in tensors
@@ -178,13 +297,21 @@ def load_serving(path: str, device=None) -> ExportedServer:
         raise FileNotFoundError(f"not a serving bundle (no {_META}): {path}")
     with open(meta_path) as f:
         meta = json.load(f)
-    if meta.get("format_version") != _FORMAT_VERSION:
+    if meta.get("format_version") not in (_FORMAT_VERSION, _MESH_FORMAT_VERSION):
         raise ValueError(f"unsupported bundle format {meta.get('format_version')!r} "
-                         f"(this loader reads {_FORMAT_VERSION})")
+                         f"(this loader reads {_FORMAT_VERSION} and "
+                         f"{_MESH_FORMAT_VERSION})")
     if meta.get("mesh"):
-        raise NotImplementedError("multi-device bundles are not ported yet "
-                                  "(ROADMAP.md queue 1, item 6)")
+        n, world = int(meta["nr_devices"]), _world_size()
+        if n != world:
+            raise ValueError(f"the bundle at {path} was exported for {n} devices "
+                             f"and serves on a world of {n} ranks; this world has "
+                             f"{world}")
     platforms = list(meta["platforms"])
+    if device is None and meta.get("mesh") and platforms[0] == "cuda":
+        from ..parallel.mesh import _default_device
+
+        device = _default_device()  # cuda:{LOCAL_RANK}, as the mesh's
     device = torch.device(platforms[0] if device is None else device)
     if device.type not in platforms:
         raise ValueError(f"the bundle at {path} was exported for {platforms} and "
@@ -193,6 +320,35 @@ def load_serving(path: str, device=None) -> ExportedServer:
         raise RuntimeError(f"the bundle at {path} runs on CUDA and no CUDA "
                            "device is available")
     from ..kernels import ops  # noqa: F401  (the operators the program calls)
+    from ..parallel import collectives  # noqa: F401  (mesh_gather)
 
     program = torch.export.load(os.path.join(path, _PROGRAM))
-    return ExportedServer(program, meta, device)
+    if not meta.get("mesh"):
+        return ExportedServer(program, meta, device)
+    return _load_mesh(path, program, meta, device)
+
+
+def _load_mesh(path: str, program, meta: dict, device: torch.device) -> ExportedServer:
+    """A mesh bundle on this rank: the mesh rebuilt over the world (every
+    rank calls this, in the same order as its other meshes), each sharded
+    tensor cut to this rank's shard."""
+    from ..parallel.mesh import Mesh, slice_tensor
+
+    mm = meta["mesh"]
+    mesh = Mesh(dict(zip(mm["axis_names"], mm["axis_sizes"])), device)
+    exported_on = torch.device(meta["device"])
+    if exported_on != device:
+        # a program traced on cuda:0 names cuda:0 in the tensors its forward
+        # makes; a rank on another card moves them to its own
+        program = torch.export.passes.move_to_device_pass(program, device)
+    specs = {k: _decode_spec(v) for k, v in mm["state_specs"].items()}
+    if any(s.names() for s in specs.values()):
+        whole = torch.load(os.path.join(path, _SHARDS), map_location="cpu",
+                           weights_only=True, mmap=True)
+        for k, spec in specs.items():
+            if spec.names():
+                shard = slice_tensor(whole[k], spec, mesh).to(device)
+                if isinstance(program.state_dict[k], nn.Parameter):
+                    shard = nn.Parameter(shard, requires_grad=False)
+                program.state_dict[k] = shard
+    return ExportedServer(program, meta, device, mesh)

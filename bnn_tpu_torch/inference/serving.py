@@ -27,7 +27,7 @@ BN folds (``popcount_layers`` names them), as the JAX ``Predictor`` does.
 
 :meth:`Predictor.export` writes the frozen serving bundle
 (``inference/export.py``), which ``load_serving`` serves without building a
-model.
+model; a mesh predictor's bundle serves on a world of the same size.
 
 Multi-device serving (one process per device, every rank builds the same
 ``Predictor`` and calls it with the same requests):
@@ -52,11 +52,10 @@ import torch
 from torch import nn
 
 from ..utils.checkpoint import load_checkpoint, restore_into
-from ..parallel.collectives import gather
 from ..utils.precision import cast_floats
 from .compress import quantize_float_layers, state_bytes
 from .deploy import DeployedConv, DeployedLinear, deploy, set_gemm_impl
-from .export import batched_call, export_serving
+from .export import batched_call, data_parallel_call, export_serving
 from .megablock import fuse_blocks
 from .optimize import optimize_deployed
 from .stages import fuse_head, fuse_stages
@@ -157,7 +156,8 @@ class Predictor:
         (:func:`~bnn_tpu_torch.inference.export.export_serving`;
         ``input_shape`` per example, NCHW, e.g. ``(3, 224, 224)``); serve it
         with :func:`~bnn_tpu_torch.inference.export.load_serving`. The
-        predictor serves as before."""
+        predictor serves as before. On a mesh every rank calls it (a
+        collective); rank 0 writes the bundle."""
         export_serving(self, path, input_shape, platforms=platforms)
 
     def served_model(self) -> nn.Module:
@@ -195,17 +195,13 @@ class Predictor:
         restore_into(model, load_checkpoint(path))
         return cls(model, **kwargs)
 
-    def _forward(self, xb: torch.Tensor) -> torch.Tensor:
-        data = None
-        if self.mesh is not None and self.mesh.size(self.batch_axis) > 1:
-            # this rank's rows of the batch, then every rank's logits
-            n, i = self.mesh.size(self.batch_axis), self.mesh.index(self.batch_axis)
-            rows = xb.shape[0] // n
-            xb = xb[i * rows:(i + 1) * rows]
-            data = self.mesh.group(self.batch_axis)
+    def _model_forward(self, xb: torch.Tensor) -> torch.Tensor:
         out = self.model(xb)
-        out = out[0] if isinstance(out, tuple) else out
-        return out if data is None else gather(out, data, 0)
+        return out[0] if isinstance(out, tuple) else out
+
+    def _forward(self, xb: torch.Tensor) -> torch.Tensor:
+        # on a mesh: this rank's rows of the batch, then every rank's logits
+        return data_parallel_call(self._model_forward, xb, self.mesh, self.batch_axis)
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:

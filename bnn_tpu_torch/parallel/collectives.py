@@ -22,16 +22,25 @@ those with a collective backward) in the backward.
 The gathers go through ``dist.all_gather`` into a list (the form the gloo
 backend takes for every dtype); a group of one rank is an identity and
 moves nothing.
+
+:func:`mesh_gather` is the serving forward's gather as an operator,
+``torch.ops.bnn_tpu_torch.mesh_gather``, so that ``torch.export`` traces a
+tensor-parallel model (``inference/export.py``): its arguments name the mesh
+by its axes and sizes and the axis by name, never a process group or a rank,
+so one traced program serves every rank. The real implementation finds the
+mesh of that shape that this process built last (each :class:`~bnn_tpu_torch.
+parallel.Mesh` registers itself) and gathers over the axis's group; the fake
+one gives the shape. No autograd: serving runs without gradients.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["all_reduce_sum", "copy_to", "gather_from", "gather", "ring_permute",
-           "broadcast_from_last", "group_ranks"]
+           "broadcast_from_last", "group_ranks", "mesh_gather", "register_mesh"]
 
 
 def group_ranks(group) -> List[int]:
@@ -164,3 +173,51 @@ def ring_permute(x: torch.Tensor, group) -> torch.Tensor:
 
 def broadcast_from_last(x: torch.Tensor, group) -> torch.Tensor:
     return _BroadcastFromLast.apply(x, group)
+
+
+# -- the exportable gather ----------------------------------------------------
+
+_MESHES: Dict[Tuple[Tuple[str, ...], Tuple[int, ...]], object] = {}
+
+
+def _mesh_key(names: Sequence[str], sizes: Sequence[int]):
+    return tuple(names), tuple(int(s) for s in sizes)
+
+
+def register_mesh(mesh) -> None:
+    """Make ``mesh`` the one :func:`mesh_gather` finds for its shape (every
+    rank builds its meshes in the same order, so each finds the same one)."""
+    _MESHES[_mesh_key(mesh.shape, mesh.shape.values())] = mesh
+
+
+def _mesh_gather(x: torch.Tensor, axis_names: List[str], axis_sizes: List[int],
+                 axis: str, dim: int) -> torch.Tensor:
+    mesh = _MESHES.get(_mesh_key(axis_names, axis_sizes))
+    if mesh is None:
+        raise RuntimeError(
+            f"mesh_gather over a mesh {dict(zip(axis_names, axis_sizes))} that this "
+            "process has not built: build it (parallel.Mesh) first, on every rank")
+    return gather(x, mesh.group(axis), dim)
+
+
+def _mesh_gather_fake(x, axis_names, axis_sizes, axis, dim):
+    shape = list(x.shape)
+    shape[dim] *= axis_sizes[list(axis_names).index(axis)]
+    return x.new_empty(shape)
+
+
+_lib = torch.library.Library("bnn_tpu_torch", "FRAGMENT")
+_lib.define("mesh_gather(Tensor x, str[] axis_names, int[] axis_sizes, str axis, "
+            "int dim) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _lib.impl("mesh_gather", _mesh_gather, _key)
+torch.library.register_fake("bnn_tpu_torch::mesh_gather", _mesh_gather_fake, lib=_lib)
+del _key
+
+
+def mesh_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """:func:`gather` of ``x`` over ``mesh``'s ``axis`` along ``dim``,
+    through the ``bnn_tpu_torch::mesh_gather`` operator (no autograd)."""
+    names = list(mesh.axis_names)
+    return torch.ops.bnn_tpu_torch.mesh_gather(
+        x, names, [mesh.size(a) for a in names], axis, dim % x.ndim)

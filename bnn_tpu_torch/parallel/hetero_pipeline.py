@@ -144,12 +144,12 @@ class HeteroPipeline:
     # -- state round trips ---------------------------------------------------
 
     def _unflatten(self, row: torch.Tensor, i: int) -> Dict[str, torch.Tensor]:
-        out, off = {}, 0
-        for k, shape, dt in zip(self._keys[i], self._shapes[i], self._dtypes[i]):
-            n = math.prod(shape)
-            out[k] = row[off:off + n].reshape(shape).to(dt)
-            off += n
-        return out
+        # one split, whose backward is one concatenation: a slice per leaf
+        # would make a zero row of Lmax per leaf in the backward
+        sizes = [math.prod(shape) for shape in self._shapes[i]]
+        pieces = torch.split(row[:sum(sizes)], sizes) if sizes else ()
+        return {k: p.reshape(shape).to(dt) for k, p, shape, dt in
+                zip(self._keys[i], pieces, self._shapes[i], self._dtypes[i])}
 
     def unflatten_stage_states(self, flat_params) -> List[Dict[str, torch.Tensor]]:
         """Per-stage ``state_dict``s from the whole ``(n_stages, Lmax)``

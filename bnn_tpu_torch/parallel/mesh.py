@@ -24,6 +24,7 @@ therefore names the out-channel axis of the port's layout for its leaf
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -38,12 +39,12 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from .collectives import copy_to, gather, gather_from
+from .collectives import copy_to, gather, gather_from, register_mesh
 
 __all__ = ["Mesh", "Spec", "make_mesh", "shard_batch", "shard_host_batch",
            "replicate", "shard_state", "shard_model", "shard_optimizer_zero1",
            "DEFAULT_TP_RULES", "spec_of", "mesh_of", "out_channel_axis",
-           "gather_tensor", "slice_tensor"]
+           "gather_tensor", "slice_tensor", "cli_world", "rank_device"]
 
 
 class Spec(tuple):
@@ -85,19 +86,50 @@ def _default_device() -> torch.device:
     return torch.device("cuda", local)
 
 
-def _ensure_world(device: torch.device) -> None:
+def _ensure_world(device: torch.device, backend: Optional[str] = None) -> bool:
     """Initialise ``torch.distributed``'s default group if nobody has: from
     the launcher's environment (``torchrun`` sets ``WORLD_SIZE`` and the
-    rendezvous address), else as a world of this one process."""
+    rendezvous address), else as a world of this one process. ``backend``:
+    by default NCCL for a CUDA device, gloo for the CPU. Returns whether
+    this call made the group."""
     if dist.is_initialized():
-        return
-    backend = "nccl" if device.type == "cuda" else "gloo"
+        return False
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
         dist.init_process_group(backend)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1,
                                 timeout=datetime.timedelta(seconds=60))
+    return True
+
+
+def rank_device(device) -> torch.device:
+    """The device a rank serves or trains on: ``device`` as given, a bare
+    ``'cuda'`` made ``cuda:{LOCAL_RANK}`` (one card a rank, torchrun's
+    layout); ``cuda:0`` on every rank puts the ranks on one card (gloo)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = _default_device()
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+@contextlib.contextmanager
+def cli_world(device: torch.device, backend: Optional[str] = None):
+    """The default process group of a command-line run (the serve CLI and
+    the ImageNet trainer): ``torchrun``'s world, or a world of this one
+    process, over ``backend`` (``--dist-backend``; NCCL for CUDA, gloo for
+    the CPU by default). Two ranks on one card need gloo: NCCL refuses them
+    with its own error, which propagates. A group this call made is
+    destroyed on exit."""
+    made = _ensure_world(device, backend)
+    try:
+        yield dist.get_rank(), dist.get_world_size()
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 class Mesh:
@@ -128,6 +160,7 @@ class Mesh:
         kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
         self.device_mesh = init_device_mesh(kind, sizes, mesh_dim_names=names)
         self.shape: Dict[str, int] = dict(zip(names, sizes))
+        register_mesh(self)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:

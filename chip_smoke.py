@@ -8,6 +8,7 @@
     python3 chip_smoke.py --zoo      # phases 1 and 8 only, no result lines
     python3 chip_smoke.py --trainer  # phases 1 and 9 only, no result lines
     python3 chip_smoke.py --parallel # phases 1 and 10 only, no result lines
+    python3 chip_smoke.py --cli      # phases 1 and 11 only, no result lines
     python3 chip_smoke.py --gloo-probe
                                      # which gloo collectives take CUDA tensors
 
@@ -155,7 +156,8 @@ Phases, each reported on its own lines:
    conv output (1e-3), latency, images/s and device busy; then after
    ``xnor-net-plus.yaml``'s two steps at batch 4 and 8; (d) path E, the
    BATS CIFAR network (C = 36, 20 layers, groups 4, auxiliary head),
-   trained 5 f32 steps at batch 96 (aux weight 0.4, drop-path 0.2) and
+   trained 5 f32 steps at batch 96 (aux weight 0.4, drop-path 0.2, cuDNN
+   deterministic) and
    served at batch 1 and 8 (``binary_gemm`` per pointwise conv in gemm
    mode, each call held against its plain version), the f32 build against
    the CPU (1e-3), latency, images/s and device busy; (e) two binarized
@@ -205,7 +207,29 @@ Phases, each reported on its own lines:
    largest difference and both steps' ms; a path whose collectives gloo does
    not take (a two-stage ``HeteroPipeline``, ``packed_tp_chain`` at P=2) is
    named with the reason;
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+11. the command-line entry points over ``torch.distributed``, each
+   ``main(argv)``: (a) in this process, a world of one rank over NCCL:
+   ``python -m bnn_tpu_torch.examples.imagenet --synthetic --arch
+   resnet18 --image-size 224 -b 256 --bf16 --steps-per-epoch 4 --epochs 1``
+   through ``imagenet-baseline.yaml`` step 0, then ``--resume`` to epoch 2
+   (the optimizer restored: 8 AdamW steps in the checkpoint, training from
+   ``Epoch[1]``), ``--evaluate`` (nothing trained) and ``--zero1``, each
+   run's seconds, losses (finite), images/s, ms a step and peak memory; (b)
+   in rank processes (``--rank``), two ranks on the one card over gloo
+   (``--device cuda:0 --dist-backend gloo``): ``python -m
+   bnn_tpu_torch.examples.serve --data-parallel 2``, then
+   ``--tensor-parallel 2``, at batch 8 and 224x224, each with ``--export``
+   (the live mesh predictor the CLI built, its logits kept), then in a fresh
+   world of two with ``--load`` (2 requests; launches per rank by kernel
+   name: ``fused_stem`` 1 and ``fused_chain`` 4 a forward data-parallel,
+   ``binary_gemm`` 1 at N=256 tensor-parallel), and each bundle through
+   ``load_serving`` there, its logits bit-identical to the live mesh
+   predictor's, each rank's ``state_bytes`` and the card memory its state
+   takes; (c) in (b)'s first world the trainer with ``--zero1`` and with
+   ``--model-parallel 2`` (f32, batch 64, 2 steps; losses finite, ms a
+   step). ``--pipeline`` needs ``batch_isend_irecv``, which gloo refuses with
+   CUDA tensors (``GLOO_CUDA``): named with the reason, held by the CPU tests;
+12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--forwards`` builds the kernels of the ``bnn_tpu_torch`` in the current
@@ -2318,10 +2342,14 @@ def path_e(kernels, Predictor, make_train_step, dev, card, errs, totals):
     y = torch.randint(0, BATS_CLASSES, (batch,), generator=gen).to(dev)
     opt = torch.optim.SGD(net.parameters(), lr=0.025, momentum=0.9, weight_decay=3e-4)
     marks.append(("build", time.perf_counter()))
-    train_case(make_train_step, net, {"aux_weight": aux_weight}, x, y, steps,
-               f"path E: BATS CIFAR (C=36, 20 layers, groups 4, auxiliary head, "
-               f"aux_weight {aux_weight}, drop_path_prob {drop}), f32, batch {batch}, "
-               "SGD 0.025 momentum 0.9", card, opt=opt, phase=8)
+    # cuDNN deterministic, so that the trained weights are the same in every
+    # run: the f32 check below compares signs, and the weights of a
+    # non-deterministic run can put a pre-sign value within rounding of 0
+    with cudnn_deterministic():
+        train_case(make_train_step, net, {"aux_weight": aux_weight}, x, y, steps,
+                   f"path E: BATS CIFAR (C=36, 20 layers, groups 4, auxiliary head, "
+                   f"aux_weight {aux_weight}, drop_path_prob {drop}), f32, batch {batch}, "
+                   "SGD 0.025 momentum 0.9, cuDNN deterministic", card, opt=opt, phase=8)
     net.eval()
     marks.append(("train", time.perf_counter()))
     images = torch.randn((24, 3, BATS_SIZE, BATS_SIZE), generator=gen)
@@ -2935,38 +2963,57 @@ PAIR_LOSS_RTOL = 1e-5
 CHAIN_SIZES = (4096, 4096, 4096, 1024)
 
 
-def run_ranks(mode: str, world: int) -> list:
-    """``chip_smoke.py --rank <mode>`` in ``world`` processes (one world of
-    torch.distributed, rendezvous through a file in the checkout), each
-    result read back; raises on a failed rank or past PHASE10_TIMEOUT."""
+def start_ranks(mode: str, world: int, gate=None) -> tuple:
+    """Start ``chip_smoke.py --rank <mode>`` in ``world`` processes (one world
+    of torch.distributed, rendezvous through a file in the checkout). With a
+    ``gate`` (a path), each process imports the port and makes its CUDA
+    context, then waits for the file before it joins the world: its start
+    overlaps the work before it."""
     d = PHASE10_DIR / mode.replace(":", "-")
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", mode,
-                               str(r), str(world), str(d)], cwd=ROOT, stdout=logs[r],
-                              stderr=subprocess.STDOUT) for r in range(world)]
-    deadline = time.monotonic() + PHASE10_TIMEOUT
+                               str(r), str(world), str(d)] + ([str(gate)] if gate else []),
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    return mode, world, d, logs, procs, time.monotonic() + PHASE10_TIMEOUT
+
+
+def finish_ranks(started: tuple, phase: int = 10) -> list:
+    """Wait for :func:`start_ranks`' processes and read each result back;
+    raises on a failed rank or past PHASE10_TIMEOUT from the start."""
+    mode, world, d, logs, procs, deadline = started
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
+        stop_ranks(started)
     text = "\n".join(f"--- rank {r}\n" + (d / f"rank{r}.log").read_text()[-4000:]
                      for r in range(world))
     if any(p.returncode for p in procs):
-        raise AssertionError(f"phase 10 ({mode}): a rank failed or ran past "
+        raise AssertionError(f"phase {phase} ({mode}): a rank failed or ran past "
                              f"{PHASE10_TIMEOUT} s:\n{text}")
     for line in (d / "rank0.log").read_text().splitlines():
         print(line)
     return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def stop_ranks(started: tuple) -> None:
+    """Kill what is left of :func:`start_ranks`' processes; close their logs."""
+    for p in started[4]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in started[3]:
+        f.close()
+
+
+def run_ranks(mode: str, world: int) -> list:
+    """:func:`start_ranks`, then :func:`finish_ranks`."""
+    return finish_ranks(start_ranks(mode, world))
 
 
 def _zero_counts(kernels):
@@ -3323,7 +3370,9 @@ def gloo_probe() -> None:
 
 
 def rank_main(argv) -> int:
-    """``--rank <mode> <rank> <world> <dir>``: one rank of a phase-10 world."""
+    """``--rank <mode> <rank> <world> <dir> [gate]``: one rank of a phase-10
+    or phase-11 world; with a gate, the port imported and the CUDA context
+    made first, the world joined once the gate file exists."""
     import datetime
     import os
 
@@ -3333,6 +3382,22 @@ def rank_main(argv) -> int:
     mode, _, op = mode.partition(":")
     sys.path.insert(0, str(ROOT))
     torch.cuda.set_device(0)
+    if len(argv) > 4:
+        # what a first call pays, paid while the gate is shut: the port, the
+        # CUDA context, the kernel libraries, cuDNN and cuBLAS
+        importlib.import_module("bnn_tpu_torch.examples.imagenet")
+        importlib.import_module("bnn_tpu_torch.examples.serve")
+        from bnn_tpu_torch.kernels import _build
+        for name in ("binary_gemm", "fused_stem", "fused_chain"):
+            _build.load(name)
+        x = torch.randn((2, 3, 16, 16), device="cuda")
+        torch.nn.functional.conv2d(x, torch.randn((4, 3, 3, 3), device="cuda"))
+        (x.reshape(48, 32) @ x.reshape(32, 48)).sum().item()
+        gate, deadline = pathlib.Path(argv[4]), time.monotonic() + PHASE10_TIMEOUT
+        while not gate.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {gate} after {PHASE10_TIMEOUT} s")
+            time.sleep(0.2)
     backend = "nccl" if mode == "single" else "gloo"
     dist.init_process_group(backend, init_method=f"file://{d / 'store'}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=120))
@@ -3343,7 +3408,9 @@ def rank_main(argv) -> int:
         if mode == "probe":
             res = probe_rank(rank, world, card, op)
         else:
-            res = {"single": single_rank, "pair": pair_rank}[mode](rank, world, card)
+            res = {"single": single_rank, "pair": pair_rank,
+                   "cli_export": cli_export_rank,
+                   "cli_load": cli_load_rank}[mode](rank, world, card)
         tmp = d / f"rank{rank}.json.tmp"
         tmp.write_text(json.dumps(res))
         os.replace(tmp, d / f"rank{rank}.json")
@@ -3378,6 +3445,234 @@ def parallel_phase(card) -> dict:
           "data-parallel ZeRO-1 steps")
     shutil.rmtree(PHASE10_DIR, ignore_errors=True)
     print(f"phase 10: took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+# phase 11: the serve CLI's --data-parallel / --tensor-parallel and the
+# ImageNet trainer, each main(argv) in rank processes (``--rank``): (a) a
+# world of one over NCCL, (b) and (c) two ranks on the one card over gloo
+PHASE11_DIR = SMOKE_DIR / "phase11"
+RECIPE_BASELINE = ROOT / "examples" / "recipes" / "imagenet-baseline.yaml"
+TRAINER_ARGS = ["--synthetic", "--arch", "resnet18", "--image-size", str(SIZE),
+                "--steps-per-epoch", "4", "--print-freq", "1", "--recipe",
+                str(RECIPE_BASELINE)]
+PAIR_TRAINER_ARGS = ["--synthetic", "--arch", "resnet18", "--image-size", str(SIZE),
+                     "-b", "64", "--steps-per-epoch", "2", "--epochs", "1",
+                     "--print-freq", "1", "--recipe", str(RECIPE_BASELINE),
+                     "--device", "cuda:0", "--dist-backend", "gloo"]
+SERVE_CLI_ARGS = ["--device", "cuda:0", "--dist-backend", "gloo", "--num-classes", "1000",
+                  "--size", str(SIZE), "--batch-size", str(BATCH), "--requests", "2"]
+# launches a forward per rank: the data-parallel rank's 4 rows through the
+# stem and stage kernels; the tensor-parallel rank's layer4.0.downsample.1 on
+# binary_gemm at N = 512 / 2 (the other deployed convs run the int8 conv)
+CLI_LAUNCHES = {"dp": {"fused_stem": 1, "fused_chain": 4}, "tp": {"binary_gemm": 1}}
+
+
+def printed(main, argv) -> str:
+    """``main(argv)``'s standard output."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
+
+
+def trainer_losses(text: str) -> list:
+    import re
+
+    return [float(v) for v in re.findall(r"\tLoss ([-+0-9.e]+|nan|inf) \(", text)]
+
+
+def trainer_rates(text: str) -> str:
+    import re
+
+    rates = re.findall(r" \* Epoch \d+: .*?\(([0-9.]+ images/s)\); ([0-9.]+ ms a step)",
+                       text)
+    return "; ".join(f"{a}, {b}" for a, b in rates)
+
+
+def trainer_runs(card: str) -> None:
+    """Phase 11 (a), in this process, a world of one rank over NCCL: ``python
+    -m bnn_tpu_torch.examples.imagenet`` (its ``main``) at full width,
+    224x224, batch 256 in bf16 through imagenet-baseline.yaml step 0; resumed
+    to epoch 2 (the optimizer restored, training from ``Epoch[1]``);
+    ``--evaluate``; ``--zero1``."""
+    from bnn_tpu_torch import kernels
+    from bnn_tpu_torch.examples import imagenet
+    from bnn_tpu_torch.utils import load_checkpoint
+
+    out = PHASE11_DIR / "trainer"
+    base = TRAINER_ARGS + ["-b", "256", "--bf16", "--device", "cuda:0"]
+    runs = {"train": ["--epochs", "1", "--out", str(out)],
+            "resume": ["--epochs", "2", "--out", str(out), "--resume", str(out)],
+            "evaluate": ["--epochs", "2", "--out", str(out), "--resume", str(out),
+                         "--evaluate"],
+            "zero1": ["--epochs", "1", "--zero1", "--out", str(out) + "-zero1"]}
+    _zero_counts(kernels)
+    texts = {}
+    for name, extra in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # each run makes its own world of one over NCCL and destroys it
+        texts[name] = text = printed(imagenet.main, base + extra)
+        seconds = time.perf_counter() - t0
+        losses = trainer_losses(text)
+        print(f"phase 11: (a) imagenet {name} ({' '.join(extra)}): {seconds:.1f} s; "
+              f"losses {[round(v, 4) for v in losses]}; "
+              f"{trainer_rates(text) or 'no training'}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase 11 (a) {name}: a loss is not finite: {losses}")
+    if "Epoch[0][3/4]" not in texts["train"] or len(trainer_losses(texts["train"])) != 4:
+        raise AssertionError(f"phase 11 (a): the trainer did not take 4 steps:\n{texts['train']}")
+    resumed = texts["resume"]
+    if ("Epoch[1][0/4]" not in resumed or "Epoch[0]" in resumed
+            or "moments reset" in resumed or "skipped" in resumed):
+        raise AssertionError(f"phase 11 (a): the resumed run:\n{resumed}")
+    steps = {float(st["step"]) for st in load_checkpoint(str(out))["opt_state"]["state"].values()}
+    if steps != {8.0}:
+        raise AssertionError(f"phase 11 (a): the resumed optimizer's step counts {steps}, "
+                             "not 8 (4 restored + 4)")
+    if " * Evaluate: Acc@1" not in texts["evaluate"] or "Epoch[" in texts["evaluate"]:
+        raise AssertionError(f"phase 11 (a): --evaluate:\n{texts['evaluate']}")
+    if "==> mesh {'data': 1, 'model': 1} over 1 ranks" not in texts["zero1"]:
+        raise AssertionError(f"phase 11 (a): --zero1:\n{texts['zero1']}")
+    print("phase 11: (a) the resumed run restored the optimizer (8 AdamW steps in the "
+          "checkpoint) and trained from Epoch[1]; --evaluate trained nothing; the "
+          f"trainer launched {_counts(kernels) or 'none'} of the serving kernels")
+
+
+def cli_export_rank(rank: int, world: int, card: str) -> dict:
+    """Phase 11 (b) and (c), two ranks on the one card over gloo: the serve
+    CLI's ``--data-parallel 2`` and ``--tensor-parallel 2 --export``, the
+    live mesh predictor the CLI built (``main``'s return) kept on rank 0
+    (its logits on the phase's images); then the trainer with ``--zero1`` and with
+    ``--model-parallel 2``."""
+    from bnn_tpu_torch.examples import imagenet, serve
+
+    dev = torch.device("cuda", 0)
+    images = torch.randn((BATCH, 3, SIZE, SIZE),
+                         generator=torch.Generator().manual_seed(SEED)).to(dev)
+    say = print if rank == 0 else (lambda *a: None)
+    for tag, flag in (("dp", "--data-parallel"), ("tp", "--tensor-parallel")):
+        t0 = time.perf_counter()
+        served = []
+        text = printed(lambda argv: served.append(serve.main(argv)), SERVE_CLI_ARGS + [
+            flag, "2", "--export", str(PHASE11_DIR / f"bundle_{tag}")])
+        seconds = time.perf_counter() - t0
+        for line in text.splitlines():
+            say(f"phase 11: (b) serve {flag} 2 --export: {line}")
+        say(f"phase 11: (b) serve {flag} 2 --export took {seconds:.1f} s | {card}")
+        if rank == 0 and "exported serving bundle" not in text:
+            raise AssertionError(f"phase 11 (b) {flag} --export:\n{text}")
+        live = served[0](images)  # the live mesh predictor the CLI exported
+        if rank == 0:
+            torch.save(live.cpu(), PHASE11_DIR / f"live_{tag}.pt")
+        del live
+    for name, extra in (("--zero1", ["--zero1"]), ("--model-parallel 2",
+                                                  ["--model-parallel", "2"])):
+        t0 = time.perf_counter()
+        text = printed(imagenet.main, PAIR_TRAINER_ARGS + extra + [
+            "--out", str(PHASE11_DIR / f"pair-{extra[0][2:]}")])
+        seconds = time.perf_counter() - t0
+        losses = trainer_losses(text)
+        if rank == 0 and (len(losses) != 2 or not all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"phase 11 (c) {name}: losses {losses}:\n{text}")
+        say(f"phase 11: (c) imagenet {name} on two gloo ranks (f32, batch 64, 2 steps): "
+            f"{seconds:.1f} s; losses {[round(v, 4) for v in losses]}; "
+            f"{trainer_rates(text)} | {card}")
+    return {}
+
+
+def cli_load_rank(rank: int, world: int, card: str) -> dict:
+    """Phase 11 (b) in a fresh world of two ranks on the one card over gloo:
+    the serve CLI's ``--load`` of each mesh bundle (2 requests, launches
+    counted by kernel name), then each bundle through ``load_serving``: its
+    logits bit-identical to the live mesh predictor's, this rank's
+    ``state_bytes`` and the card memory its state takes."""
+    from bnn_tpu_torch import kernels
+    from bnn_tpu_torch.examples import serve
+    from bnn_tpu_torch.inference import load_serving
+
+    dev = torch.device("cuda", 0)
+    images = torch.randn((BATCH, 3, SIZE, SIZE),
+                         generator=torch.Generator().manual_seed(SEED)).to(dev)
+    launches, report = {}, {}
+    for tag in ("dp", "tp"):
+        path = str(PHASE11_DIR / f"bundle_{tag}")
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        text = printed(serve.main, SERVE_CLI_ARGS + ["--load", path])
+        seconds = time.perf_counter() - t0
+        counts = _counts(kernels)
+        _check_launches(f"phase 11 (b) serve --load {tag} (rank {rank})", counts,
+                        CLI_LAUNCHES[tag], 2)
+        _add(launches, counts)
+        if rank == 0:
+            for line in text.splitlines():
+                print(f"phase 11: (b) serve --load bundle_{tag}: {line}")
+            print(f"phase 11: (b) serve --load bundle_{tag}: {seconds:.1f} s; rank 0 "
+                  f"launches {counts} over 2 requests | {card}")
+        gc.collect()  # the CLI's server, so that its memory is not counted as freed
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        server = load_serving(path, device=dev)
+        held = torch.cuda.memory_allocated() - before
+        got = server(images)
+        if not torch.equal(got.cpu(), torch.load(PHASE11_DIR / f"live_{tag}.pt")):
+            raise AssertionError(f"phase 11 (b): rank {rank}: the loaded {tag} bundle is "
+                                 "not bit-identical to the live mesh predictor")
+        n = None
+        if tag == "tp":
+            n = server.program.state_dict["model.layer4.0.downsample.1.w_packed"].shape[1]
+            if n != 256:
+                raise AssertionError(f"phase 11 (b): rank {rank}: layer4.0.downsample.1 "
+                                     f"holds N = {n} on this rank, not 256")
+        report[tag] = {"state_bytes": server.state_bytes(), "card_bytes": held,
+                       "mesh": server.mesh.shape, "n": n}
+        del server
+    return {"launches": launches, "report": report}
+
+
+def cli_phase(card) -> dict:
+    """Phase 11: (a) the trainer in a world of one rank over NCCL (this
+    process's), then (b)
+    the serve CLI's mesh bundles exported in one world of two gloo ranks on
+    the one card and loaded in another, with (c) the trainer's ZeRO-1 and
+    tensor-parallel runs in the first; returns the launches by kernel name."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+    PHASE11_DIR.mkdir(parents=True)
+    launches: dict = {}
+    # each world's processes start now and join their world when its gate
+    # opens: their start-up overlaps the work before them
+    exporting = start_ranks("cli_export", 2, gate=PHASE11_DIR / "export-go")
+    loading = start_ranks("cli_load", 2, gate=PHASE11_DIR / "load-go")
+    try:
+        trainer_runs(card)
+        (PHASE11_DIR / "export-go").touch()
+        finish_ranks(exporting, phase=11)
+        (PHASE11_DIR / "load-go").touch()
+        loaded = finish_ranks(loading, phase=11)
+    finally:
+        stop_ranks(exporting)
+        stop_ranks(loading)
+    for r, res in enumerate(loaded):
+        _add(launches, res["launches"])
+        for tag, rep in res["report"].items():
+            print(f"phase 11: (b) load_serving(bundle_{tag}) on rank {r} of the fresh world "
+                  f"(mesh {rep['mesh']}): logits bit-identical to the live mesh predictor's; "
+                  f"state_bytes {rep['state_bytes']} B on this rank, card memory its state "
+                  f"takes {rep['card_bytes'] / 1e6:.2f} MB"
+                  + (f"; layer4.0.downsample.1 at N={rep['n']}" if rep["n"] else "")
+                  + f" | {card}")
+    print(f"phase 11: (b) --pipeline 2 not run on the card: gloo takes no CUDA tensors in "
+          f"batch_isend_irecv ({GLOO_REFUSES['batch_isend_irecv']}); held by the CPU tests "
+          "(tests/test_torch_imagenet_example.py)")
+    shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+    shutil.rmtree(PHASE10_DIR, ignore_errors=True)
+    print(f"phase 11: took {time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches
 
 
@@ -3462,6 +3757,10 @@ def main() -> int:
     if "--parallel" in sys.argv[1:]:
         parallel_phase(card)
         print("chip_smoke: --parallel: phases 1 and 10 passed", file=sys.stderr)
+        return 0
+    if "--cli" in sys.argv[1:]:
+        cli_phase(card)
+        print("chip_smoke: --cli: phases 1 and 11 passed", file=sys.stderr)
         return 0
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
@@ -4156,7 +4455,10 @@ def main() -> int:
     # phase 10: the parallel paths, in processes of their own; their
     # launches (the mesh predictors', per rank) join the totals
     add(parallel_phase(card))
-    print("phase 11: fused_chain's numbers are the sums over the four stages of "
+    # phase 11: the serve CLI and the ImageNet trainer over torch.distributed;
+    # the launches of the loaded mesh bundles (each rank's) join the totals
+    add(cli_phase(card))
+    print("phase 12: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
@@ -4164,8 +4466,8 @@ def main() -> int:
           "calls of one batch-8 forward of paths B and C; launches are totals "
           "over phase 3's serving runs, phase 5's serving of the trained "
           "weights, phase 6's counted serving runs and streams, phase 8's "
-          "serving runs (paths D and E) and phase 10's mesh predictors (each "
-          "rank's); max_abs_err is the largest over every "
+          "serving runs (paths D and E), phase 10's mesh predictors and phase "
+          "11's loaded mesh bundles (each rank's); max_abs_err is the largest over every "
           "check, phase 8's included")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",

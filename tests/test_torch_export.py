@@ -278,7 +278,8 @@ def test_mesh_bundle_waits_for_mesh_serving(bundles, tmp_path):
     mesh.mkdir()
     json.dump(dict(meta, mesh={"axis_names": ["data"], "axis_sizes": [2]},
                    nr_devices=2), open(mesh / "meta.json", "w"))
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # a mesh bundle serves on a world of its size; this process is a world of one
+    with pytest.raises(ValueError, match="2 devices.*this world has 1"):
         load_serving(str(mesh))
 
 

@@ -54,7 +54,10 @@ def test_pattern_catches_what_it_must():
                                     "parallel/pipeline.py",
                                     "parallel/hetero_pipeline.py",
                                     "inference/tp.py",
-                                    "inference/tp_packed.py"])
+                                    "inference/tp_packed.py",
+                                    "examples/imagenet.py",
+                                    "inference/serving.py",
+                                    "inference/deploy.py"])
 def test_training_modules_are_checked(module):
     """The training and serving slices' modules, the kernel operators, the
     serving bundle, the input pipeline, the native engines, the training
@@ -74,7 +77,9 @@ def test_distributed_worker_imports_no_jax():
 
 _PARALLEL = ["bnn_tpu_torch.parallel.mesh", "bnn_tpu_torch.parallel.collectives",
              "bnn_tpu_torch.parallel.pipeline", "bnn_tpu_torch.parallel.hetero_pipeline",
-             "bnn_tpu_torch.inference.tp", "bnn_tpu_torch.inference.tp_packed"]
+             "bnn_tpu_torch.inference.tp", "bnn_tpu_torch.inference.tp_packed",
+             "bnn_tpu_torch.inference.export", "bnn_tpu_torch.examples.serve",
+             "bnn_tpu_torch.examples.imagenet"]
 
 
 def test_parallel_modules_import_no_jax():

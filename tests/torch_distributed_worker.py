@@ -1,6 +1,8 @@
 """Ranks of the port's distributed tests (``tests/test_torch_parallel.py``,
-``test_torch_pipeline.py``, ``test_torch_tp_serving.py``), beside the JAX
-package's ``tests/distributed_worker.py``.
+``test_torch_pipeline.py``, ``test_torch_tp_serving.py``,
+``test_torch_mesh_bundle.py``, and the serve CLI and ImageNet trainer of
+``test_torch_serve_parallel.py`` and ``test_torch_imagenet_example.py``),
+beside the JAX package's ``tests/distributed_worker.py``.
 
 A test's module-scoped fixture writes the inputs (tensors made from numpy
 with a seed, JAX weights as ``{dotted JAX path: tensor}``) to a directory,
@@ -14,7 +16,9 @@ Each rank joins a gloo world through a ``file://`` store in ``<dir>`` (no
 port to race for under xdist), with a 60 s timeout on the rendezvous and
 on every collective, runs every case of its suite in order on one thread,
 and writes ``rank<r>.pt`` (a dict of results) or ``rank<r>.err`` (the
-traceback). The parent waits with a deadline, then kills what is left.
+traceback). The parent waits with a deadline, then kills what is left. Two
+test files read one world through :func:`shared_world`: its first caller in
+the run starts it, the others wait for its results.
 """
 from __future__ import annotations
 
@@ -99,6 +103,42 @@ class World:
 
 def start_world(suite: str, world: int, workdir, inputs: dict) -> World:
     return World(suite, world, workdir, inputs)
+
+
+def shared_world(suite: str, world: int, tmp_path_factory, make_inputs,
+                 timeout: float = 600.0) -> list:
+    """The ranks' results of one world that several test files read: the
+    first fixture to ask (on any xdist worker of the run) makes its inputs
+    with ``make_inputs(dir)``, starts it and keeps the results in the run's
+    shared temporary directory; the others wait for them there."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # the run's directory, above each worker's own
+    d = os.path.join(str(root), f"shared-{suite}")
+    done, failed = os.path.join(d, "results.pt"), os.path.join(d, "failed")
+    try:
+        os.makedirs(d)  # exactly one fixture makes it
+    except FileExistsError:
+        deadline = time.monotonic() + timeout
+        while not os.path.exists(done):
+            if os.path.exists(failed):
+                raise RuntimeError(f"the shared {suite} world failed:\n"
+                                   + open(failed).read())
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"no results of the shared {suite} world after "
+                                   f"{timeout} s")
+            time.sleep(0.5)
+        return torch.load(done, weights_only=True)
+    try:
+        with start_world(suite, world, os.path.join(d, "world"), make_inputs(d)) as w:
+            results = w.results(timeout)
+        torch.save(results, done + ".tmp")
+        os.replace(done + ".tmp", done)
+        return results
+    except BaseException:
+        with open(failed, "w") as f:
+            f.write(traceback.format_exc())
+        raise
 
 
 # -- shared by the ranks --------------------------------------------------
@@ -597,8 +637,209 @@ def suite_tp_serving(rank, world, inp):
     return res
 
 
+# -- suite: mesh_bundle (tests/test_torch_mesh_bundle.py) ---------------------
+
+def suite_mesh_bundle(rank, world, inp):
+    """Mesh bundles: each meshed Predictor exported, loaded as a fresh
+    ExportedServer in this world, both called on the same rows; the
+    exportable gather against collectives.gather."""
+    bt, bc = _port()
+    P = bt.parallel
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from bnn_tpu_torch.inference import Predictor, load_serving
+    from bnn_tpu_torch.parallel.collectives import gather, mesh_gather
+
+    res = {}
+    common = dict(batch_size=4, dtype=None, fuse=False, space_to_depth=False)
+    x = inp["x"]
+    meshes = {"dp4": (P.make_mesh(device="cpu"), False),
+              "2x2": (P.make_mesh(data=2, model=2, device="cpu"), True),
+              "model4": (P.make_mesh(data=1, model=4, device="cpu"), True)}
+    for tag, (mesh, tp) in meshes.items():
+        pred = Predictor(bin_model(bt, bc, inp["flat"]), mesh=mesh, tensor_parallel=tp,
+                         **common)
+        live, live6 = pred(x), pred(x[:6])
+        path = os.path.join(inp["dir"], tag)
+        pred.export(path, (3, 8, 8))
+        res[f"{tag}_live_after"] = pred(x)
+        server = load_serving(path)
+        res[f"{tag}_live"], res[f"{tag}_live6"] = live, live6
+        res[f"{tag}_loaded"], res[f"{tag}_loaded6"] = server(x), server(x[:6])
+        res[f"{tag}_mesh"] = [list(server.mesh.axis_names),
+                              [server.mesh.size(a) for a in server.mesh.axis_names]]
+        res[f"{tag}_gathers"] = sum(
+            n.target is torch.ops.bnn_tpu_torch.mesh_gather.default
+            for n in server.program.graph.nodes)
+        res[f"{tag}_tp_layers"] = len(pred.tp_layers) if tp else 0
+        res[f"{tag}_bytes"] = [server.state_bytes(), pred.local_state_bytes(),
+                               pred.state_bytes()]
+        if tag == "dp4":
+            try:
+                pred.export(os.path.join(inp["dir"], "refused"), (3, 8, 8),
+                            platforms=["cpu"])
+                res["platforms_error"] = ""
+            except ValueError as e:
+                res["platforms_error"] = str(e)
+
+    # the exportable gather against the eager one, on the 2x2 mesh's axes
+    mesh = meshes["2x2"][0]
+    t = torch.arange(24.0).reshape(2, 3, 4) + 100 * rank
+    res["gather_equal"] = [torch.equal(mesh_gather(t, mesh, a, dim), gather(t, mesh.group(a), dim))
+                           for a in ("data", "model") for dim in (0, 1, -1)]
+    with FakeTensorMode() as mode:
+        fake = mode.from_tensor(t)
+        res["gather_fake_shape"] = list(mesh_gather(fake, mesh, "model", 1).shape)
+    return res
+
+
+# -- suite: cli (tests/test_torch_serve_parallel.py and
+#    tests/test_torch_imagenet_example.py share this world) ------------------
+
+SERVE_ARGS = ["--device", "cpu", "--num-classes", "10", "--size", "32",
+              "--batch-size", "4", "--requests", "2"]
+RECIPE = os.path.join(ROOT, "examples", "recipes", "imagenet-baseline.yaml")
+# no optimizer section: the trainer falls back to its CLI optimizer
+FALLBACK_RECIPE = os.path.join(ROOT, "examples", "recipes", "xnor-net.yaml")
+TRAIN_ARGS = ["--synthetic", "--device", "cpu", "--image-size", "32", "-b", "8",
+              "--steps-per-epoch", "2", "--print-freq", "1"]
+PIPE_ARGS = ["--pipeline", "2", "--microbatches", "2", "--recipe", FALLBACK_RECIPE,
+             "--lr", "0.01", "--weight-decay", "0.5", "--warmup-epochs", "0",
+             "--steps-per-epoch", "1"]
+
+
+def cli_inputs(d) -> dict:
+    """The cli world's inputs: a checkpoint of the serve CLI's model (BN
+    statistics, output scales random) for --ckpt."""
+    sys.path.insert(0, ROOT)
+    import bnn_tpu_torch as bt
+    from bnn_tpu_torch.examples import serve
+
+    model = serve.build_model(10)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, bt.nn.BatchNorm2d):
+                m.running_mean.copy_(0.3 * torch.randn(m.num_features, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=gen))
+                m.weight.copy_(1 + 0.3 * torch.randn(m.num_features, generator=gen))
+                m.bias.copy_(0.3 * torch.randn(m.num_features, generator=gen))
+    ckpt = os.path.join(str(d), "ckpt")
+    bt.utils.save_checkpoint(ckpt, model, metadata={"epoch": 1})
+    return {"dir": str(d), "ckpt": ckpt}
+
+
+def _printed(main, argv) -> str:
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
+
+
+def _record_losses(imagenet) -> list:
+    losses = []
+    real = imagenet.make_train_step
+
+    def recording(**kw):
+        step = real(**kw)
+
+        def run(model, opt, x, y):
+            out = step(model, opt, x, y)
+            losses.append(float(out["loss"]))
+            return out
+        return run
+
+    imagenet.make_train_step = recording
+    return losses
+
+
+def _record_pipeline(imagenet) -> dict:
+    """Each pipeline step's loss beside HeteroPipeline.apply's and the
+    sequential stages' on the same row and batch, whether the BatchNorm
+    lanes of the row are the forward's statistics after the step, and
+    whether the parameter lanes moved."""
+    import torch.nn.functional as F
+
+    from bnn_tpu_torch.utils import gather_replicated
+
+    rec = {"losses": [], "apply": [], "sequential": [], "stats_kept": [], "moved": []}
+    real = imagenet.pipeline_step
+
+    def recording(pipe, flat, optimizer, x, y, microbatches):
+        before = flat.detach().clone()
+        with torch.no_grad():
+            rec["apply"].append(float(F.cross_entropy(
+                pipe.apply(before, x, n_microbatches=microbatches), y)))
+            stages = pipe.stage_modules(gather_replicated(flat).detach())
+            seq = []
+            for xm, ym in zip(x.chunk(microbatches), y.chunk(microbatches)):
+                h = xm
+                for m in stages:
+                    h = m(h)
+                seq.append(F.cross_entropy(h, ym))
+            rec["sequential"].append(float(torch.stack(seq).mean()))
+        captured = []
+        apply = pipe.apply
+        pipe.apply = lambda *a, **k: captured.append(apply(*a, **k)) or captured[-1]
+        try:
+            loss, top1 = real(pipe, flat, optimizer, x, y, microbatches)
+        finally:
+            pipe.apply = apply
+        mask = pipe.param_mask[0] > 0
+        new = captured[0][1][0]
+        rec["losses"].append(float(loss))
+        rec["stats_kept"].append(torch.equal(flat.detach()[0][~mask], new[~mask]))
+        rec["moved"].append(bool((flat.detach()[0][mask] != before[0][mask]).any()))
+        return loss, top1
+
+    imagenet.pipeline_step = recording
+    return rec
+
+
+def suite_cli(rank, world, inp):
+    """The serve CLI and the ImageNet trainer, each main(argv) in a world of
+    two gloo ranks, every rank's printed lines kept."""
+    _port()
+    from bnn_tpu_torch.examples import imagenet, serve
+
+    d = inp["dir"]
+    res = {"ckpt": inp["ckpt"]}
+    for tag, extra in (("dp", ["--data-parallel", "2"]), ("tp", ["--tensor-parallel", "2"]),
+                       ("tp_ckpt", ["--tensor-parallel", "2", "--ckpt", inp["ckpt"]]),
+                       ("dp_ckpt", ["--data-parallel", "2", "--ckpt", inp["ckpt"]])):
+        res[f"serve_{tag}"] = _printed(serve.main, SERVE_ARGS + extra)
+    for tag, flag in (("dp", "--data-parallel"), ("tp", "--tensor-parallel")):
+        path = os.path.join(d, f"bundle_{tag}")
+        res[f"export_{tag}"] = _printed(serve.main, SERVE_ARGS + [flag, "2", "--export", path])
+        res[f"load_{tag}"] = _printed(serve.main, SERVE_ARGS + ["--load", path])
+    res["continuous"] = _printed(serve.main, SERVE_ARGS + [
+        "--data-parallel", "2", "--continuous", "--stream-rps", "500"])
+    res["continuous_load"] = _printed(serve.main, SERVE_ARGS + [
+        "--load", os.path.join(d, "bundle_tp"), "--continuous", "--stream-rps", "500"])
+
+    losses = _record_losses(imagenet)
+    for tag, extra in (("mp", ["--model-parallel", "2"]),
+                       ("zero1", ["--zero1", "--accum-steps", "2"])):
+        del losses[:]
+        res[f"train_{tag}"] = _printed(imagenet.main, TRAIN_ARGS + extra + [
+            "--epochs", "1", "--recipe", RECIPE, "--out", os.path.join(d, f"train_{tag}")])
+        res[f"losses_{tag}"] = list(losses)
+    pipe = _record_pipeline(imagenet)
+    out = os.path.join(d, "train_pp")
+    res["train_pp"] = _printed(imagenet.main, TRAIN_ARGS + PIPE_ARGS + [
+        "--epochs", "1", "--out", out])
+    res["train_pp_resume"] = _printed(imagenet.main, TRAIN_ARGS + PIPE_ARGS + [
+        "--epochs", "2", "--out", out, "--resume", out])
+    res["pipeline"] = pipe
+    return res
+
+
 SUITES = {"parallel": suite_parallel, "pipeline": suite_pipeline,
-          "tp_serving": suite_tp_serving}
+          "tp_serving": suite_tp_serving, "mesh_bundle": suite_mesh_bundle,
+          "cli": suite_cli}
 
 
 def main():
