@@ -11,9 +11,11 @@ import.
 __version__ = "0.1.0"
 
 from .bconfig import BConfig
+from .ops.binarizers import Identity
 from .binarize import (
     DEFAULT_MODULE_MAPPING,
     get_modules_to_binarize,
+    named_modules,
     prepare_binary_model,
     swap_modules_by_name,
 )
@@ -23,7 +25,9 @@ from . import (data, functional, inference, kernels, layers, models, nn, ops,
 
 __all__ = [
     "BConfig",
+    "Identity",
     "DEFAULT_MODULE_MAPPING",
+    "named_modules",
     "get_modules_to_binarize",
     "swap_modules_by_name",
     "prepare_binary_model",

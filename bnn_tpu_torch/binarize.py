@@ -12,7 +12,7 @@ import copy
 import dataclasses
 import logging
 import re
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 from torch import nn
 
@@ -21,6 +21,8 @@ from .bconfig import BConfig
 
 __all__ = [
     "DEFAULT_MODULE_MAPPING",
+    "named_modules",
+    "get_module_by_name",
     "set_module_by_name",
     "get_modules_to_binarize",
     "swap_modules_by_name",
@@ -35,6 +37,17 @@ DEFAULT_MODULE_MAPPING: Dict[type, type] = {
 # identity self-mapping so already-binary modules can be re-converted
 for _v in list(DEFAULT_MODULE_MAPPING.values()):
     DEFAULT_MODULE_MAPPING[_v] = _v
+
+
+def named_modules(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
+    """``(dotted_name, module)`` depth-first, root first, each module once:
+    ``Module.named_modules``."""
+    return model.named_modules()
+
+
+def get_module_by_name(model: nn.Module, name: str) -> nn.Module:
+    """The submodule at the dotted ``name`` (``Module.get_submodule``)."""
+    return model.get_submodule(name)
 
 
 def set_module_by_name(model: nn.Module, name: str, new: nn.Module) -> None:
@@ -121,12 +134,18 @@ def get_modules_to_binarize(
     return modules_to_replace
 
 
-def swap_modules_by_name(model: nn.Module,
-                         modules_to_replace: Dict[str, nn.Module]) -> nn.Module:
+def swap_modules_by_name(
+    model: nn.Module,
+    modules_to_replace: Dict[str, nn.Module],
+    modules_mapping: Optional[Dict[type, type]] = None,
+) -> nn.Module:
     """Replace modules in place by dotted name; if the model itself is the
     module to replace, return the replacement.
 
-    A module referenced from two parents (weight tying) appears in
+    ``modules_mapping`` is taken for the reference's signature
+    (bnn/binarize.py:106-107) and not used: the names in
+    ``modules_to_replace`` already pin each target, so no type filter is
+    needed. A module referenced from two parents (weight tying) appears in
     ``modules_to_replace`` only at its first path, so every other path to
     the same original is rewritten to the same replacement too."""
     if "" in modules_to_replace:
@@ -154,4 +173,4 @@ def prepare_binary_model(
     modules_to_replace = get_modules_to_binarize(
         model, bconfig, modules_mapping, custom_config_layers_name,
         ignore_layers_name, update=update)
-    return swap_modules_by_name(model, modules_to_replace)
+    return swap_modules_by_name(model, modules_to_replace, modules_mapping)

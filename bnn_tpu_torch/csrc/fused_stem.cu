@@ -12,7 +12,9 @@
 //
 // x: (N, H, W, C) NHWC, bf16 or f32, C <= 4, H and W even; wk: the weights
 // as K-major bf16 pieces (pieces, o_pad, 208), kernels/stem.py's StemDesc;
-// bias: (o_pad,) f32; out: (N, H/4, W/4, O) in x's dtype.
+// bias: (o_pad,) f32; out: (N, H/4, W/4, O) in bf16 or f32 (the entry
+// points' out_dtype), either for either x: the pooled f32 sums are rounded
+// once, by the store, so an f32 output of bf16 x never passes through bf16.
 //
 // Bound on an H100 at (8, 224, 224, 3) bf16 -> (8, 56, 56, 64): 2.4 MB in and
 // 3.2 MB out (1.7 us at 3.35 TB/s) against 1.9 GFLOP (1.9 us at the bf16
@@ -63,10 +65,10 @@ size_t smem_bytes(int nx, int rows) {
   return sizeof(uint2) * nx * (4 * rows + 7) * stem::WIN_W;
 }
 
-template <typename T, int NW>
+template <typename T, typename OT, int NW>
 __global__ void __launch_bounds__(THREADS)
 fused_stem_kernel(const T* __restrict__ x, const uint32_t* __restrict__ wk,
-                  const float* __restrict__ bias, T* __restrict__ out, int N,
+                  const float* __restrict__ bias, OT* __restrict__ out, int N,
                   int H, int W, int C, int O, int o_pad, int rows) {
   constexpr int NX = pieces<T>();
   extern __shared__ uint2 win[];  // NX pieces of (4 * rows + 7) x WIN_W
@@ -118,7 +120,7 @@ struct Plan {
   int rows, items, grid, per_sm;
 };
 
-template <typename T, int NW>
+template <typename T, typename OT, int NW>
 int plan_launch(int N, int H, int W, int o_pad, Plan& pl) {
   static int sms = 0;
   static int per_sm[MAX_ROWS + 1] = {};
@@ -128,7 +130,7 @@ int plan_launch(int N, int H, int W, int o_pad, Plan& pl) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     for (int r = 1; r <= MAX_ROWS; ++r) {
       cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm[r], fused_stem_kernel<T, NW>, THREADS,
+          &per_sm[r], fused_stem_kernel<T, OT, NW>, THREADS,
           smem_bytes(pieces<T>(), r));
       if (err != cudaSuccess) {
         sms = 0;
@@ -147,61 +149,80 @@ int plan_launch(int N, int H, int W, int o_pad, Plan& pl) {
   return 0;
 }
 
-template <typename T, int NW>
+template <typename T, typename OT, int NW>
 int launch(const void* x, const void* wk, const void* bias, void* out, int N,
            int H, int W, int C, int O, int o_pad, cudaStream_t stream,
            Plan* plan_only) {
   Plan pl{};
-  const int err = plan_launch<T, NW>(N, H, W, o_pad, pl);
+  const int err = plan_launch<T, OT, NW>(N, H, W, o_pad, pl);
   if (err || plan_only) {
     if (plan_only) *plan_only = pl;
     return err;
   }
   if (pl.items == 0) return 0;
-  fused_stem_kernel<T, NW><<<pl.grid, THREADS, smem_bytes(pieces<T>(), pl.rows),
-                             stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(wk),
-      static_cast<const float*>(bias), static_cast<T*>(out), N, H, W, C, O,
-      o_pad, pl.rows);
+  fused_stem_kernel<T, OT, NW>
+      <<<pl.grid, THREADS, smem_bytes(pieces<T>(), pl.rows), stream>>>(
+          static_cast<const T*>(x), static_cast<const uint32_t*>(wk),
+          static_cast<const float*>(bias), static_cast<OT*>(out), N, H, W, C,
+          O, o_pad, pl.rows);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instance for the weights' pieces, then for the output's type
+template <typename T, typename OT>
+int launch_pieces(int w_pieces, const void* x, const void* wk, const void* bias,
+                  void* out, int N, int H, int W, int C, int O, int o_pad,
+                  cudaStream_t s, Plan* plan_only) {
+  return w_pieces == 1
+             ? launch<T, OT, 1>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only)
+             : launch<T, OT, 3>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only);
+}
+
+template <typename T>
+int launch_out(int out_bf16, int w_pieces, const void* x, const void* wk,
+               const void* bias, void* out, int N, int H, int W, int C, int O,
+               int o_pad, cudaStream_t s, Plan* plan_only) {
+  return out_bf16
+             ? launch_pieces<T, __nv_bfloat16>(w_pieces, x, wk, bias, out, N, H, W,
+                                               C, O, o_pad, s, plan_only)
+             : launch_pieces<T, float>(w_pieces, x, wk, bias, out, N, H, W, C, O,
+                                       o_pad, s, plan_only);
+}
+
 int dispatch(const void* x, int x_bf16, const void* wk, int w_pieces,
-             const void* bias, void* out, int N, int H, int W, int C, int O,
-             int o_pad, void* stream, Plan* plan_only) {
+             const void* bias, void* out, int out_bf16, int N, int H, int W,
+             int C, int O, int o_pad, void* stream, Plan* plan_only) {
   if (C < 1 || C > 4 || H % 4 || W % 4 || o_pad % OCB || O > o_pad ||
       (w_pieces != 1 && w_pieces != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return w_pieces == 1
-               ? launch<__nv_bfloat16, 1>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only)
-               : launch<__nv_bfloat16, 3>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only);
-  }
-  return w_pieces == 1
-             ? launch<float, 1>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only)
-             : launch<float, 3>(x, wk, bias, out, N, H, W, C, O, o_pad, s, plan_only);
+  return x_bf16 ? launch_out<__nv_bfloat16>(out_bf16, w_pieces, x, wk, bias, out,
+                                            N, H, W, C, O, o_pad, s, plan_only)
+                : launch_out<float>(out_bf16, w_pieces, x, wk, bias, out, N, H,
+                                    W, C, O, o_pad, s, plan_only);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error code (0 on success).
+// Launches on `stream`; returns the CUDA error code (0 on success). out is
+// bf16 where out_bf16, else f32.
 extern "C" int bnn_fused_stem(const void* x, int x_bf16, const void* wk,
-                              int w_pieces, const void* bias, void* out, int N,
-                              int H, int W, int C, int O, int o_pad,
-                              void* stream) {
-  return dispatch(x, x_bf16, wk, w_pieces, bias, out, N, H, W, C, O, o_pad,
-                  stream, nullptr);
+                              int w_pieces, const void* bias, void* out,
+                              int out_bf16, int N, int H, int W, int C, int O,
+                              int o_pad, void* stream) {
+  return dispatch(x, x_bf16, wk, w_pieces, bias, out, out_bf16, N, H, W, C, O,
+                  o_pad, stream, nullptr);
 }
 
 // The launch bnn_fused_stem would make: plan = {pooled rows an item, items,
 // blocks, blocks an SM}. Returns the CUDA error code.
-extern "C" int bnn_fused_stem_plan(int x_bf16, int w_pieces, int N, int H,
-                                   int W, int C, int O, int o_pad, int* plan) {
+extern "C" int bnn_fused_stem_plan(int x_bf16, int w_pieces, int out_bf16,
+                                   int N, int H, int W, int C, int O,
+                                   int o_pad, int* plan) {
   Plan pl{};
   const int err = dispatch(nullptr, x_bf16, nullptr, w_pieces, nullptr,
-                           nullptr, N, H, W, C, O, o_pad, nullptr, &pl);
+                           nullptr, out_bf16, N, H, W, C, O, o_pad, nullptr, &pl);
   plan[0] = pl.rows;
   plan[1] = pl.items;
   plan[2] = pl.grid;

@@ -211,7 +211,7 @@ def serve(args, device: torch.device, say):
         serve_loop(predictor, args, shape=predictor.input_shape, say=say)
         return predictor
     on_card = device.type == "cuda"
-    common = dict(batch_size=args.batch_size, fuse=on_card,
+    common = dict(batch_size=args.batch_size, use_pallas=on_card, fuse=on_card,
                   quantize_float_bits=8, device=device)
     if args.data_parallel * args.tensor_parallel > 1:
         common["mesh"] = make_mesh(data=args.data_parallel, model=args.tensor_parallel,

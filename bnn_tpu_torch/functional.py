@@ -1,20 +1,48 @@
-"""Functional ops with training semantics of their own (counterpart of
-``bnn_tpu/functional.py``): max pooling with a choice of gradient routing
-among tied maxima.
+"""Functional ops (counterpart of ``bnn_tpu/functional.py``): convolution,
+dense, pooling and flatten under the JAX package's names and defaults, and
+max pooling with a choice of gradient routing among tied maxima.
 
-Layouts are torch's (NCHW); the forward of every mode is ``F.max_pool2d``.
+Layouts are torch's: channels-first activations (``(N, C, L)``,
+``(N, C, H, W)``), ``(O, I, *k)`` conv weights and ``(out, in)`` dense
+weights, where the JAX package takes channels last, ``(*k, I, O)`` and
+``(in, out)``. The forward of every max-pool mode is ``F.max_pool2d``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
-__all__ = ["set_pool_grad_mode", "max_pool"]
+from .utils.padding import conv_nd
+
+__all__ = ["conv", "linear", "set_pool_grad_mode", "max_pool", "avg_pool",
+           "adaptive_avg_pool", "flatten"]
 
 Size = Union[int, Sequence[int]]
+
+
+def conv(x: torch.Tensor, kernel: torch.Tensor, stride: Size = 1,
+         padding: Union[str, Size] = 0, dilation: Size = 1, groups: int = 1,
+         preferred_element_type: Optional[torch.dtype] = None) -> torch.Tensor:
+    """1-D or 2-D convolution (by ``x``'s rank, 3 or 4) of channels-first
+    ``x`` with an ``(O, I / groups, *k)`` kernel; ``padding`` an int, a
+    tuple, ``'valid'`` or ``'same'`` (as ``lax`` resolves it, at any stride).
+    ``preferred_element_type``: the dtype both operands are widened to and
+    the result has (JAX's accumulation type)."""
+    if preferred_element_type is not None:
+        x, kernel = x.to(preferred_element_type), kernel.to(preferred_element_type)
+    if isinstance(padding, str):
+        padding = padding.lower()
+    return conv_nd(x, kernel, None, stride, padding, dilation, groups)
+
+
+def linear(x: torch.Tensor, kernel: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ kernel.T (+ bias)`` with an ``(out, in)`` kernel."""
+    return F.linear(x, kernel, bias)
+
 
 # How max_pool's backward routes the gradient of a window with tied maxima:
 # 'exact' and 'index' give it to the first maximum in the window's row-major
@@ -92,3 +120,29 @@ def max_pool(x: torch.Tensor, kernel_size: Size, stride: Size = None,
         return _MaxPoolAllTies.apply(x, _pair(kernel_size), _pair(stride),
                                      _pair(padding), _pair(dilation), ceil_mode)
     return F.max_pool2d(x, kernel_size, stride, padding, dilation, ceil_mode)
+
+
+def avg_pool(x: torch.Tensor, kernel_size: Size, stride: Size = None,
+             padding: Size = 0, ceil_mode: bool = False,
+             count_include_pad: bool = True) -> torch.Tensor:
+    """Average pooling of an ``(N, C, L)`` or ``(N, C, H, W)`` input with
+    torch's ``ceil_mode`` and ``count_include_pad`` semantics (the JAX
+    package's own): a window's divisor counts its real elements, and its
+    explicit padding where ``count_include_pad``, never the ``ceil_mode``
+    extension."""
+    stride = kernel_size if stride is None else stride
+    pool = F.avg_pool1d if x.ndim == 3 else F.avg_pool2d
+    return pool(x, kernel_size, stride, padding, ceil_mode, count_include_pad)
+
+
+def adaptive_avg_pool(x: torch.Tensor, output_size: Size = 1) -> torch.Tensor:
+    """Adaptive average pooling: output bin ``i`` of a dim of size S
+    averages ``[floor(i * S / o), ceil((i + 1) * S / o))``."""
+    if x.ndim == 3:
+        return F.adaptive_avg_pool1d(x, output_size)
+    return F.adaptive_avg_pool2d(x, output_size)
+
+
+def flatten(x: torch.Tensor, start_axis: int = 1) -> torch.Tensor:
+    """``x`` with every axis from ``start_axis`` on merged into one."""
+    return x.reshape(tuple(x.shape[:start_axis]) + (-1,))

@@ -24,12 +24,20 @@ Execution:
   and pointwise convs run :func:`~bnn_tpu_torch.kernels.gemm.popcount_gemm`
   over bit-packed activations.
 
+A layer deployed with ``use_pallas=False`` (the JAX package's switch) calls
+the plain versions, ``binary_gemm_reference`` and
+``popcount_gemm_reference``, in place of those two kernels, on whatever
+device its tensors are on; mode ``pallas-conv`` is an explicit request for
+its kernel and ignores the switch, as in the JAX package.
+
 Numerics follow the JAX package exactly, including each layer's sign(0)
 convention (``zero_to_one``) and the epilogue dtype order: conv mode
 computes ``acc.to(scale.dtype) * scale + add`` in the scale's dtype, the
 GEMM modes compute in f32 inside the kernel and cast to the scale's dtype.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +47,8 @@ from .. import layers as blayers
 from ..binarize import set_module_by_name
 from ..kernels.conv import binary_conv2d_s1
 from ..kernels.conv import supports as _pallas_conv_supports
-from ..kernels.gemm import binary_gemm, popcount_gemm
+from ..kernels.gemm import (binary_gemm, binary_gemm_reference, popcount_gemm,
+                            popcount_gemm_reference)
 from ..kernels.packing import pack_bits, unpack_bits
 from ..ops.binarizers import (
     AdvancedInputBinarizer,
@@ -162,11 +171,23 @@ def _local_channels(layer, v: torch.Tensor) -> torch.Tensor:
     return v[i * n:(i + 1) * n]
 
 
-class DeployedLinear(nn.Module):
-    """Bit-packed dense layer executing through :func:`binary_gemm`."""
+def _binary_gemm(layer, x2d: torch.Tensor, sign_inputs: bool) -> torch.Tensor:
+    """``layer``'s binary GEMM on ``(M, K)`` rows: :func:`binary_gemm`, or
+    its plain version where the layer was deployed with ``use_pallas=False``;
+    the f32 result."""
+    gemm = binary_gemm if layer.use_pallas else binary_gemm_reference
+    return gemm(x2d.contiguous(), layer.w_packed, layer.k,
+                _local_channels(layer, layer.scale),
+                _local_channels(layer, layer.add), sign_inputs=sign_inputs)
 
-    def __init__(self, layer: blayers.Linear):
+
+class DeployedLinear(nn.Module):
+    """Bit-packed dense layer executing through :func:`binary_gemm` (its
+    plain version under ``use_pallas=False``)."""
+
+    def __init__(self, layer: blayers.Linear, *, use_pallas: bool = True):
         super().__init__()
+        self.use_pallas = use_pallas
         self.in_features = layer.in_features
         self.out_features = layer.out_features
         with torch.no_grad():
@@ -191,10 +212,7 @@ class DeployedLinear(nn.Module):
             # pre-signs to ternary values the kernel takes as they are
             if not self.zero_to_one:
                 x2d = _sign(x2d, 0.0, False, x2d.dtype)
-            y = binary_gemm(x2d.contiguous(), self.w_packed, self.k,
-                            _local_channels(self, self.scale),
-                            _local_channels(self, self.add),
-                            sign_inputs=self.zero_to_one).to(self.scale.dtype)
+            y = _binary_gemm(self, x2d, self.zero_to_one).to(self.scale.dtype)
         y = _tp_gather(self, y.reshape(lead + (-1,)), -1)
         if self.spatial_post is not None:
             y = self.spatial_post(y, x)
@@ -214,11 +232,15 @@ class DeployedConv(nn.Module):
       in-channel axis, ``(O, ceil(I/32), *k)``;
     - ``gemm`` / ``im2col``: ``(ceil(K/32), O)`` words, K in the
       channel-major ``(I, *k)`` order of ``F.unfold``.
+
+    ``use_pallas=False`` runs the plain versions of :func:`binary_gemm` and
+    :func:`popcount_gemm`; ``pallas-conv`` ignores it.
     """
 
-    def __init__(self, layer, *, mode: str = "auto",
+    def __init__(self, layer, *, use_pallas: bool = True, mode: str = "auto",
                  weight_format: str = "packed"):
         super().__init__()
+        self.use_pallas = use_pallas
         if mode not in _MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of {_MODES}")
         if weight_format not in _WEIGHT_FORMATS:
@@ -377,9 +399,7 @@ class DeployedConv(nn.Module):
 
     def _call_im2col(self, x: torch.Tensor) -> torch.Tensor:
         patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
-        y = binary_gemm(patches.contiguous(), self.w_packed, self.k,
-                        _local_channels(self, self.scale),
-                        _local_channels(self, self.add), sign_inputs=False)
+        y = _binary_gemm(self, patches, False)
         return self._to_nc(y.to(self.scale.dtype), x.shape[0], out_sp)
 
 
@@ -387,13 +407,15 @@ def _call_popcount(layer, x2d: torch.Tensor) -> torch.Tensor:
     """``layer``'s popcount product on ``(M, K)`` activations: the threshold
     subtracted in the activations' dtype, ``pack_bits`` signs with
     sign(0) = +1 (the ``zero_to_one`` convention this mode requires), and
-    the f32 result cast to the scale's dtype."""
+    the f32 result of :func:`popcount_gemm` (its plain version under
+    ``use_pallas=False``) cast to the scale's dtype."""
     thr = getattr(layer, "threshold", None)
     if thr is not None:
         x2d = x2d - thr
-    y = popcount_gemm(pack_bits(x2d, axis=-1), layer.w_packed, layer.k,
-                      _local_channels(layer, layer.scale),
-                      _local_channels(layer, layer.add))
+    gemm = popcount_gemm if layer.use_pallas else popcount_gemm_reference
+    y = gemm(pack_bits(x2d, axis=-1), layer.w_packed, layer.k,
+             _local_channels(layer, layer.scale),
+             _local_channels(layer, layer.add))
     return y.to(layer.scale.dtype)
 
 
@@ -418,19 +440,29 @@ def _eligible(m) -> bool:
     return True
 
 
-def deploy(model: nn.Module, *, weight_format: str = "packed") -> nn.Module:
+def deploy(model: nn.Module, *, use_pallas: Optional[bool] = None,
+           weight_format: str = "packed") -> nn.Module:
     """Replace eligible binary layers with deployed layers, in place.
 
+    ``use_pallas``: False deploys every layer to call the plain versions of
+    :func:`binary_gemm` and :func:`popcount_gemm` (on any device); True
+    their kernels, which the operators run on CUDA tensors and replace by
+    the plain versions on CPU tensors. ``None`` is True on every device,
+    today's behaviour (the JAX package resolves it by platform, since its
+    Mosaic kernels run on a TPU only).
     ``weight_format``: ``'packed'`` (1-bit words) or ``'int8'`` (+/-1 int8,
     no unpack work in the conv path). Returns the model, or the replacement
     if the model itself is one eligible layer.
     """
+    use_pallas = True if use_pallas is None else use_pallas
     replacements = {}
     for name, m in model.named_modules():
         if _eligible(m):
             replacements[name] = (
-                DeployedLinear(m) if isinstance(m, blayers.Linear)
-                else DeployedConv(m, weight_format=weight_format))
+                DeployedLinear(m, use_pallas=use_pallas)
+                if isinstance(m, blayers.Linear)
+                else DeployedConv(m, use_pallas=use_pallas,
+                                  weight_format=weight_format))
     if "" in replacements:
         return replacements[""]
     for name, new in replacements.items():

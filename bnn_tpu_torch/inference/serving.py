@@ -21,6 +21,16 @@ launches (stem, four stages), a binary ResNet-50 the stem and one
 on the deployed convs; at batch 8 the stages and blocks fall back to the
 deployed convs, as in the JAX package.
 
+``use_pallas=False`` serves the plain versions on the same device: every
+deployed layer calls ``binary_gemm_reference`` / ``popcount_gemm_reference``
+in place of the two GEMM kernels, and ``fuse`` (unless given) is off, so no
+hand-written kernel runs; the baseline to hold the kernels against in one
+process. ``use_pallas=None`` is True on every device, today's behaviour: the
+kernels on CUDA tensors, the operators' plain versions on CPU tensors (the
+JAX ``Predictor`` resolves it by platform, its Mosaic kernels being
+TPU-only). An explicit ``fuse=True`` with ``use_pallas=False`` builds the
+fused modules, which run their kernels, as in JAX.
+
 ``binary_gemm_impl='popcount'`` serves unfused and switches every
 ``zero_to_one`` dense layer and pointwise conv to the popcount GEMM after the
 BN folds (``popcount_layers`` names them), as the JAX ``Predictor`` does.
@@ -70,8 +80,9 @@ class Predictor:
 
     def __init__(self, model: nn.Module, *, batch_size: int = 32,
                  weight_format: str = "int8", dtype=torch.bfloat16,
-                 fold_bn: bool = True, space_to_depth: bool = True,
-                 fuse: Optional[bool] = None, max_fused_batch: int = 4,
+                 use_pallas: Optional[bool] = None, fold_bn: bool = True,
+                 space_to_depth: bool = True, fuse: Optional[bool] = None,
+                 max_fused_batch: int = 4,
                  mesh=None, tensor_parallel: bool = False,
                  binary_gemm_impl: str = "mxu",
                  quantize_float_bits: Optional[int] = None,
@@ -110,10 +121,12 @@ class Predictor:
             raise RuntimeError(
                 "Predictor runs on CUDA by default and no CUDA device is "
                 "available; pass device='cpu' for the plain PyTorch versions")
-        if fuse is None:
-            fuse = True
+        use_pallas = True if use_pallas is None else use_pallas
+        if fuse is None:  # the fused modules run kernels, like use_pallas
+            fuse = use_pallas
         model.eval()
-        model = deploy(model.to(device), weight_format=weight_format)
+        model = deploy(model.to(device), weight_format=weight_format,
+                       use_pallas=use_pallas)
         if fold_bn:
             optimize_deployed(model)
         self.popcount_layers = []

@@ -357,10 +357,13 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
 def popcount_gemm_reference(x_packed: torch.Tensor, w_packed: torch.Tensor,
                             k: int, scale: Optional[torch.Tensor] = None,
                             add: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`popcount_gemm`, on the same packed
-    words (the JAX reference packs ``(M, K)`` activations first: pass
-    ``pack_bits(x, axis=-1)``). The mismatch counts are exact integers; the
-    epilogue is f32."""
+    """Plain PyTorch version of :func:`popcount_gemm`, on the kernel's own
+    operands: ``x_packed`` is :func:`pack_bits` of the ``(M, K)`` activations
+    along the last axis, as the kernel takes it. The JAX package's
+    ``popcount_gemm_reference(x, ...)`` takes the unpacked activations and
+    packs them inside; for the same result here pass ``pack_bits(x,
+    axis=-1)``. The mismatch counts are exact integers; the epilogue is
+    f32."""
     mask = 0xFFFFFFFF
     xw = x_packed.to(torch.int64) & mask
     ww = w_packed.to(torch.int64) & mask

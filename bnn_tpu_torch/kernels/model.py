@@ -304,9 +304,11 @@ def fused_chain_reference(x, blocks, wfc=None, bfc=None, *, act="relu",
     return B.head(a, wfc, bfc).to(torch.float32 if out_dtype is None else out_dtype)
 
 
-def fused_pair_reference(x, blocks, **kw):
+def fused_pair_reference(x, blocks, *, act="relu", pre=False,
+                         zero_to_one=True, out_dtype=None):
     """Plain PyTorch version of :func:`fused_pair`."""
-    return fused_chain_reference(x, blocks, **kw)
+    return fused_chain_reference(x, blocks, act=act, pre=pre,
+                                 zero_to_one=zero_to_one, out_dtype=out_dtype)
 
 
 fused_down_stage_reference = fused_chain_reference

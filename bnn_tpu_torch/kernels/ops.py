@@ -55,7 +55,8 @@ SCHEMAS = {
                      "Tensor? scale, Tensor? add) -> Tensor",
     "binary_conv2d_s1": "binary_conv2d_s1(Tensor x, Tensor w, Tensor? scale, "
                         "Tensor? add) -> Tensor",
-    "fused_stem": "fused_stem(Tensor x, Tensor w, Tensor? bias) -> Tensor",
+    "fused_stem": "fused_stem(Tensor x, Tensor w, Tensor? bias, "
+                  "ScalarType? out_dtype=None) -> Tensor",
     "fused_chain": "fused_chain(Tensor x, Tensor[] arrays, int[] kinds, "
                    f"Tensor? wfc, Tensor? bfc, {_TAIL}) -> Tensor",
     "fused_stem_chain": "fused_stem_chain(Tensor x, Tensor w, Tensor? bias, "
@@ -79,6 +80,10 @@ SCHEMAS = {
 
 def _binary_gemm_cpu(x, w_packed, k, scale, add, sign_inputs):
     return binary_gemm_reference(x, w_packed, k, scale, add, sign_inputs=sign_inputs)
+
+
+def _fused_stem_cpu(x, w, bias, out_dtype=None):
+    return fused_stem_reference(x, w, bias, out_dtype=out_dtype)
 
 
 def _fused_chain_cpu(x, arrays, kinds, wfc, bfc, act1, act2, pre, zero_to_one,
@@ -132,9 +137,10 @@ def _conv_fake(x, w, scale, add):
     return x.new_empty(tuple(x.shape[:3]) + (w.shape[-1],), dtype=torch.float32)
 
 
-def _stem_fake(x, w, bias):
+def _stem_fake(x, w, bias, out_dtype=None):
     n, h, ws, _ = x.shape
-    return x.new_empty((n, h // 4, ws // 4, w.shape[-1]))
+    return x.new_empty((n, h // 4, ws // 4, w.shape[-1]),
+                       dtype=x.dtype if out_dtype is None else out_dtype)
 
 
 def _chain_out_channels(arrays, kinds) -> int:
@@ -189,7 +195,7 @@ OPS = {
     "popcount_gemm": (popcount_gemm_planned, popcount_gemm_reference, _gemm_fake),
     "binary_conv2d_s1": (binary_conv2d_s1_planned, binary_conv2d_s1_reference,
                          _conv_fake),
-    "fused_stem": (fused_stem_cuda, fused_stem_reference, _stem_fake),
+    "fused_stem": (fused_stem_cuda, _fused_stem_cpu, _stem_fake),
     "fused_chain": (fused_chain_cuda, _fused_chain_cpu, _fused_chain_fake),
     "fused_stem_chain": (fused_stem_chain_cuda, _fused_stem_chain_cpu,
                          _fused_stem_chain_fake),

@@ -9,7 +9,11 @@ version, only for CPU tensors. The
 JAX package has three TPU kernels for this one function (``fused_stem``,
 ``fused_stem_v2``, ``fused_stem_v3``), each tuned to a geometry; the CUDA
 kernel accepts every geometry the widest of them (v1: H % 8, W % 4) does,
-so it serves all three.
+so it serves all three: :func:`fused_stem_v2` and :func:`fused_stem_v3`
+check their JAX kernel's scope and call the same operator, and their
+launches count on ``fused_stem.launches``. Every entry point takes
+``out_dtype`` (bf16 or f32 on the card, default x's dtype), which the kernel
+stores in: an f32 output of bf16 x keeps the f32 sums.
 
 The kernel runs the conv on the bf16 tensor cores (``csrc/stem_common.cuh``),
 as the TPU kernels run it on the MXU: bf16 x times bf16 w, summed in f32,
@@ -38,7 +42,8 @@ import torch.nn.functional as F
 from ._blocks import KEPT, tensor_key
 from ._build import load
 
-__all__ = ["fused_stem", "fused_stem_reference", "StemDesc", "StemWeights",
+__all__ = ["fused_stem", "fused_stem_v2", "fused_stem_v3",
+           "fused_stem_reference", "StemDesc", "StemWeights",
            "kept_stem", "split_pieces", "stem_passes", "stem_key",
            "stem_weights", "k_tap_channel"]
 
@@ -52,14 +57,15 @@ OCB = 64           # output channels of a kernel work item: o_pad's multiple
 PASSES = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
 
 
-def _check_geometry(x: torch.Tensor, w: torch.Tensor) -> None:
+def _check_geometry(x: torch.Tensor, w: torch.Tensor, name: str = "fused_stem",
+                    h_mult: int = 8, w_mult: int = 4) -> None:
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError(f"expected NHWC x and HWIO w, got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
     _, h, ws, c = x.shape
-    if not (c <= 4 and h % 8 == 0 and ws % 4 == 0):
-        raise ValueError(f"fused_stem needs C <= 4, H % 8 == 0 and "
-                         f"W % 4 == 0; got x {tuple(x.shape)}")
+    if not (c <= 4 and h % h_mult == 0 and ws % w_mult == 0):
+        raise ValueError(f"{name} needs C <= 4, H % {h_mult} == 0 and "
+                         f"W % {w_mult} == 0; got x {tuple(x.shape)}")
     if tuple(w.shape[:3]) != (7, 7, c):
         raise ValueError(f"fused_stem needs a (7, 7, {c}, O) kernel, got "
                          f"{tuple(w.shape)}")
@@ -113,7 +119,7 @@ def _kernel():
     fn = load("fused_stem").bnn_fused_stem
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6
+                    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     return fn
 
@@ -122,7 +128,7 @@ def _kernel():
 def _plan_fn():
     fn = load("fused_stem").bnn_fused_stem_plan
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
     return fn
 
 
@@ -194,21 +200,33 @@ def check_x(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs a contiguous NHWC x")
 
 
+def _out_dtype(x: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The kernel's output dtype: ``out_dtype``, else x's; bf16 or f32."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in _X_DTYPES:
+        raise TypeError(f"fused_stem stores f32 or bf16, got out_dtype {out_dtype}")
+    return out_dtype
+
+
 def fused_stem_cuda(x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor]) -> torch.Tensor:
+                    bias: Optional[torch.Tensor],
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The ``fused_stem`` operator's CUDA implementation: one launch of the
-    kernel, with the kept :class:`StemWeights` of ``w`` and ``bias``."""
+    kernel, with the kept :class:`StemWeights` of ``w`` and ``bias``,
+    storing ``out_dtype`` (default x's dtype)."""
     _check_geometry(x, w)
     check_x(x, w, "fused_stem")
+    out_dtype = _out_dtype(x, out_dtype)
     sw = kept_stem(w, bias)
     n, h, ws, c = x.shape
-    out = torch.empty((n, h // 4, ws // 4, sw.o), dtype=x.dtype, device=x.device)
+    out = torch.empty((n, h // 4, ws // 4, sw.o), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     err = _kernel()(
         x.data_ptr(), int(x.dtype == torch.bfloat16), sw.wk.data_ptr(),
-        sw.w_pieces, sw.bias_f32.data_ptr(), out.data_ptr(), n, h, ws, c,
-        sw.o, sw.o_pad, torch.cuda.current_stream(x.device).cuda_stream)
+        sw.w_pieces, sw.bias_f32.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), n, h, ws, c, sw.o, sw.o_pad,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
     fused_stem.launches += 1
@@ -238,23 +256,27 @@ class StemDesc:
     def w_pieces(self) -> int:
         return self.wk.shape[0]
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_stem(x, self.w, self.bias)
+    def __call__(self, x: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return fused_stem(x, self.w, self.bias, out_dtype=out_dtype)
 
-    def plan(self, x: torch.Tensor) -> dict:
-        """The launch the kernel makes for ``x``: pooled rows per work item,
-        items, blocks and blocks per SM."""
+    def plan(self, x: torch.Tensor,
+             out_dtype: Optional[torch.dtype] = None) -> dict:
+        """The launch the kernel makes for ``x`` and ``out_dtype``: pooled
+        rows per work item, items, blocks and blocks per SM."""
         n, h, ws, c = x.shape
         out = (ctypes.c_int * 4)()
-        err = _plan_fn()(int(x.dtype == torch.bfloat16), self.w_pieces, n, h, ws,
-                         c, self.o, self.o_pad, out)
+        err = _plan_fn()(int(x.dtype == torch.bfloat16), self.w_pieces,
+                         int(_out_dtype(x, out_dtype) == torch.bfloat16), n, h,
+                         ws, c, self.o, self.o_pad, out)
         if err:
             raise RuntimeError(f"fused_stem plan failed: CUDA error {err}")
         return dict(zip(("rows", "items", "blocks", "blocks_per_sm"), out))
 
 
 def fused_stem(x: torch.Tensor, w: torch.Tensor,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None, *,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``maxpool3x3/s2/p1(relu(conv7x7/s2/p3(x, w) + bias))``, as the
     ``bnn_tpu_torch::fused_stem`` operator (``kernels/ops.py``): the kernel
     on CUDA tensors, :func:`fused_stem_reference` on CPU tensors.
@@ -264,23 +286,52 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor,
             W % 4 == 0.
         w: ``(7, 7, C, O)`` HWIO kernel (BN already folded).
         bias: ``(O,)`` folded bias, or None.
+        out_dtype: the output's dtype (bf16 or f32 on the card), default
+            x's; the kernel stores in it.
     Returns:
-        ``(N, H/4, W/4, O)`` in x's dtype.
+        ``(N, H/4, W/4, O)`` in ``out_dtype``.
     """
     _check_geometry(x, w)
-    return torch.ops.bnn_tpu_torch.fused_stem(x, w, bias)
+    return torch.ops.bnn_tpu_torch.fused_stem(x, w, bias, out_dtype)
 
 
 fused_stem.launches = 0
 
 
+def fused_stem_v2(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`fused_stem` in the scope of the JAX package's batch-1 kernel
+    of this name: N == 1, C <= 4, H % 16 == 0, W % 4 == 0 (ValueError
+    otherwise). The same operator and kernel; its launches count on
+    ``fused_stem.launches``."""
+    _check_geometry(x, w, "fused_stem_v2", 16, 4)
+    if x.shape[0] != 1:
+        raise ValueError(f"fused_stem_v2 takes batch 1 (fused_stem serves "
+                         f"larger ones), got x {tuple(x.shape)}")
+    return torch.ops.bnn_tpu_torch.fused_stem(x, w, bias, out_dtype)
+
+
+def fused_stem_v3(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`fused_stem` in the scope of the JAX package's kernel of this
+    name: any batch, C <= 4, H % 16 == 0, W % 8 == 0 (ValueError otherwise).
+    The same operator and kernel; its launches count on
+    ``fused_stem.launches``."""
+    _check_geometry(x, w, "fused_stem_v3", 16, 8)
+    return torch.ops.bnn_tpu_torch.fused_stem(x, w, bias, out_dtype)
+
+
 def fused_stem_reference(x: torch.Tensor, w: torch.Tensor,
-                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         bias: Optional[torch.Tensor] = None, *,
+                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_stem`, computed in f32 and cast
-    to x's dtype at the end."""
+    once to ``out_dtype`` (default x's dtype) at the end."""
     y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float32),
                  w.permute(3, 2, 0, 1).to(torch.float32), stride=2, padding=3)
     if bias is not None:
         y = y + bias.to(torch.float32).reshape(1, -1, 1, 1)
     y = F.max_pool2d(torch.relu(y), 3, 2, 1)
-    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()

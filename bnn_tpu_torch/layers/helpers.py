@@ -25,3 +25,7 @@ def copy_parameters(source_mod: nn.Module, target_mod: nn.Module, bconfig) -> No
             for name, p in src.named_parameters():
                 if name in dst_params and dst_params[name].shape == p.shape:
                     dst_params[name].copy_(p)
+
+
+# the reference's misspelt public name (bnn/layers/helpers.py), kept as an alias
+copy_paramters = copy_parameters

@@ -1,9 +1,19 @@
-"""Float layers whose training semantics follow ``bnn_tpu/nn`` (counterpart
-of ``bnn_tpu/nn/__init__.py``).
+"""Float layers under ``bnn_tpu.nn``'s names (counterpart of
+``bnn_tpu/nn/__init__.py``).
 
-The model zoo builds these in place of ``torch.nn``'s: each norm and pool
-subclasses the torch layer, so every ``isinstance`` test of the serving
-passes holds, and differs only where the JAX package computes differently.
+Where ``torch.nn``'s layer computes what the JAX package's does, the name is
+torch's class itself (``Conv1d``, ``Conv2d``, ``Linear``, ``AvgPool2d``,
+``AdaptiveAvgPool2d``, ``Identity``, ``ReLU``, ``PReLU``, ``Hardtanh``,
+``Tanh``, ``Sequential``, ``ModuleList``): the binarization pass maps
+``nn.Conv2d`` and ``nn.Linear`` by exact type and the serving passes test
+``type(m) is nn.Identity`` / ``nn.AvgPool2d``, so a subclass would drop out
+of both. The dense and conv layers take torch's weight layouts, and torch's
+``Conv1d`` / ``Conv2d`` refuse ``padding='same'`` at a stride over 1, which
+the binary layers and :func:`bnn_tpu_torch.functional.conv` take.
+
+The norms and the max pool subclass the torch layer, so every
+``isinstance`` test of the serving passes holds, and differ only where the
+JAX package computes differently; ``Flatten`` takes JAX's ``start_axis``.
 ``MultiheadAttention`` is the JAX package's own (four ``nn.Linear``
 projections, which ``prepare_binary_model`` binarizes), not torch's.
 """
@@ -17,8 +27,23 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["BatchNorm1d", "BatchNorm2d", "MaxPool2d", "LayerNorm",
-           "MultiheadAttention"]
+__all__ = ["Identity", "Linear", "Conv1d", "Conv2d", "BatchNorm1d",
+           "BatchNorm2d", "ReLU", "PReLU", "Tanh", "Hardtanh", "MaxPool1d",
+           "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "Flatten",
+           "Sequential", "ModuleList", "LayerNorm", "MultiheadAttention"]
+
+Identity = nn.Identity
+Linear = nn.Linear
+Conv1d = nn.Conv1d
+Conv2d = nn.Conv2d
+ReLU = nn.ReLU
+PReLU = nn.PReLU
+Tanh = nn.Tanh
+Hardtanh = nn.Hardtanh
+AvgPool2d = nn.AvgPool2d
+AdaptiveAvgPool2d = nn.AdaptiveAvgPool2d
+Sequential = nn.Sequential
+ModuleList = nn.ModuleList
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -33,12 +58,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     beside a narrower weight and bias (``cast_floats(keep_batch_stats=True)``)
     run with the weight and bias widened to the statistics' dtype.
 
+    ``use_fast_variance``: the train-mode variance in flax's one-pass form
+    ``max(0, mean(x^2) - mean(x)^2)``, as the JAX layer's option of that
+    name (off by default there too).
+
     ``sync_axis``: ``(axis, mesh)`` once ``parallel.shard_model`` places the
     model on a mesh whose ``data`` axis is over 1: in train mode the mean and
     the variance are then those of the whole batch over the axis, and the
     running statistics take them on every rank."""
 
     sync_axis = None
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: Optional[float] = 0.1, affine: bool = True,
+                 use_fast_variance: bool = False, **kwargs):
+        super().__init__(num_features, eps=eps, momentum=momentum,
+                         affine=affine, **kwargs)
+        self.use_fast_variance = use_fast_variance
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() < 2:
@@ -57,9 +93,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         sync = self.sync_axis if self.training else None
         if sync is None:
-            mean = xf.mean(dims, keepdim=True)
-            d = xf - mean
-            var = d.square().mean(dims, keepdim=True)
+            def batch_mean(v):
+                return v.mean(dims, keepdim=True)
         else:
             # the statistics of the whole batch over the data axis: each
             # pass's sums all-reduced (differentiably), in the same order
@@ -68,9 +103,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             axis, mesh = sync
             group = mesh.group(axis)
             count = (xf.numel() // xf.shape[1]) * mesh.size(axis)
-            mean = all_reduce_sum(xf.sum(dims, keepdim=True), group) / count
-            d = xf - mean
-            var = all_reduce_sum(d.square().sum(dims, keepdim=True), group) / count
+
+            def batch_mean(v):
+                return all_reduce_sum(v.sum(dims, keepdim=True), group) / count
+        mean = batch_mean(xf)
+        d = xf - mean
+        if self.use_fast_variance:
+            var = torch.clamp_min(batch_mean(xf.square()) - mean.square(), 0.0)
+        else:
+            var = batch_mean(d.square())
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight.view(shape)
@@ -104,6 +145,18 @@ class MaxPool2d(nn.MaxPool2d):
             return super().forward(x)
         return F.max_pool(x, self.kernel_size, self.stride, self.padding,
                           self.ceil_mode, self.dilation)
+
+
+# as in the JAX package, one layer covers both ranks (F.max_pool takes either)
+MaxPool1d = MaxPool2d
+
+
+class Flatten(nn.Flatten):
+    """``nn.Flatten`` from ``start_axis`` (JAX's name for ``start_dim``) to
+    the last axis."""
+
+    def __init__(self, start_axis: int = 1):
+        super().__init__(start_dim=start_axis)
 
 
 class LayerNorm(nn.LayerNorm):

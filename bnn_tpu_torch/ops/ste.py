@@ -3,7 +3,8 @@
 Each STE is a ``torch.autograd.Function``: the forward is the sign the JAX
 package computes, the backward the same surrogate gradient. The forwards are
 what serving needs; the gradients are held against JAX with the training
-path.
+path. :class:`SignActivation` and :class:`SignActivationStochastic` are the
+reference's own Functions (bnn/ops.py:51-92), under its names.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ __all__ = [
     "surrogate_sign",
     "resolve_surrogate",
     "SURROGATES",
+    "tanh_surrogate_sign",
+    "SignActivation",
+    "SignActivationStochastic",
 ]
 
 
@@ -33,7 +37,22 @@ def _hardtanh_mask(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.where((x > -1.0) & (x < 1.0), g, torch.zeros_like(g))
 
 
-class _SignSTE(torch.autograd.Function):
+class _Callable:
+    """Lets an instance of an autograd Function be called as ``apply``, as
+    the JAX package's shims are (torch warns on instantiating a Function
+    that does not define ``__init__``)."""
+
+    def __init__(self):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        return self.apply(*args, **kwargs)
+
+
+class SignActivation(_Callable, torch.autograd.Function):
+    """``SignActivation.apply(x)``: sign(x) forward (sign(0) == 0), hardtanh
+    straight-through gradient (the cotangent where |x| < 1, else 0)."""
+
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
@@ -70,9 +89,23 @@ class _StochasticSignSTE(torch.autograd.Function):
         return _hardtanh_mask(x, g), None
 
 
+class SignActivationStochastic(_Callable, _StochasticSignSTE):
+    """``SignActivationStochastic.apply(x, generator=None)``: +1 with
+    probability ``clip((x + 1) / 2, 0, 1)``, else -1; hardtanh
+    straight-through gradient. The uniform noise is drawn from
+    ``generator`` (a generator of ``x``'s device; the JAX package's PRNG
+    key), on ``x``'s device."""
+
+    @staticmethod
+    def forward(ctx, x, generator=None):
+        noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                           device=x.device) - 0.5
+        return _StochasticSignSTE.forward(ctx, x, noise)
+
+
 def sign_ste(x: torch.Tensor) -> torch.Tensor:
     """sign(x) forward (sign(0) == 0); hardtanh straight-through gradient."""
-    return _SignSTE.apply(x)
+    return SignActivation.apply(x)
 
 
 def sign_pm1_ste(x: torch.Tensor) -> torch.Tensor:
@@ -86,9 +119,7 @@ def stochastic_sign_ste(x: torch.Tensor,
     """``round(clip((x+1)/2 + U[-0.5, 0.5]))`` mapped to {-1, +1}; the noise
     comes from ``generator`` (the JAX package's PRNG key), a generator of
     ``x``'s device, drawn there."""
-    noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
-                       device=x.device) - 0.5
-    return _StochasticSignSTE.apply(x, noise)
+    return SignActivationStochastic.apply(x, generator)
 
 
 SURROGATES = {
@@ -116,3 +147,9 @@ def surrogate_sign(x: torch.Tensor, funct="tanh", t: float = 5.0) -> torch.Tenso
     """sign(x) forward with the gradient of ``funct(t * x)``."""
     y = resolve_surrogate(funct)(x * t)
     return y + (torch.sign(y) - y).detach()
+
+
+def tanh_surrogate_sign(x: torch.Tensor, t: float = 5.0) -> torch.Tensor:
+    """sign(x) forward with the gradient of ``tanh(t * x)`` (the reference's
+    default ``derivative_funct``; see :func:`surrogate_sign`)."""
+    return surrogate_sign(x, torch.tanh, t)

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --trainer  # phases 1 and 9 only, no result lines
     python3 chip_smoke.py --parallel # phases 1 and 10 only, no result lines
     python3 chip_smoke.py --cli      # phases 1 and 11 only, no result lines
+    python3 chip_smoke.py --plain    # phases 1 and 12 only, no result lines
     python3 chip_smoke.py --gloo-probe
                                      # which gloo collectives take CUDA tensors
 
@@ -26,7 +27,11 @@ Phases, each reported on its own lines:
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
    points take; the stem at its three entry points' geometries in bf16, with
-   f32 weights (3 passes) and in f32 (6 passes); ``fused_chain`` at each of ResNet-18's four stage shapes at
+   f32 weights (3 passes) and in f32 (6 passes), through ``fused_stem_v2``
+   at (1, 224, 220, 3) and ``fused_stem_v3`` at batch 8 and 1, bf16 x
+   stored as f32 by the kernel (``out_dtype``) through all three entry
+   points, and each entry point's refusal of a shape outside its scope;
+   ``fused_chain`` at each of ResNet-18's four stage shapes at
    batch 1 and 4, in bf16 and f32 with both option sets, and at widths that
    its word loader takes (C % 16 != 0), as ``fused_basic_block``,
    ``fused_downsample_block`` (20 -> 40 channels, and at ResNet-34's
@@ -229,7 +234,14 @@ Phases, each reported on its own lines:
    ``--model-parallel 2`` (f32, batch 64, 2 steps; losses finite, ms a
    step). ``--pipeline`` needs ``batch_isend_irecv``, which gloo refuses with
    CUDA tensors (``GLOO_CUDA``): named with the reason, held by the CPU tests;
-12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
+12. the plain serving paths beside the kernels: the flagship ResNet-18 at
+   batch 1 and 8, ResNet-50 at batch 8 and path C at batch 8, each through
+   the default ``Predictor`` and ``Predictor(use_pallas=False)`` of the same
+   weights in one process: the nine kernels' launches (phase 3's under the
+   default, none under ``use_pallas=False``), the two f32 builds' logits
+   within 1e-3 of each other with argmax equal, and in bf16 each one's
+   forward latency (host clock, in turns) and device busy;
+13. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--forwards`` builds the kernels of the ``bnn_tpu_torch`` in the current
@@ -410,25 +422,34 @@ def partial_stem_shape(kernels, dev) -> tuple:
 
 
 def check_stem(kernels, shape, gen, dev, x_dtype=torch.bfloat16,
-               w_dtype=torch.bfloat16) -> float:
-    """The stem kernel at ``shape`` against the plain version computed in
-    f32 from the same inputs. A bf16 output (bf16 x; bf16 or f32 weights,
-    1 or 3 passes) is within one bf16 ulp, plus 1e-5 absolute for the f32
-    sums' own rounding next to zero; an f32 output (f32 x and weights, 6
-    passes) within 1e-5."""
+               w_dtype=torch.bfloat16, entry: str = "fused_stem",
+               out_dtype=None) -> float:
+    """The stem kernel, through its entry point ``entry`` (``fused_stem``,
+    ``fused_stem_v2`` or ``fused_stem_v3``), at ``shape`` against the plain
+    version computed in f32 from the same inputs. A bf16 output (bf16 x;
+    bf16 or f32 weights, 1 or 3 passes) is within one bf16 ulp, plus 1e-5
+    absolute for the f32 sums' own rounding next to zero; an f32 output (f32
+    x and weights, 6 passes; or bf16 x with ``out_dtype`` f32, stored by the
+    kernel) within 1e-5."""
     n, h, w, c = shape
     x = torch.randn(shape, generator=gen).to(dev, x_dtype)
     wk = (0.1 * torch.randn((7, 7, c, 64), generator=gen)).to(dev, w_dtype)
     b = (0.1 * torch.randn(64, generator=gen)).to(dev)
-    got = kernels.fused_stem(x, wk, b).float()
-    ref = kernels.fused_stem_reference(x.float(), wk, b)
+    got = getattr(kernels.stem, entry)(x, wk, b, out_dtype=out_dtype)
+    want_dtype = x_dtype if out_dtype is None else out_dtype
+    if got.dtype != want_dtype:
+        raise AssertionError(f"{entry} {tuple(shape)}: output {got.dtype}, "
+                             f"expected {want_dtype}")
+    got = got.float()
+    ref = kernels.fused_stem_reference(x, wk, b, out_dtype=torch.float32)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     passes = len(kernels.stem.stem_passes(x_dtype, w_dtype))
-    label = (f"fused_stem {tuple(shape)} x {str(x_dtype)[6:]}, w {str(w_dtype)[6:]} "
-             f"({passes} pass{'es' if passes > 1 else ''}) -> {tuple(got.shape)}, "
-             f"{stem_plan_text(kernels.StemDesc(wk, b).plan(x), h // 4)}")
-    if x_dtype == torch.float32:
+    label = (f"{entry} {tuple(shape)} x {str(x_dtype)[6:]}, w {str(w_dtype)[6:]} "
+             f"({passes} pass{'es' if passes > 1 else ''}) -> {tuple(got.shape)} "
+             f"{str(want_dtype)[6:]}, "
+             f"{stem_plan_text(kernels.StemDesc(wk, b).plan(x, out_dtype), h // 4)}")
+    if want_dtype == torch.float32:
         if not err.max().item() <= 1e-5:
             raise AssertionError(f"{label}: max |err| {err.max().item():.3g} > 1e-5")
         print(f"phase 2: {label}: max |err| {err.max().item():.3g} (limit 1e-5)")
@@ -3676,6 +3697,67 @@ def cli_phase(card) -> dict:
     return launches
 
 
+def plain_phase(kernels, Predictor, dev, card) -> dict:
+    """Phase 12: the plain serving paths beside the kernels. For the
+    flagship ResNet-18 at batch 1 and 8, ResNet-50 at batch 8 and path C
+    (the Z1-PReLU ResNet-50 with ``binary_gemm_impl='popcount'``) at batch
+    8, the default ``Predictor`` and ``Predictor(use_pallas=False)`` of the
+    same weights: the nine kernels' launches (phase 3's under the default,
+    none under ``use_pallas=False``), their f32 logits against each other
+    (1e-3, argmax equal), and in bf16 each one's forward latency (host
+    clock, in turns) and device busy. Returns the default paths' launches."""
+    t0 = time.perf_counter()
+    images = torch.randn((BATCH, 3, SIZE, SIZE),
+                         generator=torch.Generator().manual_seed(SEED + 41))
+    qat18 = flagship(torch.Generator().manual_seed(SEED))
+    qat50 = flagship(torch.Generator().manual_seed(SEED), depth=50)
+    qz50 = flagship(torch.Generator().manual_seed(SEED), depth=50, z1_prelu=True)
+    popcount = {"binary_gemm_impl": "popcount"}
+    paths = (("ResNet-18", qat18, 1, {}, {"fused_stem": 1, "fused_chain": 4}),
+             ("ResNet-18", qat18, BATCH, {}, {"fused_stem": 1, "binary_gemm": 1}),
+             ("ResNet-50", qat50, BATCH, {}, {"fused_stem": 1, "binary_gemm": 27}),
+             ("path C: Z1-PReLU ResNet-50 popcount", qz50, BATCH, popcount,
+              {"popcount_gemm": 36}))
+    totals = dict.fromkeys(KERNELS, 0)
+    for name, qat, b, kw, want in paths:
+        xb = images[:b]
+        preds = {}
+        for mode, extra, want_pf in (("kernels", {}, want),
+                                     ("plain", {"use_pallas": False}, {})):
+            preds[mode] = Predictor(copy.deepcopy(qat), batch_size=b, **kw, **extra)
+            _, launches = serve_counted(
+                kernels, preds[mode], (xb, xb), f"{name} Predictor(batch_size={b}"
+                f"{', use_pallas=False' if extra else ''}) bf16", want_pf, phase=12)
+            if mode == "kernels":
+                for k, v in launches.items():
+                    totals[k] += v
+        logits = {}
+        for mode, extra in (("kernels", {}), ("plain", {"use_pallas": False})):
+            pred32 = Predictor(copy.deepcopy(qat), batch_size=b, dtype=None, **kw, **extra)
+            logits[mode] = pred32(xb).cpu()
+        torch.testing.assert_close(logits["kernels"], logits["plain"], rtol=1e-3, atol=1e-3)
+        if not bool((logits["kernels"].argmax(1) == logits["plain"].argmax(1)).all()):
+            raise AssertionError(f"phase 12: {name} batch {b}: argmax differs between "
+                                 "the kernels and use_pallas=False")
+        gap = (logits["kernels"] - logits["plain"]).abs().max().item()
+        xd = xb.to(dev)
+        fwd = {"kernels": [], "plain": []}
+        for mode in ("kernels", "plain", "plain", "kernels"):
+            fwd[mode].append(fwd_ms(preds[mode], xd, iters=10))
+        busy = {mode: sum(device_profile(lambda p=pred: p(xd), iters=5,
+                                         whole=False)[0].values())
+                for mode, pred in preds.items()}
+        print(f"phase 12: {name} batch {b} bf16: kernels "
+              f"{[round(v, 3) for v in fwd['kernels']]} ms a forward, device busy "
+              f"{busy['kernels']:.3f} ms; use_pallas=False "
+              f"{[round(v, 3) for v in fwd['plain']]} ms, device busy "
+              f"{busy['plain']:.3f} ms; f32 logits max |diff| {gap:.3g} (limit 1e-3), "
+              f"argmax equal | {card}")
+    print(f"phase 12: took {time.perf_counter() - t0:.1f} s; launches of the default "
+          f"paths {totals}")
+    return totals
+
+
 def forwards_only() -> int:
     """``--forwards``: the live predictor's forward at ResNet-18 batch 1 and
     8 and ResNet-50 batch 1 (bf16, 224x224, the flagship recipe's random
@@ -3762,6 +3844,10 @@ def main() -> int:
         cli_phase(card)
         print("chip_smoke: --cli: phases 1 and 11 passed", file=sys.stderr)
         return 0
+    if "--plain" in sys.argv[1:]:
+        plain_phase(kernels, Predictor, dev, card)
+        print("chip_smoke: --plain: phases 1 and 12 passed", file=sys.stderr)
+        return 0
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
                  "fused_bottleneck", "fused_stem"):
@@ -3801,6 +3887,31 @@ def main() -> int:
     for shape in ((4, SIZE, SIZE, 3), (1, SIZE, SIZE, 3),
                   partial_stem_shape(kernels, dev)):
         stem_err = max(stem_err, check_stem(kernels, shape, gen_stem, dev))
+    # the JAX package's v2 and v3 entry points, each through its own name,
+    # then bf16 x stored as f32 by the kernel (out_dtype), and each entry
+    # point's refusal of a shape outside its scope
+    gen_entry = torch.Generator().manual_seed(SEED + 40)
+    for entry, shape in (("fused_stem_v2", (1, SIZE, SIZE - 4, 3)),
+                         ("fused_stem_v3", (BATCH, SIZE, SIZE, 3)),
+                         ("fused_stem_v3", (1, SIZE, SIZE, 3))):
+        stem_err = max(stem_err, check_stem(kernels, shape, gen_entry, dev,
+                                            entry=entry))
+    for entry, shape in (("fused_stem_v3", (BATCH, SIZE, SIZE, 3)),
+                         ("fused_stem_v2", (1, SIZE, SIZE, 3)),
+                         ("fused_stem", (1, SIZE, SIZE, 3))):
+        stem_err = max(stem_err, check_stem(kernels, shape, gen_entry, dev,
+                                            entry=entry, out_dtype=torch.float32))
+    w_out = torch.zeros((7, 7, 3, 64), dtype=torch.bfloat16, device=dev)
+    for entry, shape in (("fused_stem", (1, 220, SIZE, 3)),
+                         ("fused_stem_v2", (2, SIZE, SIZE, 3)),
+                         ("fused_stem_v3", (1, SIZE, SIZE - 4, 3))):
+        try:
+            getattr(kernels.stem, entry)(
+                torch.zeros(shape, dtype=torch.bfloat16, device=dev), w_out)
+        except ValueError as e:
+            print(f"phase 2: {entry} refuses {shape}: {e}")
+        else:
+            raise AssertionError(f"{entry} took {shape}, outside its scope")
     block_errs = check_blocks(kernels, gen, dev)
     block_errs["fused_bottleneck"] = check_bottlenecks(kernels, gen, dev)
     # the opt-in paths' kernels draw from their own generator, so that the
@@ -4000,46 +4111,54 @@ def main() -> int:
     bs = (0.1 * torch.randn(64, generator=gen)).to(dev, torch.bfloat16)
     stem_desc = kernels.StemDesc(ws, bs)
 
-    def time_stem(x):
-        """The stem at x's shape: the kernel through a descriptor (the
-        kernels line's ``ms``) and through the public call (both on the
-        operator's kept weights), its plain version and cuDNN's conv + relu
-        + max_pool, three calls."""
+    def time_stem(x, entry="fused_stem", out_dtype=None):
+        """The stem at x's shape, storing ``out_dtype``: the kernel through a
+        descriptor (the kernels line's ``ms``) and through the public entry
+        point ``entry`` (both on the operator's kept weights), its plain
+        version and cuDNN's conv + relu + max_pool, three calls."""
         xn, wn = x.permute(0, 3, 1, 2).contiguous(), ws.permute(3, 2, 0, 1).contiguous()
+        out_size = torch.finfo(out_dtype or x.dtype).bits // 8
 
         def stem():
-            return stem_desc(x)
+            return stem_desc(x, out_dtype)
 
         def stem_public():
-            return kernels.fused_stem(x, ws, bs)
+            return getattr(kernels.stem, entry)(x, ws, bs, out_dtype=out_dtype)
 
         def stem_plain():
-            return kernels.fused_stem_reference(x, ws, bs)
+            return kernels.fused_stem_reference(x, ws, bs, out_dtype=out_dtype)
 
         def stem_cudnn_3_calls():
             return torch.nn.functional.max_pool2d(
                 torch.relu(torch.nn.functional.conv2d(xn, wn, bs, 2, 3)), 3, 2, 1)
 
         nb, h, w, _ = x.shape
-        print(f"phase 4: fused_stem {tuple(x.shape)}: "
-              f"{stem_plan_text(stem_desc.plan(x), h // 4)}")
+        print(f"phase 4: {entry} {tuple(x.shape)}: "
+              f"{stem_plan_text(stem_desc.plan(x, out_dtype), h // 4)}")
         return ({f.__name__: (device_ms(f), cuda_ms(f))
                  for f in (stem, stem_public, stem_plain, stem_cudnn_3_calls)},
-                *bound_ms(nbytes(x, ws, bs) + nb * (h // 4) * (w // 4) * 64 * 2,
+                *bound_ms(nbytes(x, ws, bs) + nb * (h // 4) * (w // 4) * 64 * out_size,
                           2 * nb * (h // 2) * (w // 2) * 64 * 7 * 7 * 3, torch.bfloat16))
 
-    stem_t, stem_bound, stem_by = time_stem(xs)
+    stem_t, stem_bound, stem_by = time_stem(xs, "fused_stem_v3")
     timed = [(f"binary_gemm M={m} K={k} N={n} bf16", gemm_t, gemm_bound, gemm_by),
              ("ResNet-50 binary_gemm M={} K={} N={} bf16".format(*m50), *time_gemm(*m50)),
-             (f"fused_stem ({BATCH},{SIZE},{SIZE},3) bf16", stem_t, stem_bound, stem_by)]
+             (f"fused_stem_v3 ({BATCH},{SIZE},{SIZE},3) bf16", stem_t, stem_bound,
+              stem_by)]
     # batches 4 and 1 of the serving paths, and the geometries of the v2 and
     # v1 entry points, which the same kernel serves
     # (the batches on a generator of their own: the draws from gen stay)
     gen_b = torch.Generator().manual_seed(SEED + 6)
-    for shape, g in (((4, SIZE, SIZE, 3), gen_b), ((1, SIZE, SIZE, 3), gen_b),
-                     ((1, SIZE, SIZE - 4, 3), gen), ((2, 200, 196, 3), gen)):
+    for shape, g, entry in (((4, SIZE, SIZE, 3), gen_b, "fused_stem_v3"),
+                            ((1, SIZE, SIZE, 3), gen_b, "fused_stem_v3"),
+                            ((1, SIZE, SIZE - 4, 3), gen, "fused_stem_v2"),
+                            ((2, 200, 196, 3), gen, "fused_stem")):
         xo = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
-        timed.append((f"fused_stem {shape} bf16", *time_stem(xo)))
+        timed.append((f"{entry} {shape} bf16", *time_stem(xo, entry)))
+    # bf16 x stored as f32 (out_dtype) at batch 8 and 1: the x drawn above
+    for xo in (xs, xs[:1]):
+        timed.append((f"fused_stem_v3 {tuple(xo.shape)} bf16 -> f32",
+                      *time_stem(xo, "fused_stem_v3", torch.float32)))
     for name, times, bound, by in timed:
         parts = ", ".join(f"{f} {d * 1e3:.2f} us device / {c * 1e3:.2f} us per call"
                           for f, (d, c) in times.items())
@@ -4458,7 +4577,10 @@ def main() -> int:
     # phase 11: the serve CLI and the ImageNet trainer over torch.distributed;
     # the launches of the loaded mesh bundles (each rank's) join the totals
     add(cli_phase(card))
-    print("phase 12: fused_chain's numbers are the sums over the four stages of "
+    # phase 12: the plain serving paths beside the kernels; the default
+    # predictors' launches join the totals
+    add(plain_phase(kernels, Predictor, dev, card))
+    print("phase 13: fused_chain's numbers are the sums over the four stages of "
           "one ResNet-18 forward at batch 1; fused_basic_block's over ResNet-34 "
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
@@ -4466,8 +4588,9 @@ def main() -> int:
           "calls of one batch-8 forward of paths B and C; launches are totals "
           "over phase 3's serving runs, phase 5's serving of the trained "
           "weights, phase 6's counted serving runs and streams, phase 8's "
-          "serving runs (paths D and E), phase 10's mesh predictors and phase "
-          "11's loaded mesh bundles (each rank's); max_abs_err is the largest over every "
+          "serving runs (paths D and E), phase 10's mesh predictors, phase "
+          "11's loaded mesh bundles (each rank's) and phase 12's default "
+          "predictors; max_abs_err is the largest over every "
           "check, phase 8's included")
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",

@@ -15,6 +15,7 @@ from bnn_tpu.kernels import stem as jstem
 from bnn_tpu.kernels.packing import pack_bits as jpack_bits
 from bnn_tpu_torch.kernels import (binary_gemm, binary_gemm_reference,
                                    fused_stem, fused_stem_reference, pack_bits)
+from bnn_tpu_torch.kernels import stem as tstem
 from bnn_tpu_torch.kernels.gemm import GEMM_TILES, binary_gemm_planned, gemm_plan
 
 
@@ -163,3 +164,57 @@ def test_fused_stem_matches_jax_kernel(entry, bias):
 def test_fused_stem_rejects_unsupported_geometry(shape):
     with pytest.raises(ValueError):
         fused_stem(torch.zeros(shape), torch.zeros(7, 7, shape[3], 64))
+
+
+def _stem_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32)
+    w = (rng.randn(7, 7, shape[3], 64) * 0.1).astype(np.float32)
+    b = (rng.randn(64) * 0.1).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("entry,shape", [("fused_stem_v2", (1, 32, 32, 3)),
+                                         ("fused_stem_v3", (1, 32, 32, 3)),
+                                         ("fused_stem_v3", (2, 32, 32, 3))])
+def test_stem_entry_point_matches_its_jax_kernel(entry, shape):
+    """The port's v2 / v3 entry points against JAX's kernels of the same
+    name in interpret mode, as tests/test_stem.py runs them; their CPU calls
+    launch nothing."""
+    x, w, b = _stem_inputs(shape, seed=shape[0] + len(entry))
+    want = np.asarray(getattr(jstem, entry)(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(b), interpret=True))
+    before = fused_stem.launches
+    got = getattr(tstem, entry)(torch.from_numpy(x), torch.from_numpy(w),
+                                torch.from_numpy(b))
+    assert fused_stem.launches == before
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("entry", ["fused_stem", "fused_stem_v2", "fused_stem_v3"])
+def test_stem_out_dtype_matches_jax_reference(entry):
+    """bf16-valued x stored as f32: against JAX's fused_stem_reference with
+    ``out_dtype=jnp.float32`` (f32 sums in another order, 1e-5); without
+    ``out_dtype`` the output keeps x's bf16."""
+    x, w, b = _stem_inputs((1, 32, 32, 3), seed=9)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jstem.fused_stem_reference(xj, jnp.asarray(w), jnp.asarray(b),
+                                                 out_dtype=jnp.float32))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    wt, bt = torch.from_numpy(w), torch.from_numpy(b)
+    got = getattr(tstem, entry)(xt, wt, bt, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    ref = fused_stem_reference(xt, wt, bt, out_dtype=torch.float32)
+    np.testing.assert_array_equal(ref.numpy(), got.numpy())
+    assert getattr(tstem, entry)(xt, wt, bt).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("entry,shape", [("fused_stem_v2", (2, 32, 32, 3)),
+                                         ("fused_stem_v2", (1, 24, 32, 3)),
+                                         ("fused_stem_v3", (1, 32, 28, 3)),
+                                         ("fused_stem_v3", (2, 24, 32, 3))])
+def test_stem_entry_points_refuse_shapes_outside_their_scope(entry, shape):
+    with pytest.raises(ValueError, match=entry):
+        getattr(tstem, entry)(torch.zeros(shape), torch.zeros(7, 7, 3, 64))

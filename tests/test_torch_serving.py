@@ -2,6 +2,7 @@
 flagship binary ResNet-18 (32x32, 10 classes), with the QAT weights, BN
 statistics and alphas carried across by load_jax_state."""
 import copy
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -220,3 +221,81 @@ def test_predictor_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             Predictor(_tiny(), batch_size=8)
+
+
+def test_predictor_use_pallas_false_matches_jax(flagship, jax_logits, monkeypatch):
+    """``Predictor(use_pallas=False)`` against JAX's ``Predictor(use_pallas=
+    False)`` on the same weights (1e-4, as above): no fused module, every
+    deployed layer flagged, and the GEMM kernels' wrappers never reached."""
+    from bnn_tpu_torch.inference.deploy import DeployedConv, DeployedLinear
+
+    tdeploy = importlib.import_module("bnn_tpu_torch.inference.deploy")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("use_pallas=False reached a kernel wrapper")
+
+    monkeypatch.setattr(tdeploy, "binary_gemm", refuse)
+    monkeypatch.setattr(tdeploy, "popcount_gemm", refuse)
+    _, tm, _, images = flagship
+    pred = Predictor(copy.deepcopy(tm), batch_size=8, device="cpu", dtype=None,
+                     use_pallas=False)
+    kinds = {type(m).__name__ for m in pred.model.modules()}
+    assert not {k for k in kinds if k.startswith("Fused")}
+    deployed = [m for m in pred.model.modules()
+                if isinstance(m, (DeployedConv, DeployedLinear))]
+    assert deployed and all(m.use_pallas is False for m in deployed)
+    assert pred.model.layer4[0].downsample[1].mode == "gemm"  # reaches the GEMM
+    for n in (3, 10):
+        got = pred(_nchw(images[:n])).numpy()
+        np.testing.assert_allclose(got, jax_logits[n], rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(got.argmax(1), jax_logits[n].argmax(1))
+
+
+@pytest.mark.parametrize("use_pallas", [None, True, False])
+def test_deploy_sets_use_pallas_on_every_layer(flagship, use_pallas):
+    from bnn_tpu_torch.inference import deploy
+    from bnn_tpu_torch.inference.deploy import DeployedConv, DeployedLinear
+
+    _, tm, _, _ = flagship
+    model = deploy(copy.deepcopy(tm), use_pallas=use_pallas)
+    flags = [m.use_pallas for m in model.modules()
+             if isinstance(m, (DeployedConv, DeployedLinear))]
+    assert len(flags) == 19  # the binary body: 16 3x3 convs, 3 shortcuts
+    assert set(flags) == {use_pallas is not False}
+
+
+def test_popcount_layer_under_use_pallas_false_matches_jax(monkeypatch):
+    """A zero_to_one dense layer on the popcount GEMM: under use_pallas=False
+    it reaches popcount_gemm_reference, never the kernel's wrapper, and
+    equals JAX's DeployedLinear(use_pallas=False) in popcount mode."""
+    jdeploy = importlib.import_module("bnn_tpu.inference.deploy")
+    from bnn_tpu.layers import Linear as JLinear
+    from bnn_tpu_torch.layers import Linear as TLinear
+
+    tdeploy = importlib.import_module("bnn_tpu_torch.inference.deploy")
+
+    rng = np.random.RandomState(5)
+    w = rng.randn(40, 70).astype(np.float32)         # (in, out), JAX's layout
+    x = rng.randn(6, 40).astype(np.float32)
+    x[:, ::9] = 0.0
+    jcfg = bnn_tpu.BConfig(jops.BasicInputBinarizer.with_args(zero_to_one=True),
+                           jops.BasicScaleBinarizer, jops.XNORWeightBinarizer)
+    tcfg = bt.BConfig(tops.BasicInputBinarizer.with_args(zero_to_one=True),
+                      tops.BasicScaleBinarizer, tops.XNORWeightBinarizer)
+    jl = JLinear(40, 70, bconfig=jcfg, rngs=nnx.Rngs(0))
+    jl.kernel[...] = jnp.asarray(w)
+    tl = TLinear(40, 70, bconfig=tcfg)
+    with torch.no_grad():
+        tl.weight.copy_(torch.from_numpy(w.T))
+        tl.bias.copy_(torch.from_numpy(np.array(jl.bias[...])))
+    jd = jdeploy.DeployedLinear(jl, use_pallas=False)
+    jd.gemm_impl = "popcount"
+    want = np.asarray(jd(jnp.asarray(x)))
+
+    calls = []
+    monkeypatch.setattr(tdeploy, "popcount_gemm", lambda *a: calls.append(a))
+    td = tdeploy.DeployedLinear(tl, use_pallas=False)
+    assert tdeploy.set_gemm_impl(td, "popcount") == [""]
+    got = td(torch.from_numpy(x)).detach().numpy()
+    assert not calls
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
