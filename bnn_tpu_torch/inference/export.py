@@ -66,6 +66,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import SERVE_CALL, SERVE_COPY_IN, SERVE_FORWARD, span
+
 __all__ = ["batched_call", "data_parallel_call", "export_serving", "load_serving",
            "ExportedServer"]
 
@@ -271,11 +273,14 @@ class ExportedServer:
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
-        if tuple(x.shape[1:]) != self.input_shape:
-            raise ValueError(f"input shape {tuple(x.shape[1:])} != exported "
-                             f"signature {self.input_shape}")
-        return batched_call(self._one_batch, x, self.batch_size)
+        with span(SERVE_CALL):
+            with span(SERVE_COPY_IN):
+                x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+            if tuple(x.shape[1:]) != self.input_shape:
+                raise ValueError(f"input shape {tuple(x.shape[1:])} != exported "
+                                 f"signature {self.input_shape}")
+            with span(SERVE_FORWARD):
+                return batched_call(self._one_batch, x, self.batch_size)
 
     def state_bytes(self) -> int:
         """Bytes of the program's weights, buffers and constants: on a mesh,

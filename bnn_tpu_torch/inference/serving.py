@@ -63,6 +63,7 @@ from torch import nn
 
 from ..utils.checkpoint import load_checkpoint, restore_into
 from ..utils.precision import cast_floats
+from ..utils.profiling import SERVE_CALL, SERVE_COPY_IN, SERVE_FORWARD, span
 from .compress import quantize_float_layers, state_bytes
 from .deploy import DeployedConv, DeployedLinear, deploy, set_gemm_impl
 from .export import batched_call, data_parallel_call, export_serving
@@ -220,5 +221,8 @@ class Predictor:
     def __call__(self, x) -> torch.Tensor:
         """Predict on ``(N, C, H, W)`` input; N is padded up to a multiple of
         ``batch_size`` so every forward sees the same batch."""
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
-        return batched_call(self._forward, x, self.batch_size)
+        with span(SERVE_CALL):
+            with span(SERVE_COPY_IN):
+                x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+            with span(SERVE_FORWARD):
+                return batched_call(self._forward, x, self.batch_size)

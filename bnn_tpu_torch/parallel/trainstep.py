@@ -25,6 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.binarizers import RandomStream
 from ..utils.precision import cast_float_tree
+from ..utils.profiling import (TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_OPTIMIZER,
+                               TRAIN_STEP, span)
 from .mesh import mesh_of
 
 __all__ = ["cross_entropy_mean", "make_train_step", "make_eval_step"]
@@ -165,27 +167,31 @@ def make_train_step(loss_fn: Callable = cross_entropy_mean,
         if x.shape[0] % accum_steps:
             raise ValueError(f"a batch of {x.shape[0]} does not split into "
                              f"{accum_steps} equal microbatches")
-        device = _device_of(model)
-        x, y = x.to(device), y.to(device)
-        optimizer.zero_grad(set_to_none=True)
-        loss_sum = top1_sum = torch.zeros((), device=device)
-        for xs, ys in zip(x.chunk(accum_steps), y.chunk(accum_steps)):
-            loss, logits = loss_of(model, xs, ys)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-            top1_sum = top1_sum + (logits.argmax(-1) == ys).float().mean()
-        if accum_steps > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-        data = _data_group(model)
-        if data is not None:
-            _average_grads(model, data)
-        optimizer.step()
-        metrics = torch.stack([loss_sum, top1_sum]) / accum_steps
-        if data is not None:
-            metrics = _data_sum(metrics, data) / data[1]
-        return {"loss": metrics[0], "top1": metrics[1]}
+        with span(TRAIN_STEP):
+            device = _device_of(model)
+            x, y = x.to(device), y.to(device)
+            optimizer.zero_grad(set_to_none=True)
+            loss_sum = top1_sum = torch.zeros((), device=device)
+            for xs, ys in zip(x.chunk(accum_steps), y.chunk(accum_steps)):
+                with span(TRAIN_FORWARD):
+                    loss, logits = loss_of(model, xs, ys)
+                with span(TRAIN_BACKWARD):
+                    loss.backward()
+                loss_sum = loss_sum + loss.detach()
+                top1_sum = top1_sum + (logits.argmax(-1) == ys).float().mean()
+            if accum_steps > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            data = _data_group(model)
+            if data is not None:
+                _average_grads(model, data)
+            with span(TRAIN_OPTIMIZER):
+                optimizer.step()
+            metrics = torch.stack([loss_sum, top1_sum]) / accum_steps
+            if data is not None:
+                metrics = _data_sum(metrics, data) / data[1]
+            return {"loss": metrics[0], "top1": metrics[1]}
 
     return step
 

@@ -3,6 +3,19 @@
 - :func:`trace`: a block under ``torch.profiler`` (CPU and, where there is a
   card, CUDA activities), written as a Chrome / TensorBoard trace into a
   directory;
+- :func:`span`: a named range on the host's timeline, recorded only while a
+  profiler runs. A :func:`trace` shows the program's own spans
+  (:data:`SPANS`) beside the operators and kernels they hold:
+
+  - ``bnn.serve.call``: one ``Predictor`` or ``ExportedServer`` call, which
+    holds ``bnn.serve.copy_in`` (the request's cast and copy to the device)
+    then ``bnn.serve.forward`` (the padded batches through the served
+    model: the modules' Python, the kernels' wrappers and launches);
+  - ``bnn.train.step``: one ``make_train_step`` step, which holds a
+    ``bnn.train.forward`` (the loss) and a ``bnn.train.backward`` per
+    microbatch, then ``bnn.train.optimizer`` (``optimizer.step()``); the
+    gradients' zeroing and averaging and the metrics lie in the step,
+    outside the three;
 - :func:`compiled_stats`: the FLOPs of one call, counted by
   ``torch.utils.flop_counter.FlopCounterMode``, and on the card its peak
   device memory.
@@ -14,10 +27,26 @@ import os
 from typing import Any, Callable, Dict
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["trace", "compiled_stats"]
+__all__ = ["trace", "span", "SPANS", "compiled_stats"]
+
+SERVE_CALL = "bnn.serve.call"
+SERVE_COPY_IN = "bnn.serve.copy_in"
+SERVE_FORWARD = "bnn.serve.forward"
+TRAIN_STEP = "bnn.train.step"
+TRAIN_FORWARD = "bnn.train.forward"
+TRAIN_BACKWARD = "bnn.train.backward"
+TRAIN_OPTIMIZER = "bnn.train.optimizer"
+# every span the program records; none is named ``bnn_tpu_torch::...``, the
+# namespace of the port's operators, nor after a kernel
+SPANS = (SERVE_CALL, SERVE_COPY_IN, SERVE_FORWARD,
+         TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD, TRAIN_OPTIMIZER)
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -33,6 +62,18 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """``with span(SERVE_COPY_IN): ...``: with no profiler running, a shared
+    no-op context (one flag read, no ``RecordFunction``); under one, a host
+    event named ``name``. The event is a plain function-scope record, not a
+    user annotation (``torch.profiler.record_function``), which the profiler
+    would copy onto the device's timeline as a range over the kernels
+    launched inside it."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 def _devices(args, kwargs) -> set:
