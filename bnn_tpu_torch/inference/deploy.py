@@ -11,11 +11,15 @@ Execution:
 
 - ``DeployedLinear`` and ``DeployedConv`` in modes ``gemm`` / ``im2col`` run
   :func:`~bnn_tpu_torch.kernels.gemm.binary_gemm`;
-- ``DeployedConv`` in mode ``conv`` is an exact int8 x int8 -> int32 product
-  over unfolded patches (``torch._int_mm``), as the JAX package leaves the
-  int8 conv to XLA. A float conv is no substitute: Winograd or FFT
-  algorithms do not return exact integers, and an accumulator of exactly 0
-  turned into +-eps flips the next layer's ternary sign;
+- ``DeployedConv`` in mode ``conv`` is an exact int8 x int8 -> int32 conv,
+  as the JAX package leaves the int8 conv to XLA: on CUDA tensors (groups 1,
+  2-D, dilation 1, static padding) one launch of
+  :func:`~bnn_tpu_torch.kernels.conv.binary_conv2d`, an implicit GEMM; else
+  its plain version, unfolded patches through ``torch._int_mm``
+  (:func:`~bnn_tpu_torch.kernels.conv.binary_conv2d_reference`). A float conv
+  is no substitute: Winograd or FFT algorithms do not return exact integers,
+  and an accumulator of exactly 0 turned into +-eps flips the next layer's
+  ternary sign;
 - ``DeployedConv`` in mode ``pallas-conv`` (stride 1, odd square kernels,
   opt-in: ``deploy`` never chooses it) runs
   :func:`~bnn_tpu_torch.kernels.conv.binary_conv2d_s1`, which signs with
@@ -25,8 +29,8 @@ Execution:
   over bit-packed activations.
 
 A layer deployed with ``use_pallas=False`` (the JAX package's switch) calls
-the plain versions, ``binary_gemm_reference`` and
-``popcount_gemm_reference``, in place of those two kernels, on whatever
+the plain versions, ``binary_gemm_reference``, ``binary_conv2d_reference``
+and ``popcount_gemm_reference``, in place of those kernels, on whatever
 device its tensors are on; mode ``pallas-conv`` is an explicit request for
 its kernel and ignores the switch, as in the JAX package.
 
@@ -40,12 +44,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import layers as blayers
 from ..binarize import set_module_by_name
-from ..kernels.conv import binary_conv2d_s1
+from ..kernels.conv import (_per_channel, binary_conv2d, binary_conv2d_reference,
+                            binary_conv2d_s1, patches)
+from ..kernels.conv import sign_values as _sign
 from ..kernels.conv import supports as _pallas_conv_supports
 from ..kernels.gemm import (binary_gemm, binary_gemm_reference, popcount_gemm,
                             popcount_gemm_reference)
@@ -58,12 +63,13 @@ from ..ops.binarizers import (
     XNORScaleBinarizer,
     XNORWeightBinarizer,
 )
-from ..utils.padding import pad_same, static_same_pads
+from ..utils.padding import static_same_pads
 
 __all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl",
            "packed_weight_bytes", "model_weight_bytes"]
 
 _MODES = ("auto", "gemm", "im2col", "conv", "pallas-conv")
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _WEIGHT_FORMATS = ("packed", "int8")
 
 
@@ -106,41 +112,6 @@ def _spatial_post(post):
 def _zero_to_one(layer) -> bool:
     """The QAT input binarizer's sign(0) convention (False = torch parity)."""
     return bool(getattr(layer.activation_pre_process, "zero_to_one", False))
-
-
-def _sign(x: torch.Tensor, thr, zero_to_one: bool, dtype) -> torch.Tensor:
-    """``sign(x - thr)`` with the layer's sign(0) convention, as ``dtype``:
-    {-1, +1} with ``zero_to_one``, else ternary {-1, 0, +1}."""
-    if zero_to_one:
-        return torch.where(x >= thr, 1, -1).to(dtype)
-    return (x > thr).to(dtype) - (x < thr).to(dtype)
-
-
-def _per_channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
-    """A ``(C,)`` vector shaped to broadcast over an ``(N, C, ...)`` tensor."""
-    return v.reshape((1, -1) + (1,) * (ndim - 2))
-
-
-def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact ``a @ w.T`` for int8 ``a`` (M, K) and ``w`` (N, K), int32 out.
-    Zero rows and columns pad the operands to what ``torch._int_mm`` takes
-    on CUDA (M > 16, K and N multiples of 8); zeros add nothing."""
-    m, k = a.shape
-    n = w.shape[0]
-    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
-    if (mp, kp) != (m, k):
-        a = F.pad(a, (0, kp - k, 0, mp - m))
-    if (np_, kp) != (n, k):
-        w = F.pad(w, (0, kp - k, 0, np_ - n))
-    return torch._int_mm(a.contiguous(), w.contiguous().t())[:m, :n]
-
-
-def _as_2d(x: torch.Tensor, kernel_size, stride, padding, dilation):
-    """View a 1-D conv as a 2-D one with unit height."""
-    if len(kernel_size) == 2:
-        return x, kernel_size, stride, padding, dilation
-    return (x.unsqueeze(2), (1,) + tuple(kernel_size), (1,) + tuple(stride),
-            (0,) + tuple(padding), (1,) + tuple(dilation))
 
 
 def _tp_gather(layer, y: torch.Tensor, dim: int) -> torch.Tensor:
@@ -223,9 +194,12 @@ class DeployedConv(nn.Module):
     """Bit-packed / int8 convolution.
 
     Modes: ``gemm`` (pointwise convs with K >= 256, chosen by ``auto``) and
-    ``im2col`` run patches through :func:`binary_gemm`; ``conv`` runs the
-    exact int8 patch product; ``pallas-conv`` (stride-1 odd square kernels)
-    runs :func:`binary_conv2d_s1`. Storage, in torch's layout:
+    ``im2col`` run patches through :func:`binary_gemm` (a pointwise conv's
+    rows are a view of its channels-last input); ``conv`` runs the exact
+    int8 conv, :func:`binary_conv2d` on CUDA tensors where its geometry
+    allows (groups 1, 2-D, dilation 1, static padding), else its plain
+    version; ``pallas-conv`` (stride-1 odd square kernels) runs
+    :func:`binary_conv2d_s1`. Storage, in torch's layout:
 
     - ``conv`` / ``pallas-conv`` + ``int8``: +/-1 int8 weights, ``(O, I, *k)``;
     - ``conv`` / ``pallas-conv`` + ``packed``: words packed over the
@@ -233,8 +207,9 @@ class DeployedConv(nn.Module):
     - ``gemm`` / ``im2col``: ``(ceil(K/32), O)`` words, K in the
       channel-major ``(I, *k)`` order of ``F.unfold``.
 
-    ``use_pallas=False`` runs the plain versions of :func:`binary_gemm` and
-    :func:`popcount_gemm`; ``pallas-conv`` ignores it.
+    ``use_pallas=False`` runs the plain versions of :func:`binary_gemm`,
+    :func:`binary_conv2d` and :func:`popcount_gemm`; ``pallas-conv`` ignores
+    it.
     """
 
     def __init__(self, layer, *, use_pallas: bool = True, mode: str = "auto",
@@ -307,6 +282,10 @@ class DeployedConv(nn.Module):
         self.zero_to_one = _zero_to_one(layer)
         # 'mxu' | 'popcount' (pointwise convs only; set_gemm_impl)
         self.gemm_impl = "mxu"
+        # what binary_conv2d computes; mode conv takes it on CUDA tensors
+        self._kernel_geometry = (self.groups == 1 and len(self.kernel_size) == 2
+                                 and self.dilation == (1, 1)
+                                 and self.padding != "same")
 
     def _is_pointwise(self) -> bool:
         return (all(k == 1 for k in self.kernel_size)
@@ -321,20 +300,14 @@ class DeployedConv(nn.Module):
 
     def _patches(self, xs: torch.Tensor):
         """``(N * L, K)`` patches of the signed ``xs`` in channel-major K
-        order, plus the output spatial shape. A per-call ``'same'`` pads the
-        signed values here, so that padded taps add 0, not sign(0)."""
-        padding = self.padding
-        if padding == "same":
-            xs = pad_same(xs, self.kernel_size, self.stride, self.dilation)
-            padding = (0,) * len(self.kernel_size)
-        x4, ks, st, pd, dl = _as_2d(xs, self.kernel_size, self.stride,
-                                    padding, self.dilation)
-        n, _, h, w = x4.shape
-        oh = (h + 2 * pd[0] - dl[0] * (ks[0] - 1) - 1) // st[0] + 1
-        ow = (w + 2 * pd[1] - dl[1] * (ks[1] - 1) - 1) // st[1] + 1
-        cols = F.unfold(x4, ks, dilation=dl, padding=pd, stride=st)
-        out_sp = (oh, ow) if len(self.kernel_size) == 2 else (ow,)
-        return cols.transpose(1, 2).reshape(n * oh * ow, -1), out_sp
+        order, plus the output spatial shape: a pointwise layer's rows are a
+        view of its channels-last input, any other's come from ``F.unfold``
+        (:func:`~bnn_tpu_torch.kernels.conv.patches`)."""
+        if self._is_pointwise():
+            rows = xs.movedim(1, -1)
+            return rows.reshape(-1, rows.shape[-1]), tuple(xs.shape[2:])
+        return patches(xs, self.kernel_size, self.stride, self.padding,
+                       self.dilation)
 
     def _to_nc(self, y2d: torch.Tensor, n: int, out_sp) -> torch.Tensor:
         y = y2d.reshape((n,) + tuple(out_sp) + (-1,))
@@ -361,21 +334,21 @@ class DeployedConv(nn.Module):
                            dtype=torch.int8)[:, : self.k]
 
     def _call_conv(self, x: torch.Tensor) -> torch.Tensor:
-        # signed before patch extraction so the conv's zero padding adds 0;
-        # bf16 holds {-1, 0, +1} exactly and F.unfold takes no int8
-        patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
-        a = patches.to(torch.int8)
-        w = self._int8_weight().reshape(self.w_packed.shape[0], -1)
-        g = self.groups
-        kg, og = a.shape[1] // g, w.shape[0] // g
-        acc = torch.cat([_int_mm(a[:, i * kg:(i + 1) * kg],
-                                 w[i * og:(i + 1) * og]) for i in range(g)],
-                        dim=1) if g > 1 else _int_mm(a, w)
-        acc = self._to_nc(acc, x.shape[0], out_sp)
         # epilogue in the scale's dtype (f32, or bf16 after cast_floats)
         scale, add = _local_channels(self, self.scale), _local_channels(self, self.add)
-        return (acc.to(self.scale.dtype) * _per_channel(scale, x.ndim)
-                + _per_channel(add, x.ndim))
+        if (self.use_pallas and x.is_cuda and self._kernel_geometry
+                and x.dtype in _KERNEL_DTYPES and scale.dtype in _KERNEL_DTYPES
+                and add.dtype == scale.dtype):
+            # one launch on the NHWC view: channels-last input (every deployed
+            # conv's output) needs no copy
+            y = binary_conv2d(x.permute(0, 2, 3, 1).contiguous(), self.w_packed,
+                              scale, add, stride=self.stride, padding=self.padding,
+                              threshold=self.threshold, zero_to_one=self.zero_to_one)
+            return y.permute(0, 3, 1, 2)
+        return binary_conv2d_reference(
+            x, self._int8_weight(), scale, add, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, groups=self.groups,
+            threshold=self.threshold, zero_to_one=self.zero_to_one)
 
     def _call_pallas_conv(self, x: torch.Tensor) -> torch.Tensor:
         # the kernel signs x - threshold with sign(0) = +1 and returns f32,
@@ -398,8 +371,8 @@ class DeployedConv(nn.Module):
         return y.reshape(xt.shape[:-1] + (-1,)).movedim(-1, 1)
 
     def _call_im2col(self, x: torch.Tensor) -> torch.Tensor:
-        patches, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
-        y = _binary_gemm(self, patches, False)
+        rows, out_sp = self._patches(self._sign_in(x, torch.bfloat16))
+        y = _binary_gemm(self, rows, False)
         return self._to_nc(y.to(self.scale.dtype), x.shape[0], out_sp)
 
 

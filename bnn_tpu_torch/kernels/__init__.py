@@ -1,7 +1,8 @@
 from .block import fused_basic_block, fused_basic_block_reference
 from .bottleneck import (BottleneckDesc, fused_bottleneck,
                          fused_bottleneck_reference)
-from .conv import binary_conv2d_s1, binary_conv2d_s1_reference
+from .conv import (binary_conv2d, binary_conv2d_reference, binary_conv2d_s1,
+                   binary_conv2d_s1_reference)
 from .gemm import (binary_gemm, binary_gemm_reference, popcount_gemm,
                    popcount_gemm_reference)
 from .model import (BlockParams, fused_chain, fused_chain_reference,
@@ -25,4 +26,5 @@ __all__ = ["binary_gemm", "binary_gemm_reference", "pack_bits",
            "fused_bottleneck", "fused_bottleneck_reference",
            "fused_stem_chain", "fused_stem_chain_reference",
            "binary_conv2d_s1", "binary_conv2d_s1_reference",
+           "binary_conv2d", "binary_conv2d_reference",
            "popcount_gemm", "popcount_gemm_reference"]

@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
            "fused_downsample_block", "fused_bottleneck", "fused_stem_chain",
-           "binary_conv2d_s1", "popcount_gemm")
+           "binary_conv2d_s1", "popcount_gemm", "binary_conv2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

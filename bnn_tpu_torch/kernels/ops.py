@@ -1,4 +1,4 @@
-"""The port's nine kernels as operators of the ``bnn_tpu_torch`` namespace,
+"""The port's ten kernels as operators of the ``bnn_tpu_torch`` namespace,
 so that ``torch.export`` traces a served model with each kernel as one node
 (``inference/export.py``) and a loaded program launches the same kernels.
 
@@ -32,7 +32,8 @@ import torch
 from .block import fused_basic_block_cuda, fused_basic_block_reference
 from .bottleneck import (ROWS as BOTTLENECK_ROWS, fused_bottleneck_cuda,
                          fused_bottleneck_reference)
-from .conv import binary_conv2d_s1_planned, binary_conv2d_s1_reference
+from .conv import (binary_conv2d_cpu, binary_conv2d_fake, binary_conv2d_planned,
+                   binary_conv2d_s1_planned, binary_conv2d_s1_reference)
 from .gemm import (binary_gemm_planned, binary_gemm_reference,
                    popcount_gemm_planned, popcount_gemm_reference)
 from .model import (KINDS, fused_chain_cuda, fused_chain_reference,
@@ -55,6 +56,9 @@ SCHEMAS = {
                      "Tensor? scale, Tensor? add) -> Tensor",
     "binary_conv2d_s1": "binary_conv2d_s1(Tensor x, Tensor w, Tensor? scale, "
                         "Tensor? add) -> Tensor",
+    "binary_conv2d": "binary_conv2d(Tensor x, Tensor w, Tensor? threshold, "
+                     "Tensor scale, Tensor add, int[] stride, int[] padding, "
+                     "bool zero_to_one) -> Tensor",
     "fused_stem": "fused_stem(Tensor x, Tensor w, Tensor? bias, "
                   "ScalarType? out_dtype=None) -> Tensor",
     "fused_chain": "fused_chain(Tensor x, Tensor[] arrays, int[] kinds, "
@@ -195,6 +199,7 @@ OPS = {
     "popcount_gemm": (popcount_gemm_planned, popcount_gemm_reference, _gemm_fake),
     "binary_conv2d_s1": (binary_conv2d_s1_planned, binary_conv2d_s1_reference,
                          _conv_fake),
+    "binary_conv2d": (binary_conv2d_planned, binary_conv2d_cpu, binary_conv2d_fake),
     "fused_stem": (fused_stem_cuda, _fused_stem_cpu, _stem_fake),
     "fused_chain": (fused_chain_cuda, _fused_chain_cpu, _fused_chain_fake),
     "fused_stem_chain": (fused_stem_chain_cuda, _fused_stem_chain_cpu,

@@ -3,10 +3,10 @@
 ``--popcount``, ``popcount_gemm``, with ``--chain``, ``fused_chain``, with
 ``--bottleneck``, ``fused_bottleneck``, with ``--stem``, ``fused_stem``
 and ``fused_stem_chain``, or with ``--blocks``, ``fused_basic_block`` and
-``fused_downsample_block``) at the serving paths' shapes, for the checkout
-it is run from.
+``fused_downsample_block``, or with ``--conv2d``, ``binary_conv2d``) at the
+serving paths' shapes, for the checkout it is run from.
 
-    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck | --stem | --blocks]
+    cd <checkout> && python3 <path to>/gemm_shapes.py [--label NAME] [--conv | --popcount | --chain | --bottleneck | --stem | --blocks | --conv2d]
 
 ``bnn_tpu_torch`` is imported from the current directory, so one copy of
 this script times any checkout whose kernels have the public signatures:
@@ -70,7 +70,17 @@ bf16 input, ReLU, torch-parity signs, through the public calls; each result
 held against its plain version (within one bf16 ulp); each kernel's own
 device time beside its bound (:func:`block_bound`), and each kernel's
 launch plan (blocks, resident an SM, tiles, K slices) where the checkout
-has ``fused_basic_block_plan`` / ``fused_downsample_block_plan``.
+has ``fused_basic_block_plan`` / ``fused_downsample_block_plan``. With
+``--conv2d``, each distinct mode-conv layer of ResNet-18's and ResNet-50's
+batch-64 forwards (:data:`CONV2D`): random bf16 x with 10% exact zeros,
++/-1 weights packed over the in-channels, bf16 epilogue rows, ternary signs,
+through the public ``binary_conv2d``; the result held bit for bit against
+``binary_conv2d_reference``; the kernel's own device time, the whole call's,
+the plain version's (sign, ``F.unfold``, int8 cast, ``torch._int_mm``,
+epilogue: the deployed conv's path before the kernel) and the bound
+(``portbench.roofline.call_bound_s``), with the plan and each tile's time
+between CUDA events;
+a checkout without the kernel times the plain version alone.
 ``chip_smoke`` is imported from the checkout too, so
 a parent's run uses the parent's helpers. Prints the card line, one JSON
 line per shape (per call with ``--chain``), then one per path with the sums
@@ -119,6 +129,20 @@ R18_STAGES = [((56, 64), ("basic",) * 2, 64, False),
 BOTTLENECKS = [((56, 56, 64), 64, 256, 1), ((56, 56, 256), 64, 256, 2),
                ((28, 28, 512), 128, 512, 3), ((14, 14, 1024), 256, 1024, 5),
                ((7, 7, 2048), 512, 2048, 2)]
+# (C, O, k, stride, input side, calls per forward) of each distinct mode-conv
+# layer of the flagships' batch-64 forwards
+CONV2D = {
+    "ResNet-18 batch 64": [(64, 64, 3, 1, 56, 4), (64, 128, 3, 2, 56, 1),
+                           (128, 128, 3, 1, 28, 3), (64, 128, 1, 1, 28, 1),
+                           (128, 256, 3, 2, 28, 1), (256, 256, 3, 1, 14, 3),
+                           (128, 256, 1, 1, 14, 1), (256, 512, 3, 2, 14, 1),
+                           (512, 512, 3, 1, 7, 3)],
+    "ResNet-50 batch 64": [(64, 64, 1, 1, 56, 1), (64, 64, 3, 1, 56, 3),
+                           (64, 256, 1, 1, 56, 4), (128, 128, 3, 2, 56, 1),
+                           (128, 128, 3, 1, 28, 3), (128, 512, 1, 1, 28, 4),
+                           (256, 256, 3, 2, 28, 1), (256, 256, 3, 1, 14, 5),
+                           (512, 512, 3, 2, 14, 1), (512, 512, 3, 1, 7, 2)],
+}
 # fused_stem's x shapes: the serving batches at 224x224, then the geometries
 # of the v2 and v1 entry points
 STEMS = [(8, 224, 224, 3), (4, 224, 224, 3), (1, 224, 224, 3), (1, 224, 220, 3),
@@ -159,6 +183,19 @@ def device_us(fn, name: str = "", iters: int = 20, per_call: int = 0) -> float:
     raise RuntimeError("torch.profiler recorded no device time")
 
 
+def event_us(fn, iters: int = 20) -> float:
+    """Device us per call of ``fn`` between two CUDA events, warm."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(end) / iters
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
@@ -176,6 +213,9 @@ def main() -> int:
     which.add_argument("--blocks", action="store_true",
                        help="time fused_basic_block and fused_downsample_block "
                             "at ResNet-34 layer4's calls instead")
+    which.add_argument("--conv2d", action="store_true",
+                       help="time binary_conv2d at the flagships' batch-64 "
+                            "mode-conv layers instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gemm_shapes: no CUDA device", file=sys.stderr)
@@ -202,6 +242,8 @@ def main() -> int:
         return time_stems(args.label, kernels, gen, dev)
     if args.blocks:
         return time_blocks(args.label, kernels, gen, dev)
+    if args.conv2d:
+        return time_conv2d(args.label, kernels, gen, dev)
     for path, shapes in PATHS.items():
         tot = {"kernel_us": 0.0, "int_mm_us": 0.0}
         for m, k, n, calls in shapes:
@@ -510,5 +552,61 @@ def time_blocks(label, kernels, gen, dev) -> int:
     return 0
 
 
+
+def time_conv2d(label, kernels, gen, dev) -> int:
+    """binary_conv2d at the flagships' batch-64 mode-conv layers, beside its
+    plain version (the unfold + torch._int_mm chain) and its bound."""
+    from bnn_tpu_torch.kernels import conv
+    from portbench.roofline import call_bound_s
+
+    batch = 64
+    kernel = getattr(conv, "binary_conv2d", None)
+    for path, layers in CONV2D.items():
+        tot = {"kernel_us": 0.0, "call_us": 0.0, "plain_us": 0.0, "bound_us": 0.0}
+        for c, o, k, stride, side, calls in layers:
+            x = torch.randn((batch, side, side, c), generator=gen)
+            x[torch.rand(x.shape, generator=gen) < 0.1] = 0.0
+            x = x.to(dev, torch.bfloat16)
+            w8 = torch.where(torch.randn((o, c, k, k), generator=gen) >= 0, 1, -1).to(
+                dev, torch.int8)
+            wp = kernels.pack_bits(w8.float(), axis=1)
+            scale = (torch.rand(o, generator=gen) + 0.5).to(dev, torch.bfloat16)
+            add = torch.randn(o, generator=gen).to(dev, torch.bfloat16)
+            st, pad = (stride, stride), (k // 2, k // 2)
+            xn = x.permute(0, 3, 1, 2)
+            plain = lambda: conv.binary_conv2d_reference(xn, w8, scale, add, stride=st,
+                                                         padding=pad)
+            out = (side + 2 * pad[0] - k) // stride + 1
+            layer = {"kind": "binary", "cin": c, "cout": o, "k": k,
+                     "macs": out * out * o * c * k * k}
+            row = {"label": label, "path": path, "c": c, "o": o, "k": k,
+                   "stride": stride, "side": side, "calls": calls,
+                   "bound_us": 1e6 * call_bound_s([layer], batch, c * side * side,
+                                                  o * out * out, "bfloat16"),
+                   "plain_us": device_us(plain)}
+            if kernel is not None:
+                run = lambda: kernel(x, wp, scale, add, stride=st, padding=pad)
+                exact = bool(torch.equal(run(), plain().permute(0, 2, 3, 1)))
+                row.update(plan=conv.conv2d_plan(batch * out * out, o, c, k * k, 2, x.data_ptr()),
+                           exact=exact,
+                           kernel_us=device_us(run, "binary_conv2d_kernel", per_call=1),
+                           call_us=device_us(run),
+                           tiles={f"{t[0]}x{t[1]}": event_us(
+                               lambda t=t: conv.binary_conv2d_planned(
+                                   x, wp, None, scale, add, st, pad, False,
+                                   plan=(t, "vector")))
+                               for t in conv.CONV2D_TILES if t[1] <= max(o, 64)})
+                if not exact:
+                    raise AssertionError(f"binary_conv2d {row} differs from its plain "
+                                         "version")
+            print(json.dumps(row))
+            for key in tot:
+                tot[key] += calls * row.get(key, 0.0)
+        print(json.dumps({"label": label, "path": path,
+                          "calls": sum(r[-1] for r in layers), **tot}))
+    return 0
+
+
 if __name__ == "__main__":
     sys.exit(main())
+

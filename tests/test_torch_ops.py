@@ -1,5 +1,5 @@
 """The port's kernels as operators (bnn_tpu_torch/kernels/ops.py), on the
-CPU: each of the nine passes torch.library.opcheck (schema, fake
+CPU: each of the ten passes torch.library.opcheck (schema, fake
 implementation against the real one, tracing) at small shapes, and its CPU
 implementation is its wrapper's plain version bit for bit; importing the
 operators builds nothing; the arguments the CUDA implementations keep per
@@ -50,7 +50,9 @@ def _block(rng, kind, ci, co):
 
 def _case(name):
     """``(operator arguments, the wrapper's plain version on them)``."""
-    rng = np.random.RandomState(sorted(ops.OPS).index(name))
+    # the nine operators before binary_conv2d keep their seeds
+    older = sorted(n for n in ops.OPS if n != "binary_conv2d")
+    rng = np.random.RandomState(older.index(name) if name in older else len(older))
     if name in ("binary_gemm", "popcount_gemm"):
         x, w = _f(rng, 5, 70), kernels.pack_bits(_f(rng, 70, 12), axis=-2)
         scale, add = _f(rng, 12, loc=1.0), _f(rng, 12)
@@ -65,6 +67,15 @@ def _case(name):
         scale, add = _f(rng, 4, loc=1.0), _f(rng, 4)
         return ((x, w, scale, add),
                 lambda: kernels.binary_conv2d_s1_reference(x, w, scale, add))
+    if name == "binary_conv2d":
+        x, w = _f(rng, 2, 9, 7, 10), kernels.pack_bits(_f(rng, 12, 10, 3, 3), axis=1)
+        t, scale, add = _f(rng, 10, scale=0.1), _f(rng, 12, loc=1.0), _f(rng, 12)
+        return ((x, w, t, scale, add, [2, 1], [1, 1], False),
+                lambda: kernels.binary_conv2d_reference(
+                    x.permute(0, 3, 1, 2), kernels.unpack_bits(w, 10, axis=1,
+                                                               dtype=torch.int8)[:, :10],
+                    scale, add, stride=(2, 1), padding=(1, 1),
+                    threshold=t).permute(0, 2, 3, 1))
     if name == "fused_stem":
         x, w, b = _f(rng, 1, 16, 12, 3), _f(rng, 7, 7, 3, 16, scale=0.1), _f(rng, 16)
         return (x, w, b), lambda: kernels.fused_stem_reference(x, w, b)
@@ -122,6 +133,7 @@ NAMES = sorted(ops.OPS)
 
 def test_nine_operators_in_one_namespace():
     assert NAMES == sorted(["binary_gemm", "popcount_gemm", "binary_conv2d_s1",
+                            "binary_conv2d",
                             "fused_stem", "fused_chain", "fused_stem_chain",
                             "fused_basic_block", "fused_downsample_block",
                             "fused_bottleneck"])
@@ -155,7 +167,7 @@ def test_cpu_implementation_is_the_plain_version(name):
 
 
 def test_importing_the_operators_builds_nothing(tmp_path):
-    """Importing the package registers the nine operators, compiles nothing
+    """Importing the package registers the ten operators, compiles nothing
     and leaves triton out, on a host with no nvcc."""
     code = ("import sys, torch, bnn_tpu_torch\n"
             "from bnn_tpu_torch.kernels import _build, ops\n"
@@ -166,7 +178,7 @@ def test_importing_the_operators_builds_nothing(tmp_path):
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
-    assert run.stdout.split() == ["9"]
+    assert run.stdout.split() == ["10"]
 
 
 def test_kept_arguments_go_with_their_weights():
