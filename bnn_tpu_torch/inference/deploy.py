@@ -69,7 +69,6 @@ __all__ = ["deploy", "DeployedLinear", "DeployedConv", "set_gemm_impl",
            "packed_weight_bytes", "model_weight_bytes"]
 
 _MODES = ("auto", "gemm", "im2col", "conv", "pallas-conv")
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _WEIGHT_FORMATS = ("packed", "int8")
 
 
@@ -336,9 +335,7 @@ class DeployedConv(nn.Module):
     def _call_conv(self, x: torch.Tensor) -> torch.Tensor:
         # epilogue in the scale's dtype (f32, or bf16 after cast_floats)
         scale, add = _local_channels(self, self.scale), _local_channels(self, self.add)
-        if (self.use_pallas and x.is_cuda and self._kernel_geometry
-                and x.dtype in _KERNEL_DTYPES and scale.dtype in _KERNEL_DTYPES
-                and add.dtype == scale.dtype):
+        if self.use_pallas and x.is_cuda and self._kernel_geometry:
             # one launch on the NHWC view: channels-last input (every deployed
             # conv's output) needs no copy
             y = binary_conv2d(x.permute(0, 2, 3, 1).contiguous(), self.w_packed,

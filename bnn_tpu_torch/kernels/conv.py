@@ -152,14 +152,7 @@ def conv_weight_operand(w_int8: torch.Tensor) -> torch.Tensor:
     channel's ``(k, k, C)`` weights K-contiguous in (dy, dx, c) order, every
     tap's channels zero-padded to ``Cp``, a multiple of :data:`CONV_KC`. One
     copy of ``w_int8``, which may be any strided view of ``(k, k, C, O)``."""
-    k, _, c, o = w_int8.shape
-    cp = -(-c // CONV_KC) * CONV_KC
-    wt = w_int8.permute(3, 0, 1, 2)  # (O, k, k, C), a view
-    if cp != c:
-        wt = F.pad(wt, (0, cp - c))
-    # row-major (O, K); reshape alone can return a strided view
-    op = wt.reshape(o, k * k * cp).contiguous()
-    return op if op.data_ptr() % 16 == 0 else op.clone()
+    return conv2d_weight_operand(w_int8.permute(3, 2, 0, 1), w_int8.shape[2])
 
 
 @functools.lru_cache(maxsize=None)
@@ -387,6 +380,7 @@ def conv2d_weight_operand(w: torch.Tensor, c: int) -> torch.Tensor:
     wt = w.permute(0, 2, 3, 1)  # (O, kh, kw, C), a view
     if cp != c:
         wt = F.pad(wt, (0, cp - c))
+    # row-major (O, K); reshape alone can return a strided view
     op = wt.reshape(o, kh * kw * cp).contiguous()
     return op if op.data_ptr() % 16 == 0 else op.clone()
 

@@ -18,11 +18,11 @@ Phases, each reported on its own lines:
 1. device and build: the card's name and power limit, then every CUDA
    kernel built from ``bnn_tpu_torch/csrc`` (one ``nvcc`` each, in parallel),
    and the tensor-core, dot-product and popcount instructions (and all
-   instructions) in the SASS of the three GEMM-shaped kernels, the five
+   instructions) in the SASS of the four GEMM-shaped kernels, the five
    block kernels and the stem
    (``fused_chain``, ``fused_bottleneck``, ``fused_basic_block``,
-   ``fused_downsample_block`` and ``fused_stem_chain`` must show int8
-   tensor-core and no ``__dp4a`` instructions, ``fused_stem`` and
+   ``fused_downsample_block``, ``fused_stem_chain`` and ``binary_conv2d``
+   must show int8 tensor-core and no ``__dp4a`` instructions, ``fused_stem`` and
    ``fused_stem_chain`` bf16 tensor-core instructions);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at the other geometries and options its entry
@@ -48,17 +48,25 @@ Phases, each reported on its own lines:
    ``popcount_gemm`` bit for bit through its host plan and at each of its
    tile, loader and K-split instances, at path C's shapes (batch 8 and 1)
    and at edges (K = 1, K = 33 and 100, KW odd, N off 4, x off 8 and 16
-   bytes); each kernel refuses a plan its operands cannot take;
+   bytes); ``binary_conv2d`` bit for bit against
+   ``binary_conv2d_reference`` through its host plan and at each of its tile
+   and loader instances, at each distinct mode-conv layer of ResNet-18 and
+   ResNet-50 at batch 8 (bf16, ternary signs against a threshold) and at
+   edges (f32 and ``zero_to_one``, int8 and packed weights, N = 1 and 3,
+   odd H and W, C and O off every multiple, k = 1 at stride 2, k = 5, x off
+   16 bytes); each kernel refuses a plan its operands cannot take;
 3. the serving paths, with every kernel's launch count set to 0 just
    before each and read just after: the flagship binary ResNet-18 (1000
    classes, weights and BN statistics random from a seed) through
    ``Predictor(batch_size=8)`` in bf16 at 224x224 for requests of 8, 3 and 13
-   images (4 forwards; the stages fall back to the deployed convs), through ``Predictor(batch_size=1)`` and
+   images (4 forwards; the stages fall back to the deployed convs, 18 on
+   ``binary_conv2d``), through ``Predictor(batch_size=1)`` and
    ``batch_size=4`` (stem and stage kernels), ResNet-34 through
    ``Predictor(batch_size=1)`` (stage kernels for layers 1-3, block kernels
    for layer4), and ResNet-50 through ``Predictor(batch_size=1)``, ``4``
-   (stem, 13 ``fused_bottleneck``, the strided blocks on deployed convs) and
-   ``8`` (deployed convs); then the same weights in f32 on the card against
+   (stem, 13 ``fused_bottleneck``, the strided blocks on deployed convs:
+   8 ``binary_gemm`` and 4 ``binary_conv2d``) and ``8`` (deployed convs: 27
+   and 25); then the same weights in f32 on the card against
    the plain versions on the CPU; then the three opt-in paths: (A) the
    ResNet-18 predictors of batch 1 and 4 after ``fuse_entry`` (the stem and
    layer1 as one ``fused_stem_chain``), (B) a Z1-PReLU ResNet-18 (zero_to_one
@@ -69,7 +77,9 @@ Phases, each reported on its own lines:
 4. every residual-block kernel call of the batch 1 and 4 serving paths
    (ResNet-18, ResNet-34 and ResNet-50), and every call of the three
    opt-in paths' kernels, captured with its own inputs and held against its
-   plain version as in phase 2, with ``fused_bottleneck``'s launch plan
+   plain version as in phase 2, every ``binary_conv2d`` call of ResNet-18 at
+   batch 8, ResNet-50 at batch 1, 4 and 8 and paths B and C through its host
+   plan and every instance, with ``fused_bottleneck``'s launch plan
    (tiles and K slices of each GEMM) at ResNet-50's 13 batch-4 calls and
    ``fused_basic_block``'s, ``fused_downsample_block``'s and
    ``fused_stem_chain``'s grids; then
@@ -83,7 +93,10 @@ Phases, each reported on its own lines:
    ResNet-18's batch 8 call, with the host's tile; for ``binary_conv2d_s1``,
    one per distinct shape of path B's calls, the host's plan beside the
    other tiles and splits; for ``popcount_gemm``, the same per distinct
-   shape of path C's calls at batch 8 and at batch 1); the forward latency,
+   shape of path C's calls at batch 8 and at batch 1; for ``binary_conv2d``,
+   one per distinct shape of ResNet-18's and ResNet-50's batch-8 calls, the
+   host's plan beside the plain version, the unfold + ``torch._int_mm``
+   chain); the forward latency,
    images/s, device busy share and the kernels that take the time, of each
    path; ``fused_chain``'s four ResNet-18 stages and ``fused_bottleneck``'s
    13 ResNet-50 calls summed at batch 1 and 4, beside their bounds;
@@ -129,7 +142,7 @@ Phases, each reported on its own lines:
    torch.profiler; (e) ``python -m bnn_tpu_torch.examples.serve --ckpt``
    with ``--requests 4``, and with ``--continuous``, each exiting 0;
 7. the frozen serving bundle: (a) ``torch.library.opcheck`` of each of the
-   nine kernel operators on CUDA tensors at one phase-2 case; (b) each
+   ten kernel operators on CUDA tensors at one phase-2 case; (b) each
    serving path above (ResNet-18 at batch 1 and 8, ResNet-34 and ResNet-50
    at batch 1, paths A, B and C, the int8 head at batch 1 and 8) exported
    with ``export_serving``, the live predictor bit-identical before and
@@ -237,7 +250,7 @@ Phases, each reported on its own lines:
 12. the plain serving paths beside the kernels: the flagship ResNet-18 at
    batch 1 and 8, ResNet-50 at batch 8 and path C at batch 8, each through
    the default ``Predictor`` and ``Predictor(use_pallas=False)`` of the same
-   weights in one process: the nine kernels' launches (phase 3's under the
+   weights in one process: the ten kernels' launches (phase 3's under the
    default, none under ``use_pallas=False``), the two f32 builds' logits
    within 1e-3 of each other with argmax equal, and in bf16 each one's
    forward latency (host clock, in turns) and device busy;
@@ -270,7 +283,7 @@ import time
 
 import torch
 
-from gemm_shapes import R18_STAGES, block_bound
+from gemm_shapes import CONV2D, R18_STAGES, block_bound
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {            # dense tensor-core peaks, NVIDIA data sheet
@@ -850,7 +863,16 @@ def flagship(gen: torch.Generator, depth: int = 18, z1_prelu: bool = False,
 
 KERNELS = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
            "fused_downsample_block", "fused_bottleneck", "fused_stem_chain",
-           "binary_conv2d_s1", "popcount_gemm")
+           "binary_conv2d_s1", "popcount_gemm", "binary_conv2d")
+# launches per forward of the serving paths that more than one phase counts:
+# ResNet-18 at batch 8 (its stages' cap is 4: the deployed convs, 18 on
+# binary_conv2d), ResNet-50 at batch <= 4 and 8, path B (its five strided
+# and pointwise convs in mode conv) and path C (its 16 3x3 convs)
+R18_8 = {"fused_stem": 1, "binary_gemm": 1, "binary_conv2d": 18}
+R50_SMALL = {"fused_stem": 1, "fused_bottleneck": 13, "binary_gemm": 8, "binary_conv2d": 4}
+R50_8 = {"fused_stem": 1, "binary_gemm": 27, "binary_conv2d": 25}
+PATH_B = {"binary_conv2d_s1": 13, "binary_gemm": 1, "binary_conv2d": 5}
+PATH_C = {"popcount_gemm": 36, "binary_conv2d": 16}
 
 
 def serve_counted(kernels, pred, requests, name: str, want_per_forward: dict,
@@ -1075,6 +1097,96 @@ def check_convs(kernels, gen, dev) -> float:
             raise AssertionError(f"binary_conv2d_s1 launched {plan} for f32 x of "
                                  f"{c} channels")
     return err
+
+
+# binary_conv2d's phase-2 edges beyond the flagships' layers (gemm_shapes'
+# CONV2D at batch 8): (C, O, k, stride, H, W, batch, x dtype and epilogue
+# dtype, zero_to_one, threshold, weight format, x off 16 bytes)
+CONV2D_EDGES = [
+    (64, 64, 3, 1, 56, 56, 8, torch.float32, True, False, "int8", False),
+    (20, 70, 3, 1, 13, 11, 1, torch.bfloat16, False, True, "packed", False),
+    (40, 33, 3, 2, 9, 14, 3, torch.float32, False, True, "int8", False),
+    (132, 100, 1, 2, 15, 15, 2, torch.bfloat16, True, True, "packed", False),
+    (64, 128, 5, 1, 10, 10, 2, torch.bfloat16, False, False, "int8", False),
+    (256, 256, 3, 1, 14, 14, 2, torch.bfloat16, False, True, "packed", True),
+    (64, 96, 3, 2, 28, 28, 2, torch.float32, True, True, "int8", True),
+]
+
+
+def conv2d_instances(conv, x):
+    """Every (tile, loader) that ``conv.binary_conv2d_planned`` takes for x."""
+    vector = conv._vector_ok(x.shape[-1], x.element_size(), x.data_ptr())
+    return [(tile, loader) for tile in conv.CONV2D_TILES
+            for loader in (("vector", "scalar") if vector else ("scalar",))]
+
+
+def hold_conv2d(kernels, label, args, kw, phase: int) -> int:
+    """One binary_conv2d call (the wrapper's ``args`` and ``kw``) through
+    the host plan and through every instance that takes its x, each
+    bit-identical to ``binary_conv2d_reference`` on the card (the
+    operator's plain implementation, NHWC). Returns the instances held."""
+    conv = kernels.conv
+    x, w, scale, add = args
+    stride, padding = tuple(kw.get("stride", (1, 1))), tuple(kw.get("padding", (0, 0)))
+    threshold, zto = kw.get("threshold"), kw.get("zero_to_one", False)
+    ref = conv.binary_conv2d_cpu(x, w, threshold, scale, add, stride, padding, zto)
+    runs = [("host plan", kernels.binary_conv2d(*args, **kw))]
+    for plan in conv2d_instances(conv, x):
+        runs.append((plan, conv.binary_conv2d_planned(
+            x, w, threshold, scale, add, stride, padding, zto, plan=plan)))
+    torch.cuda.synchronize()
+    for plan, got in runs:
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            raise AssertionError(f"phase {phase}: {label} {plan}: binary_conv2d differs "
+                                 "from binary_conv2d_reference")
+    return len(runs) - 1
+
+
+def conv2d_case(kernels, c, o, k, stride, h, w, n, dtype, zto, thr, fmt, offset, gen, dev):
+    """A binary_conv2d call on random inputs: (args, kw) of the wrapper."""
+    x = torch.randn((n, h, w, c), generator=gen)
+    x[torch.rand(x.shape, generator=gen) < 0.1] = 0.0
+    if offset:
+        buf = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+        buf[1:] = x.to(dev, dtype).flatten()
+        x = buf[1:].view(n, h, w, c)
+    else:
+        x = x.to(dev, dtype)
+    w8 = pm1((o, c, k, k), gen)
+    wt = (w8 if fmt == "int8" else kernels.pack_bits(w8.float(), axis=1)).to(dev)
+    scale = (torch.rand(o, generator=gen) + 0.5).to(dev, dtype)
+    add = torch.randn(o, generator=gen).to(dev, dtype)
+    threshold = (0.1 * torch.randn(c, generator=gen)).to(dev, dtype) if thr else None
+    return (x, wt, scale, add), dict(stride=(stride, stride), padding=(k // 2, k // 2),
+                                     threshold=threshold, zero_to_one=zto)
+
+
+def check_conv2ds(kernels, gen, dev) -> float:
+    """binary_conv2d against its plain version on the card, bit-identical,
+    through the host plan and every tile and loader instance: each distinct
+    mode-conv layer of the flagships (bf16 x and epilogue, ternary signs
+    against a threshold, packed weights, batch 8), then the edges."""
+    cases = sorted({g[:5] for layers in CONV2D.values() for g in layers})
+    held = 0
+    for c, o, k, stride, side in cases:
+        args, kw = conv2d_case(kernels, c, o, k, stride, side, side, BATCH,
+                               torch.bfloat16, False, True, "packed", False, gen, dev)
+        held += hold_conv2d(kernels, f"binary_conv2d ({BATCH}, {side}, {side}, {c}) -> "
+                            f"{o} k={k} stride {stride}", args, kw, phase=2)
+    for c, o, k, stride, h, w, n, dtype, zto, thr, fmt, offset in CONV2D_EDGES:
+        label = (f"binary_conv2d ({n}, {h}, {w}, {c}) -> {o} k={k} stride {stride} "
+                 f"{str(dtype)[6:]} zero_to_one={zto} threshold={thr} {fmt}"
+                 f"{' x off 16 bytes' if offset else ''}")
+        args, kw = conv2d_case(kernels, c, o, k, stride, h, w, n, dtype, zto, thr,
+                               fmt, offset, gen, dev)
+        n_inst = hold_conv2d(kernels, label, args, kw, phase=2)
+        held += n_inst
+        print(f"phase 2: {label}: the host plan and all {n_inst} instances "
+              "bit-identical")
+    print(f"phase 2: binary_conv2d at the flagships' {len(cases)} mode-conv layers and "
+          f"{len(CONV2D_EDGES)} edges: {held} instance runs, each bit-identical to its "
+          "plain version")
+    return 0.0
 
 
 def r50_pointwise(batch: int, size: int = SIZE):
@@ -1557,7 +1669,7 @@ def train_phase(kernels, Predictor, dev, card) -> tuple:
     served = images[:16]
     for b, requests, want in (
             (1, (served[:1], served[1:3]), {"fused_stem": 1, "fused_chain": 4}),
-            (8, (served[:8], served[8:11]), {"fused_stem": 1, "binary_gemm": 1})):
+            (8, (served[:8], served[8:11]), R18_8)):
         pred = Predictor(copy.deepcopy(trained), batch_size=b, dtype=None)
         _, counted = serve_counted(
             kernels, pred, requests,
@@ -1798,7 +1910,7 @@ def stream_phase(kernels, pred, dev, card) -> dict:
             getattr(kernels, k).launches = 0
         outs, st, wall = run_stream(pred, requests, rps, SEED)
         counted = {k: getattr(kernels, k).launches for k in KERNELS}
-        want = {k: st.batches if k in ("fused_stem", "binary_gemm") else 0 for k in KERNELS}
+        want = {k: st.batches * R18_8.get(k, 0) for k in KERNELS}
         if counted != want:
             raise AssertionError(f"stream at {label}: launches {counted}, expected {want}")
         for k, v in counted.items():
@@ -1856,7 +1968,7 @@ def serve_phase(kernels, Predictor, dev, card, trained, opt, images) -> dict:
         served = {}
         for b, requests, want in (
                 (1, (images[:1], images[1:3]), {"fused_stem": 1, "fused_chain": 4}),
-                (8, (images[:8], images[8:11]), {"fused_stem": 1, "binary_gemm": 1})):
+                (8, (images[:8], images[8:11]), R18_8)):
             served[b], counted = served_from_checkpoint(kernels, Predictor, path, b,
                                                         requests, want, images, card)
             for k, v in counted.items():
@@ -1935,7 +2047,7 @@ def op_cases(kernels, gen, dev):
                                      thresholds=True)
     tail = ("relu", "relu", False, False, None)
     p, q = basic.prm, None
-    return {
+    cases = {
         "binary_gemm": (x, wp, 256, vec(512, 1.0), vec(512), False),
         "popcount_gemm": (kernels.pack_bits(x, axis=-1), wp, 256, vec(512, 1.0),
                           vec(512)),
@@ -1960,6 +2072,12 @@ def op_cases(kernels, gen, dev):
             None, [kw.get(r) for r in kernels.bottleneck.ROWS], "prelu", "prelu",
             "prelu", True, None),
     }
+    # drawn after the others, which stay as they were
+    cases["binary_conv2d"] = (
+        torch.randn((8, 56, 56, 64), generator=gen).to(dev, bf),
+        kernels.pack_bits(pm1((128, 64, 3, 3), gen).float(), axis=1).to(dev),
+        vec(64).to(bf), vec(128, 1.0).to(bf), vec(128).to(bf), [2, 2], [1, 1], False)
+    return cases
 
 
 def route_costs(card) -> None:
@@ -2012,7 +2130,7 @@ def dispatch_costs(kernels, cases, card) -> None:
               f"{[round(v, 2) for v in t['op']]}, its CUDA implementation called "
               f"directly {[round(v, 2) for v in t['impl']]}: dispatch {d:.2f} us "
               f"| {card}")
-    print(f"phase 7: operator dispatch over the nine kernels: {min(rows):.2f} to "
+    print(f"phase 7: operator dispatch over the ten kernels: {min(rows):.2f} to "
           f"{max(rows):.2f} us a call | {card}")
 
 
@@ -2272,6 +2390,10 @@ def zoo_calls(kernels, megablock, stages, pred, xb):
     return calls
 
 
+# path D's launches per forward at batch 1 and 4
+PATH_D_SMALL = {"fused_chain": 1, "fused_basic_block": 3, "binary_conv2d": 9}
+
+
 def serve_path_d(kernels, Predictor, trained, images, dev, card, errs, totals):
     """(c) Path D served at batch 1, 4 and 8 in bf16 with its launches; every
     kernel call of the batch 1 and 4 forwards held against its plain
@@ -2281,8 +2403,9 @@ def serve_path_d(kernels, Predictor, trained, images, dev, card, errs, totals):
     from bnn_tpu_torch.inference import megablock, stages
 
     preds = {}
-    plan = {1: {"fused_chain": 1, "fused_basic_block": 3},
-            4: {"fused_chain": 1, "fused_basic_block": 3}, 8: {}}
+    # the DaBNN stem's three binary convs and, at B <= 4, the down blocks'
+    # two run binary_conv2d; at B = 8 every binary conv does
+    plan = {1: PATH_D_SMALL, 4: PATH_D_SMALL, 8: {"binary_conv2d": 19}}
     for b in (1, 4, 8):
         preds[b] = Predictor(copy.deepcopy(trained), batch_size=b)
         _, launches = serve_counted(
@@ -2315,7 +2438,8 @@ def serve_path_d(kernels, Predictor, trained, images, dev, card, errs, totals):
     # xnor-net-plus.yaml: the downsample shortcuts binary too
     plus, _ = path_d_model("xnor-net-plus", 2)
     plus = randomize_norms(plus, torch.Generator().manual_seed(SEED + 18)).eval()
-    for b, want in ((4, {"fused_chain": 4}), (8, {"binary_gemm": 1})):
+    for b, want in ((4, {"fused_chain": 4, "binary_conv2d": 3}),
+                    (8, {"binary_gemm": 1, "binary_conv2d": 21})):
         pred = Predictor(copy.deepcopy(plus), batch_size=b)
         fused = sorted({type(m).__name__ for m in pred.model.modules()
                         if type(m).__name__.startswith("Fused")})
@@ -2340,9 +2464,10 @@ def serve_path_d(kernels, Predictor, trained, images, dev, card, errs, totals):
 def path_e(kernels, Predictor, make_train_step, dev, card, errs, totals):
     """(d) Path E: the BATS CIFAR network trained (aux loss, drop-path) and
     served at batch 1 and 8 with its launches (binary_gemm per pointwise
-    conv in gemm mode); every binary_gemm call held against its plain
-    version; the f32 build at batch 2 against the CPU's plain versions.
-    Returns the batch-8 predictor."""
+    conv in gemm mode, binary_conv2d per ungrouped conv in conv mode); every
+    binary_gemm call held against its plain version; the f32 build at batch
+    2 against the CPU's plain versions. Returns the batch-8 predictor, the
+    images and its launches per forward."""
     import bnn_tpu_torch as bt
     from bnn_tpu_torch.inference import DeployedConv, DeployedLinear
     from bnn_tpu_torch.ops import (BasicInputBinarizer, BasicScaleBinarizer,
@@ -2383,14 +2508,17 @@ def path_e(kernels, Predictor, make_train_step, dev, card, errs, totals):
         convs = [m for m in served if isinstance(m, DeployedConv)]
         gemm = sum(m.mode == "gemm" for m in convs)
         gemm += sum(isinstance(m, DeployedLinear) for m in served)
+        # conv mode: binary_conv2d where the kernel takes the geometry
+        conv2d = sum(m.mode == "conv" and m._kernel_geometry for m in convs)
+        want = {"binary_gemm": gemm, "binary_conv2d": conv2d}
         if b == 1:
             print(f"phase 8: path E deployed: {gemm} layers on binary_gemm (gemm mode), "
-                  f"{sum(m.mode == 'conv' and m.groups > 1 for m in convs)} grouped and "
-                  f"{sum(m.mode == 'conv' and m.groups == 1 for m in convs)} ungrouped "
-                  "convs in conv mode (unfold + torch._int_mm)")
+                  f"{sum(m.mode == 'conv' and not m._kernel_geometry for m in convs)} "
+                  f"grouped or dilated convs in conv mode (unfold + torch._int_mm) and "
+                  f"{conv2d} others (binary_conv2d)")
         _, launches = serve_counted(
             kernels, preds[b], (images[:b], images[b:2 * b + 1]),
-            f"path E: BATS CIFAR Predictor(batch_size={b}) bf16", {"binary_gemm": gemm},
+            f"path E: BATS CIFAR Predictor(batch_size={b}) bf16", want,
             classes=BATS_CLASSES, phase=8)
         for k, v in launches.items():
             totals[k] += v
@@ -2416,7 +2544,7 @@ def path_e(kernels, Predictor, make_train_step, dev, card, errs, totals):
     marks.append(("times", time.perf_counter()))
     print("phase 8: path E took " + ", ".join(
         f"{name} {t - marks[i][1]:.1f} s" for i, (name, t) in enumerate(marks[1:])))
-    return preds[8], images, gemm
+    return preds[8], images, want
 
 
 def grads_card_vs_cpu(name, module, x, dev, tol=1e-4):
@@ -2494,15 +2622,15 @@ def zoo_phase(kernels, Predictor, dev, card, errs, totals) -> None:
         del trained
         torch.cuda.empty_cache()
         done("(c)")
-        pred_e, images_e, gemm_e = path_e(kernels, Predictor, make_train_step, dev,
-                                          card, errs, totals)
+        pred_e, images_e, launches_e = path_e(kernels, Predictor, make_train_step, dev,
+                                              card, errs, totals)
         torch.cuda.empty_cache()
         done("(d)")
         no_serving_paths(dev)
         done("(e)")
         export_and_load(SMOKE_DIR / "zoo_bundles", {
-            "path_d_b4": (pred_d, {"fused_chain": 1, "fused_basic_block": 3}, images[:4]),
-            "path_e_b8": (pred_e, {"binary_gemm": gemm_e}, images_e[:8]),
+            "path_d_b4": (pred_d, PATH_D_SMALL, images[:4]),
+            "path_e_b8": (pred_e, launches_e, images_e[:8]),
         }, card, phase=8)
         done("(f)")
     finally:
@@ -3074,8 +3202,7 @@ def single_rank(rank: int, world: int, card: str) -> dict:
     qat = flagship(torch.Generator().manual_seed(SEED))
     images = torch.randn((BATCH, 3, SIZE, SIZE), generator=torch.Generator().manual_seed(SEED))
     launches: dict = {}
-    for b, want in ((4, {"fused_stem": 1, "fused_chain": 4}),
-                    (8, {"binary_gemm": 1, "fused_stem": 1})):
+    for b, want in ((4, {"fused_stem": 1, "fused_chain": 4}), (8, R18_8)):
         plain = Predictor(copy.deepcopy(qat), batch_size=b)
         meshed = Predictor(copy.deepcopy(qat), batch_size=b, mesh=mesh)
         x = images[:b].to(dev)
@@ -3234,7 +3361,8 @@ def pair_rank(rank: int, world: int, card: str) -> dict:
     _zero_counts(kernels)
     got = tp(x)
     counts = _counts(kernels)
-    _check_launches("phase 10 (b) tensor-parallel ResNet-18", counts, {"binary_gemm": 1}, 1)
+    _check_launches("phase 10 (b) tensor-parallel ResNet-18", counts,
+                    {"binary_gemm": 1, "binary_conv2d": 18}, 1)
     _add(launches, counts)
     if gemm.w_packed.shape[1] != 256 or not torch.equal(got, ref(x)):
         raise AssertionError(f"phase 10 (b): rank {rank}: tensor-parallel ResNet-18 "
@@ -3486,7 +3614,8 @@ SERVE_CLI_ARGS = ["--device", "cuda:0", "--dist-backend", "gloo", "--num-classes
 # launches a forward per rank: the data-parallel rank's 4 rows through the
 # stem and stage kernels; the tensor-parallel rank's layer4.0.downsample.1 on
 # binary_gemm at N = 512 / 2 (the other deployed convs run the int8 conv)
-CLI_LAUNCHES = {"dp": {"fused_stem": 1, "fused_chain": 4}, "tp": {"binary_gemm": 1}}
+CLI_LAUNCHES = {"dp": {"fused_stem": 1, "fused_chain": 4},
+                "tp": {"binary_gemm": 1, "binary_conv2d": 18}}
 
 
 def printed(main, argv) -> str:
@@ -3702,7 +3831,7 @@ def plain_phase(kernels, Predictor, dev, card) -> dict:
     flagship ResNet-18 at batch 1 and 8, ResNet-50 at batch 8 and path C
     (the Z1-PReLU ResNet-50 with ``binary_gemm_impl='popcount'``) at batch
     8, the default ``Predictor`` and ``Predictor(use_pallas=False)`` of the
-    same weights: the nine kernels' launches (phase 3's under the default,
+    same weights: the ten kernels' launches (phase 3's under the default,
     none under ``use_pallas=False``), their f32 logits against each other
     (1e-3, argmax equal), and in bf16 each one's forward latency (host
     clock, in turns) and device busy. Returns the default paths' launches."""
@@ -3714,10 +3843,9 @@ def plain_phase(kernels, Predictor, dev, card) -> dict:
     qz50 = flagship(torch.Generator().manual_seed(SEED), depth=50, z1_prelu=True)
     popcount = {"binary_gemm_impl": "popcount"}
     paths = (("ResNet-18", qat18, 1, {}, {"fused_stem": 1, "fused_chain": 4}),
-             ("ResNet-18", qat18, BATCH, {}, {"fused_stem": 1, "binary_gemm": 1}),
-             ("ResNet-50", qat50, BATCH, {}, {"fused_stem": 1, "binary_gemm": 27}),
-             ("path C: Z1-PReLU ResNet-50 popcount", qz50, BATCH, popcount,
-              {"popcount_gemm": 36}))
+             ("ResNet-18", qat18, BATCH, {}, R18_8),
+             ("ResNet-50", qat50, BATCH, {}, R50_8),
+             ("path C: Z1-PReLU ResNet-50 popcount", qz50, BATCH, popcount, PATH_C))
     totals = dict.fromkeys(KERNELS, 0)
     for name, qat, b, kw, want in paths:
         xb = images[:b]
@@ -3850,11 +3978,11 @@ def main() -> int:
         return 0
     for name in ("binary_gemm", "binary_conv2d_s1", "popcount_gemm", "fused_chain",
                  "fused_basic_block", "fused_downsample_block", "fused_stem_chain",
-                 "fused_bottleneck", "fused_stem"):
+                 "fused_bottleneck", "fused_stem", "binary_conv2d"):
         counts, line = sass_counts(_build._target(name))
         print(f"phase 1: lib{name}: {line}")
         if name in ("fused_chain", "fused_bottleneck", "fused_basic_block",
-                    "fused_downsample_block", "fused_stem_chain") and (
+                    "fused_downsample_block", "fused_stem_chain", "binary_conv2d") and (
                 counts is None or counts["IMMA"] == 0 or counts["IDP4A"] > 0):
             raise AssertionError(f"lib{name}: {line}; its GEMM phases run "
                                  "on the int8 tensor cores, not __dp4a")
@@ -3920,6 +4048,7 @@ def main() -> int:
     conv_err = check_convs(kernels, gen_opt, dev)
     pop_err = check_popcounts(kernels, gen_opt, dev)
     entry_err = check_stem_chains(kernels, gen_opt, dev)
+    conv2d_err = check_conv2ds(kernels, torch.Generator().manual_seed(SEED + 50), dev)
     if quick:
         print("chip_smoke: --quick: phases 1 and 2 passed", file=sys.stderr)
         return 0
@@ -3940,7 +4069,7 @@ def main() -> int:
     outs, launches = serve_counted(
         kernels, pred, (images[:8], images[8:11], images[11:24]),
         "ResNet-18 Predictor(batch_size=8) bf16",
-        {"binary_gemm": 1, "fused_stem": 1})
+        {"binary_gemm": 1, "fused_stem": 1, "binary_conv2d": 18})
     add(launches)
     gpu32 = Predictor(copy.deepcopy(qat), batch_size=BATCH, dtype=None)
     cpu32 = Predictor(copy.deepcopy(qat), batch_size=BATCH, dtype=None,
@@ -3978,15 +4107,14 @@ def main() -> int:
 
     # ResNet-50: 13 stride-1 Bottlenecks on fused_bottleneck at B <= 4; the
     # three strided ones on deployed convs, whose pointwise convs with
-    # K >= 256 run binary_gemm (8 at B <= 4, all 27 at B = 8)
+    # K >= 256 run binary_gemm (8 at B <= 4, all 27 at B = 8) and the rest
+    # binary_conv2d (4 at B <= 4, 25 at B = 8)
     qat50 = flagship(torch.Generator().manual_seed(SEED), depth=50)
     pred50 = {}
     for b, requests, want in (
-            (1, (images[:1], images[1:3]),
-             {"fused_stem": 1, "fused_bottleneck": 13, "binary_gemm": 8}),
-            (4, (images[:4], images[4:7]),
-             {"fused_stem": 1, "fused_bottleneck": 13, "binary_gemm": 8}),
-            (8, (images[:8], images[8:11]), {"fused_stem": 1, "binary_gemm": 27})):
+            (1, (images[:1], images[1:3]), R50_SMALL),
+            (4, (images[:4], images[4:7]), R50_SMALL),
+            (8, (images[:8], images[8:11]), R50_8)):
         pred50[b] = Predictor(copy.deepcopy(qat50), batch_size=b)
         _, launches = serve_counted(
             kernels, pred50[b], requests, f"ResNet-50 Predictor(batch_size={b}) bf16",
@@ -4029,8 +4157,7 @@ def main() -> int:
     run = []
     calls = capture_calls(deploy, "binary_conv2d_s1", lambda: run.append(serve_counted(
         kernels, served_b, (images[:8], images[8:11]),
-        "path B: Z1-PReLU ResNet-18 pallas-conv batch 8 bf16",
-        {"binary_conv2d_s1": 13, "binary_gemm": 1})))
+        "path B: Z1-PReLU ResNet-18 pallas-conv batch 8 bf16", PATH_B)))
     add(run[0][1])
     check_share("path B binary_conv2d_s1",
                 [(int((a[0] >= 0).sum()), a[0].numel()) for a, _ in calls[:13]])
@@ -4058,7 +4185,7 @@ def main() -> int:
         calls = capture_calls(deploy, "popcount_gemm", lambda: run.append(serve_counted(
             kernels, pred_c[b], requests,
             f"path C: Z1-PReLU ResNet-50 Predictor(batch_size={b}, "
-            "binary_gemm_impl='popcount') bf16", {"popcount_gemm": 36})))
+            "binary_gemm_impl='popcount') bf16", PATH_C)))
         add(run[0][1])
         check_share(f"path C batch {b} popcount_gemm", [
             (int((kernels.unpack_bits(a[0], a[2], axis=-1) > 0).sum()),
@@ -4466,6 +4593,59 @@ def main() -> int:
     err1, _ = popcount_table(1)
     pop_err = max(pop_err, err8, err1)
 
+    # every binary_conv2d call of the serving paths (their deployed convs in
+    # mode conv) on its own inputs, through the host plan and every
+    # instance; then per distinct shape of ResNet-18's and ResNet-50's
+    # batch-8 calls, the kernel alone beside its plain version (the unfold
+    # + torch._int_mm chain) and its bound
+    conv2d_runs = {f"ResNet-18 batch {BATCH}": lambda: pred(images[:BATCH].to(dev)),
+                   **{f"ResNet-50 batch {b}": lambda b=b: pred50[b](images[:b].to(dev))
+                      for b in (1, 4, BATCH)},
+                   f"path B batch {BATCH}": lambda: served_b(images[:BATCH]),
+                   **{f"path C batch {b}": lambda b=b: pred_c[b](images[:b])
+                      for b in (BATCH, 1)}}
+    conv2d_calls = {}
+    for path, run in conv2d_runs.items():
+        calls = capture_calls(deploy, "binary_conv2d", run)
+        held = sum(hold_conv2d(kernels, f"{path} call {i} {tuple(a[0].shape)}", a, k, 4)
+                   for i, (a, k) in enumerate(calls))
+        conv2d_calls[path] = calls
+        print(f"phase 4: {path}: {len(calls)} binary_conv2d calls held against the plain "
+              f"version on their own inputs, through the host plan and {held} instance "
+              "runs: bit-identical")
+    conv2d_t = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for path in (f"ResNet-18 batch {BATCH}", f"ResNet-50 batch {BATCH}"):
+        rows = {}
+        for a, k in conv2d_calls[path]:
+            x, w = a[0], a[1]
+            out = kernels.binary_conv2d(*a, **k)
+            key = (tuple(x.shape), tuple(w.shape), tuple(k["stride"]))
+            if key in rows:
+                rows[key][1] += 1
+                continue
+            n, h, wd, c = x.shape
+            o, _, kh, kw = w.shape
+            m = out.shape[0] * out.shape[1] * out.shape[2]
+            tile, loader = kernels.conv.conv2d_plan(m, o, c, kh * kw, x.element_size(),
+                                                    x.data_ptr(), sms)
+            fn = lambda a=a, k=k: kernels.binary_conv2d(*a, **k)
+            t = timed_row({"plain": lambda a=a, k=k: kernels.conv.binary_conv2d_cpu(
+                a[0], a[1], k["threshold"], a[2], a[3], k["stride"], k["padding"],
+                k["zero_to_one"])})
+            own, rest = own_ms(fn, "binary_conv2d_kernel")
+            t["kernel"] = (own, cuda_ms(fn))
+            params = [v for v in (w, a[2], a[3], k["threshold"]) if v is not None]
+            rows[key] = [
+                f"binary_conv2d {tuple(x.shape)} {str(x.dtype)[6:]} -> {o} k={kh} stride "
+                f"{k['stride'][0]} (host plan: {tile[0]}x{tile[1]}, "
+                f"{-(-m // tile[0]) * -(-o // tile[1])} blocks, {loader} loader; the "
+                f"wrapper's other kernels {rest * 1e3:.2f} us)",
+                1, t, bound_ms(nbytes(x, *params, out), 2 * m * o * c * kh * kw,
+                               torch.int8)]
+        conv2d_t[path] = print_rows(f"binary_conv2d ({path}, {len(conv2d_calls[path])} "
+                                    "calls)", list(rows.values()), card, None)
+
     def summed(kname):
         rows = block_t[kname]
         by = "bytes" if sum(r[3] for r in rows if r[4] == "bytes") >= \
@@ -4544,17 +4724,16 @@ def main() -> int:
     # phase 7: every serving path frozen into a bundle and loaded in a fresh
     # process; its launches are counted there, not in the kernels line's
     r18 = {"fused_stem": 1, "fused_chain": 4}
-    r18_8 = {"fused_stem": 1, "binary_gemm": 1}
+    r18_8 = R18_8
     bundle_phase(kernels, {
         "r18_b1": (small[1], r18),
         "r18_b8": (pred, r18_8),
         "r34_b1": (pred34, {"fused_stem": 1, "fused_chain": 3,
                             "fused_downsample_block": 1, "fused_basic_block": 2}),
-        "r50_b1": (pred50[1], {"fused_stem": 1, "fused_bottleneck": 13,
-                               "binary_gemm": 8}),
+        "r50_b1": (pred50[1], R50_SMALL),
         "entry_b1": (pred_a[1], {"fused_stem_chain": 1, "fused_chain": 3}),
-        "pallas_conv_b8": (served_b, {"binary_conv2d_s1": 13, "binary_gemm": 1}),
-        "popcount_b8": (pred_c[BATCH], {"popcount_gemm": 36}),
+        "pallas_conv_b8": (served_b, PATH_B),
+        "popcount_b8": (pred_c[BATCH], PATH_C),
         "int8_head_b1": (Predictor(copy.deepcopy(qat), batch_size=1,
                                    quantize_float_bits=8), r18),
         "int8_head_b8": (Predictor(copy.deepcopy(qat), batch_size=BATCH,
@@ -4585,13 +4764,17 @@ def main() -> int:
           "layer4's two; fused_bottleneck's over the 13 calls of one ResNet-50 "
           "forward at batch 1; fused_stem_chain's are path A's at batch 1; "
           "binary_conv2d_s1's and popcount_gemm's the sums over the 13 and 36 "
-          "calls of one batch-8 forward of paths B and C; launches are totals "
+          "calls of one batch-8 forward of paths B and C; binary_conv2d's the sums "
+          "over the 25 calls of one ResNet-50 forward at batch 8 (it replaces no "
+          "TPU kernel: the JAX package leaves that conv to XLA's int8 lax.conv); "
+          "launches are totals "
           "over phase 3's serving runs, phase 5's serving of the trained "
           "weights, phase 6's counted serving runs and streams, phase 8's "
           "serving runs (paths D and E), phase 10's mesh predictors, phase "
           "11's loaded mesh bundles (each rank's) and phase 12's default "
           "predictors; max_abs_err is the largest over every "
           "check, phase 8's included")
+    r50_8 = f"ResNet-50 batch {BATCH}"
     print(json.dumps({"kernels": [
         {"name": "binary_gemm", "route": "cuda",
          "source": "bnn_tpu_torch/csrc/binary_gemm.cu",
@@ -4652,6 +4835,13 @@ def main() -> int:
          "launches": totals["popcount_gemm"], "max_abs_err": pop_err,
          "ms": pop_t["ms"], "plain_ms": pop_t["plain"], "bound_ms": pop_t["bound"],
          "bound_by": pop_t["by"], "library_ms": pop_t["library"]},
+        {"name": "binary_conv2d", "route": "cuda",
+         "source": "bnn_tpu_torch/csrc/binary_conv2d.cu",
+         "replaces": None,
+         "launches": totals["binary_conv2d"], "max_abs_err": conv2d_err,
+         "ms": conv2d_t[r50_8]["ms"], "plain_ms": conv2d_t[r50_8]["plain"],
+         "bound_ms": conv2d_t[r50_8]["bound"], "bound_by": conv2d_t[r50_8]["by"],
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

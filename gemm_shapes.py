@@ -26,7 +26,10 @@ as the (k, k, C, O) view of an (O, C, k, k) tensor (as
 result held bit for bit against ``binary_conv2d_s1_reference``; the kernel's
 own device time, the device time of the whole call (the wrapper's weight
 copy included), the plan where the checkout has ``conv_plan``, and
-``F.conv2d`` in bf16 on the same +/-1 values. With ``--popcount``, for each
+``F.conv2d`` in bf16 on the same +/-1 values; where the checkout has
+``binary_conv2d``, the same conv through it (``zero_to_one``, the (O, C,
+k, k) weights), bit-identical, with its plan and its kernel's and whole
+call's device time. With ``--popcount``, for each
 (M, K, N) of path C's 36 calls (a Z1-PReLU ResNet-50's pointwise convs,
 ``chip_smoke.r50_pointwise``) at batch 8 and 1: activation words packed from
 random x with 10% exact zeros, random weight words, f32 epilogue rows; the
@@ -277,7 +280,10 @@ def time_convs(label, kernels, gen, dev, sms) -> int:
     """binary_conv2d_s1 at path B's (x shape, dtype) rows, beside F.conv2d."""
     from bnn_tpu_torch.kernels import conv
 
+    implicit = getattr(conv, "binary_conv2d", None)
     tot = {"kernel_us": 0.0, "call_us": 0.0, "conv2d_us": 0.0}
+    if implicit is not None:
+        tot.update(implicit_kernel_us=0.0, implicit_call_us=0.0)
     for shape, dtype, calls in CONVS:
         c = o = shape[-1]
         x = torch.randn(shape, generator=gen)
@@ -300,10 +306,22 @@ def time_convs(label, kernels, gen, dev, sms) -> int:
                "call_us": device_us(run),
                "conv2d_us": device_us(lambda: torch.nn.functional.conv2d(
                    xs, wl, padding=1))}
+        if implicit is not None:
+            # the same conv through binary_conv2d: sign(0) = +1 (zero_to_one),
+            # f32 epilogue rows, the (O, C, k, k) int8 weights
+            w8 = w_oihw.to(dev, torch.int8)
+            run2 = lambda: implicit(x, w8, scale, add, stride=(1, 1), padding=(1, 1),
+                                    zero_to_one=True)
+            exact = exact and bool(torch.equal(run2(), run()))
+            row.update(exact=exact, implicit_plan=conv.conv2d_plan(
+                           shape[0] * shape[1] * shape[2], o, c, 9, x.element_size(),
+                           x.data_ptr(), sms),
+                       implicit_kernel_us=device_us(run2, "binary_conv2d_kernel"),
+                       implicit_call_us=device_us(run2))
         print(json.dumps(row))
         if not exact:
             raise AssertionError(f"binary_conv2d_s1 {shape} {dtype} differs from "
-                                 "its plain version")
+                                 "its plain version or from binary_conv2d")
         for key in tot:
             tot[key] += calls * row[key]
     print(json.dumps({"label": label, "path": "path B batch 8",
