@@ -26,8 +26,9 @@ from typing import Dict
 
 import torch
 
+from . import arch
 from .core import Context, load_cell
-from .reference import lowp, resnet
+from .reference import common, lowp
 
 
 def stats(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -61,9 +62,11 @@ def logit_numbers(srv, kept: list, q=None) -> Dict[str, float]:
 
     ids = sorted({p for p, _, _ in kept})
     images = torch.cat([srv.pool[p] for p in ids])
+    cfg = srv.ctx.config
     state = {k: v.to(srv.ctx.device) for k, v in srv.state.items()}
-    ref = resnet.logits(srv.ctx.config, state, images)
-    low = None if q is None else resnet.logits(srv.ctx.config, state, images, q=q)
+    Forward = arch.reference(cfg).Forward
+    ref = common.logits(Forward, cfg, state, images)
+    low = None if q is None else common.logits(Forward, cfg, state, images, q=q)
     b, worst = srv.batch, 0.0
     for p, _, logits in kept:
         n = ids.index(p)
@@ -103,13 +106,13 @@ def train_readings(ctx: Context) -> dict:
     tr.close()
     t0 = time.perf_counter()
     ref = tr.reference()
-    program = {**ts.numbers(first, ref), **ts.layer_numbers(tr, first["layers"]),
+    program = {**ts.numbers(first, ref), **ts.layer_numbers(tr, first["kept"]),
                **ts.update_numbers(tr, first["first"]), **ts.late_numbers(tr, late)}
     ref_s = time.perf_counter() - t0
     out = {"reference_s": ref_s, "window_steps": w["steps"], "late_t": late["t"],
            "program": program,
            "control": {**ts.numbers(tr.reference(q=lowp.fp8_train), ref),
-                       **ts.layer_numbers(tr, first["layers"], q=lowp.fp8),
+                       **ts.layer_numbers(tr, first["kept"], q=lowp.fp8),
                        **ts.update_numbers(tr, first["first"], dtype=torch.bfloat16),
                        **ts.late_numbers(tr, late, dtype=torch.bfloat16, q=lowp.fp8)}}
     g = ref["grad_norms"]

@@ -8,7 +8,8 @@ import torch
 
 
 def qat_model(config: dict, state: Dict[str, torch.Tensor], device) -> torch.nn.Module:
-    """The configuration's binary ResNet as ``bt.models`` and
+    """The configuration's network as the ``bt.models`` constructor its
+    ``arch`` names (with the configuration's optional ``model_args``) and
     ``prepare_binary_model`` build it, made without drawing its own weights
     (on the meta device) and then loaded with ``state``."""
     import bnn_tpu_torch as bt
@@ -16,7 +17,8 @@ def qat_model(config: dict, state: Dict[str, torch.Tensor], device) -> torch.nn.
 
     recipe = config["recipe"]
     with torch.device("meta"):
-        model = getattr(bt.models, config["arch"])(num_classes=config["num_classes"])
+        model = getattr(bt.models, config["arch"])(num_classes=config["num_classes"],
+                                                   **config.get("model_args", {}))
         model = bt.prepare_binary_model(
             model,
             bt.BConfig(activation_pre_process=getattr(ops, recipe["activation_pre_process"]),

@@ -1,5 +1,7 @@
-"""The plain reference: the binary ResNet's forward and its QAT training
-step with AdamW, in plain PyTorch, from the tensors the benchmark made.
+"""The plain reference of the ResNet family: the binary ResNet's forward,
+in plain PyTorch, from the tensors the benchmark made; its eval-mode logits
+and QAT training step with AdamW are :mod:`portbench.reference.common`'s
+over this ``Forward``.
 
 It imports nothing of the measured program. It works out for itself what
 the program derives from those tensors: the ternary signs of the
@@ -15,85 +17,32 @@ reach ``mean|W|`` with ``d|w|/dw = +1`` at ``w = 0``.
 (the input, float weights, every layer's output); the identity gives the
 reference itself, :mod:`portbench.reference.lowp` the control in a lower
 precision. Matrix products run in the dtype of the tensors handed in, with
-TF32 off (:func:`exact_matmul`).
+TF32 off (:func:`~portbench.reference.common.exact_matmul`).
 """
 from __future__ import annotations
 
-import contextlib
-import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
 
-from .. import arch
-
-EPS = 1e-5
-BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
-
-
-def _identity(x):
-    return x
-
-
-@contextlib.contextmanager
-def exact_matmul():
-    """TF32 off for matmuls and convs inside, restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-class _Sign(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return torch.sign(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * ((x > -1) & (x < 1)).to(g.dtype)
-
-
-def xnor_weight(w: torch.Tensor) -> torch.Tensor:
-    alpha = torch.where(w >= 0, w, -w).mean(dim=(1, 2, 3), keepdim=True)
-    return _Sign.apply(w) * alpha
-
-
-def is_param(name: str) -> bool:
-    return not name.endswith(BUFFERS)
+from ..families.resnet import blocks
+from .common import batch_norm, binary_conv, identity
 
 
 class Forward:
     """The network of ``config`` over the state ``S`` (name -> tensor)."""
 
     def __init__(self, config: dict, S: Dict[str, torch.Tensor], *,
-                 train: bool = False, q: Callable = _identity):
+                 train: bool = False, q: Callable = identity):
         self.config, self.S, self.train, self.q = config, S, train, q
-        self.blocks = list(arch.blocks(config))
+        self.blocks = list(blocks(config))
 
     def norm(self, x, name):
-        S = self.S
-        if not self.train:
-            y = F.batch_norm(x, S[name + ".running_mean"], S[name + ".running_var"],
-                             S[name + ".weight"], S[name + ".bias"], False, 0.0, EPS)
-        else:
-            mean = x.mean(dim=(0, 2, 3), keepdim=True)
-            d = x - mean
-            var = d.square().mean(dim=(0, 2, 3), keepdim=True)
-            mul = torch.rsqrt(var + EPS) * S[name + ".weight"].view(1, -1, 1, 1)
-            y = d * mul + S[name + ".bias"].view(1, -1, 1, 1)
-        return self.q(y)
+        return self.q(batch_norm(x, self.S, name, self.train))
 
     def binary_conv(self, x, name, stride, pad):
-        w = xnor_weight(self.q(self.S[name + ".weight"]))
-        y = F.conv2d(_Sign.apply(x), w, None, stride, pad)
-        return self.q(y * self.q(self.S[name + ".activation_post_process.alpha"]))
+        return binary_conv(x, self.S, name, stride, pad, self.q)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """The float stem: conv, norm, relu and max pool (layer1's input)."""
@@ -135,62 +84,3 @@ class Forward:
         for s in range(1, len(self.config["layers"]) + 1):
             h = self.stage(s, h)
         return self.head(h)
-
-
-@torch.no_grad()
-def logits(config: dict, state: Dict[str, torch.Tensor], images: torch.Tensor, *,
-           q: Callable = _identity, block: int = 64, dtype=torch.float32) -> torch.Tensor:
-    """Eval-mode logits of ``images`` (N, C, H, W), in blocks of ``block``
-    rows, on the device of ``state``; f32 on the host."""
-    S = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in state.items()}
-    fwd = Forward(config, S, q=q)
-    dev = next(iter(S.values())).device
-    out = []
-    with exact_matmul():
-        for i in range(0, images.shape[0], block):
-            out.append(fwd(images[i:i + block].to(dev, dtype)).float().cpu())
-    return torch.cat(out)
-
-
-def adamw_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-               state: dict, t: int, lr: float, weight_decay: float,
-               betas=(0.9, 0.999), eps: float = 1e-8) -> None:
-    """One AdamW step (decoupled weight decay, bias-corrected moments) in place."""
-    b1, b2 = betas
-    for name, p in params.items():
-        g = grads[name]
-        m, v = state.setdefault(name, (torch.zeros_like(p), torch.zeros_like(p)))
-        p.mul_(1 - lr * weight_decay)
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        denom = (v.sqrt() / math.sqrt(1 - b2 ** t)).add_(eps)
-        p.addcdiv_(m, denom, value=-lr / (1 - b1 ** t))
-
-
-def train_steps(config: dict, state: Dict[str, torch.Tensor],
-                batches: Sequence[tuple], *, lr: float, weight_decay: float,
-                q: Callable = _identity, dtype=torch.float32) -> dict:
-    """The QAT step on each ``(images, labels)`` of ``batches`` in turn,
-    from ``state``: mean softmax cross entropy, backward through the
-    straight-through signs, AdamW. Returns each step's ``losses``, the first
-    step's gradient norm per parameter (``grad_norms``) and each parameter's
-    change over all the steps (``change_norms``)."""
-    dev = next(iter(state.values())).device
-    P = {k: v.detach().to(dev, dtype).clone() for k, v in state.items() if is_param(k)}
-    start = {k: v.clone() for k, v in P.items()}
-    opt_state: dict = {}
-    losses: List[float] = []
-    grad_norms: Dict[str, float] = {}
-    with exact_matmul():
-        for t, (x, y) in enumerate(batches, 1):
-            leaves = {k: v.detach().requires_grad_() for k, v in P.items()}
-            loss = F.cross_entropy(Forward(config, leaves, train=True, q=q)(x.to(dev, dtype))
-                                   .float(), y.to(dev))
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-            losses.append(float(loss.detach()))
-            if t == 1:
-                grad_norms = {k: float(g.double().norm()) for k, g in grads.items()}
-            with torch.no_grad():
-                adamw_step(P, grads, opt_state, t, lr, weight_decay)
-    change_norms = {k: float((P[k] - start[k]).double().norm()) for k in P}
-    return {"losses": losses, "grad_norms": grad_norms, "change_norms": change_norms}

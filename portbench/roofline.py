@@ -2,8 +2,8 @@
 least time from the configuration's shapes, and the forward's and the
 training step's least time for MFU.
 
-Every count comes from :mod:`portbench.arch` (the configuration's layers),
-never from a kernel's buffers, so a change to a kernel's storage format or
+Every count comes from :mod:`portbench.arch` (the configuration's layers,
+from its family), never from a kernel's buffers, so a change to a kernel's storage format or
 tiling leaves the yardstick where it was. The least time of a call is the
 larger of
 
@@ -67,10 +67,6 @@ def _act(layer: dict, side: str) -> int:
     return (layer["cin"] if side == "in" else layer["cout"]) * h * h
 
 
-def _block_layers(config: dict, prefix: str) -> List[dict]:
-    return [l for l in arch.conv_layers(config) if l["name"].startswith(prefix)]
-
-
 def binary_gemm_bound(config: dict, shapes: list, batch: int) -> Optional[float]:
     """Least time of one ``binary_gemm`` call of input shapes ``shapes``
     (``x`` ``(M, K)``, the packed weights ``(words, N)``) in a forward of
@@ -88,44 +84,62 @@ def binary_gemm_bound(config: dict, shapes: list, batch: int) -> Optional[float]
     return None
 
 
-def _block_bound(config: dict, shapes: list, batch: int, downsample: bool) -> Optional[float]:
-    """Least time of one call that computes a whole residual block on
-    NHWC input of shape ``shapes[0]``: the configuration's block with that
-    input, with or without a projection shortcut."""
+def binary_conv2d_bound(config: dict, shapes: list, batch: int) -> Optional[float]:
+    """Least time of one ``binary_conv2d`` call of input shapes ``shapes``
+    (``x`` ``(N, H, W, C)``, the weights ``(O, C, k, k)`` as int8 or
+    ``(O, ceil(C / 32), k, k)`` as packed words) in a forward of ``batch``
+    images: the configuration's binary layer with ``cin = C``, ``cout = O``,
+    that ``k`` and ``H x W`` input. None where no layer matches, or layers
+    that match differ in their bound (their stride or padding)."""
+    try:
+        (n, h, w, c), (o, cw, kh, kw) = shapes[0], shapes[1]
+    except (IndexError, TypeError, ValueError):
+        return None
+    if n != batch or h != w or kh != kw or cw not in (c, -(-c // 32)):
+        return None
+    found = {call_bound_s([l], batch, _act(l, "in"), _act(l, "out"), config["dtype"])
+             for l in arch.conv_layers(config)
+             if l["kind"] == "binary" and l["cin"] == c and l["cout"] == o and l["k"] == kh
+             and l["h_in"] == h}
+    return found.pop() if len(found) == 1 else None
+
+
+def _block_bound(config: dict, shapes: list, batch: int, kernel: str) -> Optional[float]:
+    """Least time of one ``kernel`` call that computes a whole block on
+    NHWC input of shape ``shapes[0]``: the first of the configuration's
+    blocks that ``kernel`` computes (:func:`portbench.arch.fused_blocks`)
+    with that input. None for a family with no such blocks."""
+    candidates = arch.fused_blocks(config, kernel)
+    if not candidates:
+        return None
     try:
         n, h, _, c = shapes[0]
     except (IndexError, TypeError, ValueError):
         return None
     if n != batch:
         return None
-    for blk in arch.blocks(config):
-        mine = {l["name"]: l for l in _block_layers(config, blk["prefix"])}
-        first = mine[blk["prefix"] + "conv1"]
-        last = mine[f"{blk['prefix']}conv{len(blk['units'])}"]
-        if blk["downsample"] == downsample and blk["cin"] == c and first["h_in"] == h:
-            return call_bound_s(list(mine.values()), batch, _act(first, "in"),
-                                _act(last, "out"), config["dtype"])
+    for layers, first, last in candidates:
+        if first["cin"] == c and first["h_in"] == h:
+            return call_bound_s(layers, batch, _act(first, "in"), _act(last, "out"),
+                                config["dtype"])
     return None
 
 
 def fused_basic_block_bound(config: dict, shapes: list, batch: int) -> Optional[float]:
     """``fused_basic_block``: a basic block with an identity shortcut."""
-    if config["block"] != "basic":
-        return None
-    return _block_bound(config, shapes, batch, downsample=False)
+    return _block_bound(config, shapes, batch, "fused_basic_block")
 
 
 def fused_downsample_block_bound(config: dict, shapes: list, batch: int) -> Optional[float]:
     """``fused_downsample_block``: a basic block with its projection shortcut."""
-    if config["block"] != "basic":
-        return None
-    return _block_bound(config, shapes, batch, downsample=True)
+    return _block_bound(config, shapes, batch, "fused_downsample_block")
 
 
 # a kernel's bound per traced call, keyed by the call's input shapes: which
 # layer a call computes is read from the call, never from the program's
 # routing rules, so a call the program routes elsewhere is counted where it goes
 KERNEL_BOUNDS = {"binary_gemm": binary_gemm_bound,
+                 "binary_conv2d": binary_conv2d_bound,
                  "fused_basic_block": fused_basic_block_bound,
                  "fused_downsample_block": fused_downsample_block_bound}
 

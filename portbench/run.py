@@ -83,6 +83,19 @@ def readers() -> dict:
     return out
 
 
+def listed(cell: str, section: str):
+    """The names of ``BENCHMARK.json``'s ``section`` metrics that ``cell``
+    reports (a metric without ``workloads`` in every cell), or None where
+    the file is not beside the harness or names no such cell."""
+    path = CHECKOUT / "BENCHMARK.json"
+    if not path.is_file():
+        return None
+    bench = json.loads(path.read_text())
+    if cell not in {w["name"] for w in bench.get("workloads", [])}:
+        return None
+    return {m["name"] for m in bench[section] if cell in m.get("workloads", [cell])}
+
+
 def loaded_forbidden() -> list:
     return sorted({m.split(".", 1)[0] for m in sys.modules} & set(FORBIDDEN))
 
@@ -130,6 +143,10 @@ def measure(args, cell: dict, device, rank: int = 0, world: int = 1,
                 metrics[name] = {"value": float(value), "unit": mod.UNIT}
     else:
         metrics = {k: {"value": float(v), "unit": u} for k, (v, u) in rec.end_to_end.items()}
+    # the line holds what BENCHMARK.json lists for the cell, where it lists it
+    keep = listed(cell["name"], "per_layer" if args.trace else "end_to_end")
+    if keep is not None:
+        metrics = {k: v for k, v in metrics.items() if k in keep}
     on_card = device.type == "cuda"
     result = {
         "correct": rec.correct, "attempted": rec.attempted, "failed": rec.failed,

@@ -149,6 +149,21 @@ def test_a_run_that_loads_jax_prints_no_result(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
+def test_a_line_holds_the_metrics_listed_for_its_cell(capsys):
+    """The metrics a run prints are those BENCHMARK.json lists for its cell:
+    ``r18-serve-b64`` reads its latency tail per layer, not end to end."""
+    small = {"config": {"image_size": 32},
+             "mix": {"batch": 4, "warmup": 1, "sample": 1, "sample_range": 1, "rows": 1}}
+    rc = run.main(["--workload", "r18-serve-b64", "--seed", "2147483659", "--seconds", "0.2"],
+                  device="cpu", overrides=small)
+    assert rc == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(result["metrics"]) == {"serve_images_per_s", "setup_s"}
+    assert run.listed("r18-serve-b64", "per_layer") >= {"latency_p95_ms.serve"}
+    assert "latency_p95_ms.serve" not in run.listed("r50-serve-b64", "per_layer")
+    assert run.listed("a-cell-of-no-file", "end_to_end") is None
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 @pytest.mark.parametrize("trace", [0, 1])

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from portbench import arch, program, weights
+from portbench.reference import common
 from portbench.reference import resnet as reference
 from portbench.traffic import train_steps
 
@@ -25,7 +26,7 @@ def test_served_logits_match_the_reference(name, batch):
     x = weights.make_images(5, batch, (3, SIZE, SIZE), "cpu", 1)
     pred = program.predictor(program.qat_model(cfg, state, "cpu"), cfg, batch, "cpu")
     got = pred(x).float()
-    want = reference.logits(cfg, state, x)
+    want = common.logits(reference.Forward, cfg, state, x)
     assert ((got - want).norm(dim=1) / want.norm(dim=1)).max() < 1e-5
 
 
@@ -45,7 +46,8 @@ def test_training_steps_match_the_reference():
             grads = {k: float((opt.state[p]["exp_avg"] / 0.1).norm())
                      for k, p in model.named_parameters()}
     change = {k: float((p.detach() - start[k]).norm()) for k, p in model.named_parameters()}
-    ref = reference.train_steps(cfg, state, batches, lr=1e-3, weight_decay=1e-4)
+    ref = common.train_steps(reference.Forward, cfg, state, batches, lr=1e-3,
+                             weight_decay=1e-4)
     assert losses == pytest.approx(ref["losses"], rel=1e-5)
     got = train_steps.numbers({"losses": losses, "grad_norms": grads, "change_norms": change},
                               ref)

@@ -21,7 +21,7 @@ NAME_CHARS = 160
 # the profiler names them; frozen here so that a reader's meaning does not move
 PORT_KERNELS = ("binary_gemm", "fused_stem", "fused_chain", "fused_basic_block",
                 "fused_downsample_block", "fused_bottleneck", "fused_stem_chain",
-                "binary_conv2d_s1", "popcount_gemm")
+                "binary_conv2d_s1", "popcount_gemm", "binary_conv2d")
 _PORT = re.compile(r"\b(" + "|".join(PORT_KERNELS) + r")_kernel\b")
 # convolution and matrix-product kernels (cuDNN, cuBLAS, CUTLASS, the port's
 # GEMMs); layout transposes around them are not

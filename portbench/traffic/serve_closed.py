@@ -16,47 +16,33 @@ over the window) and ``serve_p95_ms`` (95th percentile of request latency,
 from the call into ``Predictor.__call__`` to the logits on the host).
 
 ``correct``: on the compared requests, forward hooks on the served model's
-stages, blocks and binary layers keep each one's input and output on the
-host; after the window the plain reference follows the program module by
-module from those tensors (:func:`numbers`). A binary network turns any
-rounding of a value near a sign into a flipped sign, and the flips spread
-through the next binary layers until the logits of a bf16 forward and of an
-fp8 one differ from float32's by the same few percent; within one block,
-from the same input, they stay in proportion to the precision. A whole
-stage in one module (``fused_chain``) is four binary convs deep, past that
-point, so a cell serves no such stage.
+modules that the configuration's family watches (``watched_names``: for a
+ResNet its stages, blocks and binary layers) keep each one's input and
+output on the host; after the window the plain reference follows the
+program module by module from those tensors (:func:`numbers`, the family's
+``serve_pairs``). A binary network turns any rounding of a value near a
+sign into a flipped sign, and the flips spread through the next binary
+layers until the logits of a bf16 forward and of an fp8 one differ from
+float32's by the same few percent; within one block, from the same input,
+they stay in proportion to the precision. A module four binary convs deep
+(a ResNet stage in ``fused_chain``) is past that point, so a cell serves no
+such module.
 """
 from __future__ import annotations
 
 import gc
-import re
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import arch, program, weights
 from ..core import Context, Record
-from ..reference import resnet as reference
+from ..reference.common import exact_matmul
 from ..trace import profile_slice
 
 POOL_STREAM = 1
-_PUBLISHED = re.compile(r"^(layer\d+|\d+|conv\d+|downsample)$")
-
-
-def published_name(name: str) -> str:
-    """A served module's path with the program's wrapper segments dropped."""
-    return ".".join(p for p in name.split(".") if _PUBLISHED.match(p))
-
-
-def watched_names(config: dict) -> set:
-    """Stages, blocks and binary layers of the configuration, by name."""
-    names = {f"layer{s}" for s in range(1, len(config["layers"]) + 1)}
-    names |= {blk["prefix"][:-1] for blk in arch.blocks(config)}
-    names |= {l["name"] for l in arch.conv_layers(config) if l["kind"] == "binary"}
-    return names
 
 
 class Server:
@@ -80,15 +66,17 @@ class Server:
         del state
         self.pred = program.predictor(model, cfg, self.batch, ctx.device,
                                       **mix.get("predictor", {}))
-        self.watched = watched_names(cfg)
+        self.family = arch.family(cfg)
+        self.watched = self.family.watched_names(cfg)
         rng = np.random.default_rng([ctx.seed % (1 << 63), 19])
         self.rows = torch.as_tensor(np.sort(rng.choice(
             self.batch, min(mix["rows"], self.batch), replace=False)))
 
-    def request(self, i: int, keep: Optional[dict] = None):
-        """Serve request ``i``: (host seconds in the call, latency, logits).
-        With ``keep``, forward hooks on the served model's stages put each
-        stage's input and output there, on the host."""
+    def request(self, i: int, keep: Optional[dict] = None, check: bool = False):
+        """Serve request ``i``: (host seconds in the call, latency, logits,
+        and with ``check`` whether they are all finite, else None). With
+        ``keep``, forward hooks on the served model's stages put each stage's
+        input and output there, on the host."""
         xb = self.pool[i % len(self.pool)]
         hooks = [] if keep is None else self._hooks(keep)
         try:
@@ -97,17 +85,20 @@ class Server:
             t1 = time.perf_counter()
             host = out.cpu()
             t2 = time.perf_counter()
+            # read on the device, after the latency: one small reduction in
+            # place of a pass of the CPU operators over the bf16 logits, which
+            # woke every host thread inside the window
+            finite = bool(torch.isfinite(out).all()) if check else None
         finally:
             for h in hooks:
                 h.remove()
-        return t1 - t0, t2 - t0, host
+        return t1 - t0, t2 - t0, host, finite
 
     def _hooks(self, keep: dict) -> list:
         """Hooks that keep the compared ``rows`` of the input and output of
-        each stage (``layer<s>``), block (``layer<s>.<j>``) and binary layer
-        (``layer<s>.<j>.conv<u>``, ``.downsample.1``) of the served model
-        that runs as a module, under its published name (wrapper modules'
-        names dropped: ``layer2.stage.0.block.conv1`` is ``layer2.0.conv1``)."""
+        each watched module of the served model that runs as a module, under
+        its published name (the family's ``published_name``: wrapper
+        modules' names dropped)."""
         rows = self.rows
         pin = self.ctx.device.type == "cuda"
 
@@ -127,7 +118,7 @@ class Server:
 
         hooks = []
         for name, module in self.pred.served_model().named_modules():
-            published = published_name(name)
+            published = self.family.published_name(name)
             # the module the name ends on: a block's wrapper, not the block
             # inside it or the block's activations and norms
             last = published.rsplit(".", 1)[-1]
@@ -177,8 +168,7 @@ def serve(srv: Server, seconds: float, compare: List[int], start: int = 0) -> di
     while True:
         keep = {} if i in compare else None
         try:
-            c, lat, logits = srv.request(i, keep)
-            ok = bool(torch.isfinite(logits).all())
+            c, lat, logits, ok = srv.request(i, keep, check=True)
         except Exception as e:  # a request that raises is a failed request
             print(f"request {i} raised {type(e).__name__}: {e}", flush=True)
             c, lat, logits, ok = float("nan"), float("nan"), None, False
@@ -200,8 +190,8 @@ def serve(srv: Server, seconds: float, compare: List[int], start: int = 0) -> di
     while compare and i <= max(compare) and time.perf_counter() < late:
         keep = {} if i in compare else None
         try:
-            _, _, logits = srv.request(i, keep)
-            if keep is not None and bool(torch.isfinite(logits).all()):
+            _, _, logits, ok = srv.request(i, keep, check=keep is not None)
+            if ok:
                 kept.append((i % len(srv.pool), keep, logits))
         except Exception as e:  # a compared request that raises is not compared
             print(f"request {i} raised {type(e).__name__}: {e}", flush=True)
@@ -220,104 +210,31 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor, allowance=None) -> float:
     return float((gap.norm(dim=1) / want.norm(dim=1)).max())
 
 
-# a bound on what rounding in the serving dtype moves a value that decides a
-# sign inside a block: two bf16 ulps of the larger of its two terms
-SIGN_ROUNDING = 2.0 ** -7
-
-
-def flip_allowance(f, blk: dict, h: torch.Tensor) -> torch.Tensor:
-    """Per output element of the block ``blk`` on its input ``h``, the most
-    that sign flips inside the block can move it: the block's convs after
-    the first read the sign of the previous unit's ReLU output, so a value
-    ``u = scale * acc + add`` there (``acc`` the integer sum of the signs,
-    ``scale`` and ``add`` the binary conv's scales and norm folded) whose
-    size is within ``SIGN_ROUNDING`` of its terms, plus what flips before it
-    may move it, can read 0 or 1 on either side; each such input moves the
-    next conv's integer sum by at most 1. Works the block out again from the
-    reference's state ``f.S``, in the reference's own terms."""
-    S, p = f.S, blk["prefix"]
-    t, unsure, allow = h, None, None
-    for u, (_, _, k, st) in enumerate(blk["units"], 1):
-        name, norm = f"{p}conv{u}", f"{p}bn{u}"
-        w = S[name + ".weight"]
-        inv = torch.rsqrt(S[norm + ".running_var"] + reference.EPS) * S[norm + ".weight"]
-        scale = (w.abs().mean(dim=(1, 2, 3)) * inv).view(1, -1, 1, 1) * \
-            S[name + ".activation_post_process.alpha"]
-        add = (S[norm + ".bias"] - S[norm + ".running_mean"] * inv).view(1, -1, 1, 1)
-        acc = F.conv2d(torch.sign(t), torch.sign(w), None, st, k // 2)
-        allow = torch.zeros_like(acc) if unsure is None else scale.abs() * F.conv2d(
-            unsure.to(acc.dtype), torch.ones_like(w), None, st, k // 2)
-        v = acc * scale + add
-        unsure = v.abs() <= SIGN_ROUNDING * ((acc * scale).abs() + add.abs()) + allow
-        t = torch.relu(v)
-    return allow
-
-
 def pairs(srv: Server, kept: list, q=None):
     """The reference following the program, over the compared requests and
-    rows, as ``(name, got, want)``:
-
-    - ``stem``: the program's ``layer1`` input against the reference's stem
-      on the images;
-    - ``conv``: where binary layers run as modules, each one's output
-      against the reference's binary conv and norm on the program's own
-      input to it;
-    - ``add``: each such block's output against the reference's residual
-      add and ReLU of the program's own branch and shortcut;
-    - ``block``: where a block runs as one module (a fused block kernel),
-      its output against the reference's block on the program's own input,
-      each element's gap less what sign flips inside the block may move it
-      (:func:`flip_allowance`): what is left is the block's rounding;
-    - ``head``: the served logits against the reference's head on the last
-      block's output (a stage that runs whole in one kernel, with the head
-      folded in, shows no block's output, and the check reads no number).
-
-    Each comes as ``(name, got, want, allowance)``, the allowance None or
-    what ``got`` may lie off ``want`` by element. With ``q``, ``got`` is the
-    control's: the reference in that precision put in the program's place,
-    on the same inputs."""
+    rows: the family's ``serve_pairs`` on each request's images, kept
+    module inputs and outputs and logits, on the device in float32, with
+    the reference's ``Forward`` over the same weights. Each comes as
+    ``(name, got, want, allowance)``, the allowance None or what ``got``
+    may lie off ``want`` by element. With ``q``, ``got`` is the control's:
+    the reference in that precision put in the program's place, on the
+    same inputs."""
     ctx = srv.ctx
     dev = ctx.device
+    Forward = arch.reference(ctx.config).Forward
     state = {k: v.to(dev) for k, v in srv.state.items()}
-    ref = reference.Forward(ctx.config, state)
-    low = ref if q is None else reference.Forward(ctx.config, state, q=q)
-    layers = {l["name"]: l for l in arch.conv_layers(ctx.config)}
+    ref = Forward(ctx.config, state)
+    low = ref if q is None else Forward(ctx.config, state, q=q)
     rows = srv.rows
 
-    def conv(f, name, h):
-        norm = name[:-1] + "2" if name.endswith("downsample.1") else name.replace("conv", "bn")
-        l = layers[name]
-        return f.norm(f.binary_conv(h, name, l["stride"], l["pad"]), norm)
-
-    with torch.no_grad(), reference.exact_matmul():
+    def requests():
         for pool_id, keep, logits in kept:
-            x = srv.pool[pool_id][rows].to(dev)
-            logits = logits[rows].to(dev, torch.float32)
-            prog = {k: (i.to(dev, torch.float32), o.to(dev, torch.float32))
-                    for k, (i, o) in keep.items()}
-            yield "stem", (prog["layer1"][0] if q is None else low.stem(x)), ref.stem(x), None
-            for blk in ref.blocks:
-                p = blk["prefix"]
-                for name in [p + "downsample.1"] + [f"{p}conv{u}" for u in (1, 2, 3)]:
-                    if name in prog:
-                        h, out = prog[name]
-                        yield ("conv", out if q is None else conv(low, name, h),
-                               conv(ref, name, h), None)
-                tail = f"{p}conv{len(blk['units'])}"
-                if p[:-1] in prog and tail not in prog:
-                    h, out = prog[p[:-1]]
-                    yield ("block", out if q is None else low.block(blk, h),
-                           ref.block(blk, h), flip_allowance(ref, blk, h))
-                if p[:-1] in prog and tail in prog:
-                    h, out = prog[p[:-1]]
-                    short = prog[p + "downsample.1"][1] if blk["downsample"] else h
-                    branch = prog[tail][1]
-                    got = out if q is None else low.q(torch.relu(low.q(branch) + low.q(short)))
-                    yield "add", got, torch.relu(branch + short), None
-            features = prog.get(ref.blocks[-1]["prefix"][:-1], (None, None))[1]
-            if features is not None:
-                yield ("head", logits if q is None else low.head(features),
-                       ref.head(features), None)
+            yield (srv.pool[pool_id][rows].to(dev), {
+                k: (i.to(dev, torch.float32), o.to(dev, torch.float32))
+                for k, (i, o) in keep.items()}, logits[rows].to(dev, torch.float32))
+
+    with torch.no_grad(), exact_matmul():
+        yield from srv.family.serve_pairs(ref, low, q, requests())
 
 
 def numbers(srv: Server, kept: list, q=None) -> Dict[str, float]:

@@ -46,11 +46,10 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import arch, program, weights
 from ..core import Context, Record
-from ..reference import resnet as reference
+from ..reference import common
 from ..trace import profile_slice
 
 POOL_STREAM = 2
@@ -91,14 +90,14 @@ class Trainer:
     def first_steps(self) -> dict:
         """Steps 1-3 with what the check compares: each loss, the first
         gradient's norm per parameter and each parameter's change; for step
-        1 also the compared rows' input and output of the float stem, each
-        binary layer and the head (``layers``), and each parameter's first
-        gradient and change (``first``)."""
+        1 also the compared rows' input and output of each layer the family
+        watches (``kept``), and each parameter's first gradient and change
+        (``first``)."""
         params = dict(self.model.named_parameters())
         start = {k: p.detach().clone() for k, p in params.items()}
-        losses, grad_norms, layers, first = [], {}, {}, {}
+        losses, grad_norms, kept, first = [], {}, {}, {}
         for i in range(FIRST_STEPS):
-            hooks = self._hooks(layers) if i == 0 else []
+            hooks = self._hooks(kept) if i == 0 else []
             try:
                 losses.append(float(self.step(i)))
             finally:
@@ -114,13 +113,13 @@ class Trainer:
         change = {k: float((p.detach() - start[k]).double().norm())
                   for k, p in params.items()}
         return {"losses": losses, "grad_norms": grad_norms, "change_norms": change,
-                "layers": layers, "first": first}
+                "kept": kept, "first": first}
 
     def late_step(self, i: int) -> dict:
         """Step ``i`` from a snapshot: the weights before it (``params``),
         the optimizer's moments and its step count ``t`` for it, the
         gradient as the optimizer got it, each parameter's change, and the
-        compared rows' layers (``layers``), all on the host."""
+        compared rows' layers (``kept``), all on the host."""
         # a parameter the optimizer kept no moments for never had a gradient
         # (the first steps' gradient gaps read that); AdamW leaves it alone
         params = {k: p for k, p in self.model.named_parameters() if "exp_avg" in self.opt.state[p]}
@@ -130,15 +129,15 @@ class Trainer:
             st = self.opt.state[p]
             moments[k] = (st["exp_avg"].clone(), st["exp_avg_sq"].clone())
             t = int(st["step"]) + 1
-        layers: dict = {}
-        hooks = self._hooks(layers)
+        kept: dict = {}
+        hooks = self._hooks(kept)
         try:
             loss = float(self.step(i))
         finally:
             for h in hooks:
                 h.remove()
         out = {"params": {}, "moments": {}, "grads": {}, "change": {}, "t": t,
-               "loss": loss, "layers": layers}
+               "loss": loss, "kept": kept}
         for k, p in params.items():
             m0, v0 = moments[k]
             g = (self.opt.state[p]["exp_avg"] - BETA1 * m0) / (1 - BETA1)
@@ -157,8 +156,7 @@ class Trainer:
                 keep[name] = (args[0].detach()[r].cpu(), out.detach()[r].cpu())
             return hook
 
-        watched = {"conv1", "fc"} | {l["name"] for l in arch.conv_layers(self.ctx.config)
-                                     if l["kind"] == "binary"}
+        watched = arch.family(self.ctx.config).train_watched(self.ctx.config)
         return [m.register_forward_hook(put(n)) for n, m in self.model.named_modules()
                 if n in watched]
 
@@ -172,9 +170,9 @@ class Trainer:
         """The reference's first steps from the same weights and batches."""
         kw = {} if q is None else {"q": q}
         state = {k: v.to(self.ctx.device) for k, v in self.state.items()}
-        return reference.train_steps(self.ctx.config, state, self.pool[:FIRST_STEPS],
-                                     lr=self.ctx.mix["lr"],
-                                     weight_decay=self.ctx.mix["weight_decay"], **kw)
+        return common.train_steps(arch.reference(self.ctx.config).Forward, self.ctx.config,
+                                  state, self.pool[:FIRST_STEPS], lr=self.ctx.mix["lr"],
+                                  weight_decay=self.ctx.mix["weight_decay"], **kw)
 
 
 def _norm_gaps(got: Dict[str, float], want: Dict[str, float], names) -> list:
@@ -199,33 +197,27 @@ def numbers(prog: dict, ref: dict) -> Dict[str, float]:
 
 
 @torch.no_grad()
-def layer_numbers(tr: Trainer, layers: dict, q=None, params=None,
+def layer_numbers(tr: Trainer, kept: dict, q=None, params=None,
                   key: str = "layer_err") -> Dict[str, float]:
     """Step 1's forward, followed layer by layer: ``layer_err``, the worst
-    row's relative L2 gap of the program's output of the float stem, each
-    binary layer (its conv and output scale) and the head against the
-    reference's on the program's own input, from the f32 weights (with
-    ``params``, from those). With ``q``, the control's outputs (the
-    reference in that precision)."""
-    dev = tr.ctx.device
+    row's relative L2 gap of the program's output of each watched layer
+    (the family's ``train_watched``: for a ResNet the float stem conv, each
+    binary layer with its output scale, and the head) against the
+    reference's (the family's ``train_layer``) on the program's own input,
+    from the f32 weights (with ``params``, from those). With ``q``, the
+    control's outputs (the reference in that precision)."""
+    dev, cfg = tr.ctx.device, tr.ctx.config
+    fam, Forward = arch.family(cfg), arch.reference(cfg).Forward
     state = {k: v.to(dev) for k, v in {**tr.state, **(params or {})}.items()}
-    ref = reference.Forward(tr.ctx.config, state, train=True)
-    low = ref if q is None else reference.Forward(tr.ctx.config, state, train=True, q=q)
-    spec = {l["name"]: l for l in arch.conv_layers(tr.ctx.config)}
+    ref = Forward(cfg, state, train=True)
+    low = ref if q is None else Forward(cfg, state, train=True, q=q)
+    spec = {l["name"]: l for l in arch.conv_layers(cfg)}
     worst = 0.0
-
-    def run(f, name, h):
-        if name == "conv1":
-            return F.conv2d(f.q(h), f.q(f.S["conv1.weight"]), None, 2, 3)
-        if name == "fc":
-            return F.linear(f.q(h), f.q(f.S["fc.weight"]), f.q(f.S["fc.bias"]))
-        return f.binary_conv(h, name, spec[name]["stride"], spec[name]["pad"])
-
-    with reference.exact_matmul():
-        for name, (h, out) in layers.items():
+    with common.exact_matmul():
+        for name, (h, out) in kept.items():
             h = h.to(dev, torch.float32)
-            got = out.to(dev, torch.float32) if q is None else run(low, name, h)
-            want = run(ref, name, h)
+            got = out.to(dev, torch.float32) if q is None else fam.train_layer(low, spec[name], h)
+            want = fam.train_layer(ref, spec[name], h)
             gap = ((got - want).flatten(1).double().norm(dim=1)
                    / want.flatten(1).double().norm(dim=1)).max()
             worst = max(worst, float(gap))
@@ -236,8 +228,8 @@ def _adamw_change(tr: Trainer, first: dict, dtype) -> Dict[str, torch.Tensor]:
     dev = tr.ctx.device
     params = {k: tr.state[k].to(dev, dtype).clone() for k in first}
     start = {k: v.clone() for k, v in params.items()}
-    reference.adamw_step(params, {k: g.to(dev, dtype) for k, (g, _) in first.items()},
-                         {}, 1, tr.ctx.mix["lr"], tr.ctx.mix["weight_decay"])
+    common.adamw_step(params, {k: g.to(dev, dtype) for k, (g, _) in first.items()},
+                      {}, 1, tr.ctx.mix["lr"], tr.ctx.mix["weight_decay"])
     return {k: (params[k] - start[k]).double() for k in params}
 
 
@@ -271,8 +263,8 @@ def late_numbers(tr: Trainer, late: dict, dtype=None, q=None) -> Dict[str, float
         start = {k: v.clone() for k, v in P.items()}
         state = {k: (m.to(dev, dt).clone(), v.to(dev, dt).clone())
                  for k, (m, v) in late["moments"].items()}
-        reference.adamw_step(P, {k: g.to(dev, dt) for k, g in late["grads"].items()},
-                             state, late["t"], mix["lr"], mix["weight_decay"])
+        common.adamw_step(P, {k: g.to(dev, dt) for k, g in late["grads"].items()},
+                          state, late["t"], mix["lr"], mix["weight_decay"])
         return {k: (P[k] - start[k]).double() for k in P}
 
     want = change(torch.float32)
@@ -281,7 +273,7 @@ def late_numbers(tr: Trainer, late: dict, dtype=None, q=None) -> Dict[str, float
     # an optimizer that kept no moments at all moved nothing: no number
     out = {"late_update_err": max((float((got[k] - want[k]).norm() / want[k].norm())
                                    for k in want), default=float("nan"))}
-    out.update(layer_numbers(tr, late["layers"], q=q, params=late["params"],
+    out.update(layer_numbers(tr, late["kept"], q=q, params=late["params"],
                              key="late_layer_err"))
     return out
 
@@ -330,7 +322,7 @@ def run(ctx: Context) -> Record:
     if ctx.device.type == "cuda":
         rec.memory_peak_bytes = int(torch.cuda.max_memory_allocated(ctx.device))
     tr.close()
-    got = {**numbers(first, tr.reference()), **layer_numbers(tr, first["layers"]),
+    got = {**numbers(first, tr.reference()), **layer_numbers(tr, first["kept"]),
            **update_numbers(tr, first["first"]), **late_numbers(tr, late)}
     for name, limit in ctx.cell["limits"].items():
         rec.checks[name] = (got.get(name, float("nan")), limit)

@@ -1,9 +1,10 @@
 """Weights, norm statistics and inputs made from ``--seed`` on the device.
 
-Every tensor of the QAT model's state is drawn by its name and shape
-(:func:`portbench.arch.state_spec`) from one ``torch.Generator`` on the
-device, in two calls (one normal, one uniform draw, cut into the tensors in
-a fixed order), so the same seed gives the same tensors:
+Every tensor of the QAT model's state is drawn by its name, shape and init
+rule (:func:`portbench.arch.state_spec`, :data:`RULES` and the family's
+``INITS``) from one ``torch.Generator`` on the device, in two calls (one
+normal, one uniform draw, cut into the tensors in a fixed order), so the
+same seed gives the same tensors:
 
 - convs: Kaiming normal, fan-out (``sqrt(2 / (cout * k * k))``);
 - the dense head: uniform in ``+-1 / sqrt(fan_in)``;
@@ -24,8 +25,19 @@ import torch
 
 from . import arch
 
-NORMAL = {"conv", "bn_weight", "bn_bias", "bn_mean"}
-UNIFORM = {"linear", "bn_var", "alpha"}
+# init name -> (draw, transform): ``n`` cuts the tensor from the normal draw,
+# ``u`` from the uniform one; ``transform(v, shape, fan_in)`` maps the cut to
+# the tensor, ``fan_in()`` giving its dense layer's fan-in. ``count`` tensors
+# are a zero int64 scalar. A family's ``INITS`` adds rules of its own.
+RULES = {
+    "conv": ("n", lambda v, shape, fan_in: v * math.sqrt(2.0 / (shape[0] * shape[2] * shape[3]))),
+    "linear": ("u", lambda v, shape, fan_in: (2 * v - 1) * (1.0 / math.sqrt(fan_in()))),
+    "bn_weight": ("n", lambda v, shape, fan_in: 1.0 + 0.3 * v),
+    "bn_bias": ("n", lambda v, shape, fan_in: 0.3 * v),
+    "bn_mean": ("n", lambda v, shape, fan_in: 0.3 * v),
+    "bn_var": ("u", lambda v, shape, fan_in: 0.5 + 1.5 * v),
+    "alpha": ("u", lambda v, shape, fan_in: 0.5 + v),
+}
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -35,10 +47,11 @@ def generator(seed: int, device) -> torch.Generator:
 def make_state(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """The QAT model's state (f32, ``num_batches_tracked`` int64) on ``device``."""
     spec = arch.state_spec(config)
+    rules = {**RULES, **arch.family(config).INITS}
     by_name = {n: s for n, s, _ in spec}
     gen = generator(seed, device)
-    sizes = {"n": sum(math.prod(s) for _, s, k in spec if k in NORMAL),
-             "u": sum(math.prod(s) for _, s, k in spec if k in UNIFORM)}
+    sizes = {d: sum(math.prod(s) for _, s, k in spec if k != "count" and rules[k][0] == d)
+             for d in ("n", "u")}
     normal = torch.randn(sizes["n"], generator=gen, device=device)
     uniform = torch.rand(sizes["u"], generator=gen, device=device)
     at = {"n": 0, "u": 0}
@@ -47,23 +60,11 @@ def make_state(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         if init == "count":
             state[name] = torch.zeros((), dtype=torch.int64, device=device)
             continue
-        which = "n" if init in NORMAL else "u"
+        which, transform = rules[init]
         n = math.prod(shape)
         v = (normal if which == "n" else uniform)[at[which]:at[which] + n].view(shape)
         at[which] += n
-        if init == "conv":
-            v = v * math.sqrt(2.0 / (shape[0] * shape[2] * shape[3]))
-        elif init == "linear":
-            bound = 1.0 / math.sqrt(arch.fan_in(by_name, name))
-            v = (2 * v - 1) * bound
-        elif init == "bn_weight":
-            v = 1.0 + 0.3 * v
-        elif init in ("bn_bias", "bn_mean"):
-            v = 0.3 * v
-        elif init == "bn_var":
-            v = 0.5 + 1.5 * v
-        elif init == "alpha":
-            v = 0.5 + v
+        v = transform(v, shape, lambda: arch.fan_in(config, by_name, name))
         state[name] = v.contiguous()
     return state
 
